@@ -9,22 +9,34 @@ exits non-zero and prints no result line; no phase catches its own failure.
 1. device  -- the card's name and power limit from ``nvidia-smi``, and
    torch's name for it;
 2. build   -- ``nvcc`` builds every kernel of the main path from the sources
-   in this checkout;
-3. kernels -- each kernel against its plain PyTorch version on the card, over
-   the cases of the JAX kernel tests (GQA group sizes of llama2-7b,
-   qwen3-0.6b and llama2-70b, unmapped table entries, a wrapped ring with a
-   window, softcap, a fully masked row, 1 and 4 query tokens per slot), in
-   float32 and bfloat16; then timed at the main path's shapes beside the plain
-   version, one library call and the card's bound;
+   in this checkout, one process per source, all started together; each
+   source's compile time and register and spill report;
+3. kernels -- each kernel against its plain PyTorch version on the card, in
+   float32 and bfloat16.  The paged kernel over the cases of the JAX kernel
+   tests (GQA group sizes of llama2-7b, qwen3-0.6b and llama2-70b, unmapped
+   table entries, a wrapped ring with a window, softcap, a fully masked row,
+   1 and 4 query tokens per slot); the contiguous-ring kernel over GQA
+   groups 1, 2 and 8, C=700 with 650 valid keys, the contiguous serve's
+   4096-key ring, shared and per-row positions, the wrapped ring with a
+   window of 50, softcap and a fully masked row.  Then each is timed at the
+   main path's shapes beside the plain version, one library call and the
+   card's bound, and every timing input set is held against the plain
+   version too;
 4. serve   -- llama2-7b at full width and depth, random weights from a seed,
-   through ``LLM.generate`` over ``TorchTensorBackend(impl="cuda")`` on the
-   paged KV cache: six greedy requests over four slots, so slots recycle.
-   Every kernel of the path must have launched, once per layer and decode
-   step; the decode logits, fed the run's own tokens, must agree with the
+   six greedy requests over four slots, so slots recycle, through the
+   ``LLM`` API over ``TorchTensorBackend(impl="cuda")``, three times:
+   - paged: the paged kernel launches once per layer and decode step;
+   - contiguous (the default layout), ``max_len`` 4096: the contiguous-ring
+     kernel launches once per layer and decode step, the paged one never;
+   - paged with ``spec_k=4`` and an oracle draft corrupted at 25%, so
+     rollbacks run: the paged kernel launches once per layer and verify
+     step, with 4 query tokens per slot;
+   and each time the logits, fed the run's own tokens, must agree with the
    ``impl="ref"`` read path;
 5. result  -- one JSON line of per-kernel numbers, then the result line.
 
-It imports torch and the port only, never jax and nothing of ``repro``.
+It imports torch, numpy and the port only, never jax and nothing of
+``repro``.
 """
 import json
 import statistics
@@ -45,15 +57,17 @@ SRC = ROOT / "src"
 # neighbouring bf16 value, one step of 2**-7 relative.
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
        "bfloat16": dict(rtol=2 ** -7, atol=2 ** -7)}
-# decode logits of impl="cuda" against impl="ref" over the whole bf16 model:
-# the ref path rounds the probabilities to bf16 before the PV product and the
-# kernel does not, and 32 layers carry that difference to the logits
+# logits of impl="cuda" against impl="ref" over the whole bf16 model: the
+# ref path rounds the probabilities to bf16 before the PV product and the
+# kernels do not, and 32 layers carry that difference to the logits
 LOGITS_ATOL = 0.25
 
 ARCH = "llama2-7b"
 SLOTS, MAX_LEN, BLOCK_SIZE = 4, 512, 16
+CONTIGUOUS_MAX_LEN = 4096           # the Llama2 context: 4 x 2 GiB of rings
 PROMPT_LENS = (17, 64, 100, 128, 200, 256)
 MAX_TOKENS = 32
+SPEC_K, ACCEPT_PROB = 4, 0.75
 SEED = 0
 DEVICE = "cuda"
 
@@ -78,95 +92,97 @@ def mem_rate(name: str) -> float:
     raise ValueError(f"no datasheet memory rate for card {name!r}")
 
 
+def bound(n_bytes, n_ops, card):
+    """The least time of a call: its bytes over the memory rate or its
+    operations over the bf16 tensor rate, whichever is larger."""
+    bytes_ms = n_bytes / mem_rate(card) * 1e3
+    ops_ms = n_ops / PEAK_BF16 * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), n_bytes=n_bytes,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 # --------------------------------------------------------------------------- #
 # kernels against their plain versions
 # --------------------------------------------------------------------------- #
 
-def paged_case(rng, *, b, h, kh, nbs, lens, kq, d=128, bs=BLOCK_SIZE,
-               dead=(), last=None):
-    """Numpy inputs of one paged attention call.  Slot i holds keys
-    0..lens[i]+kq-2 (its history plus the step's own tokens, scattered
-    first) and decodes from ``pos = lens[i] - 1``; table entries past its
-    keys stay unmapped (-1), as the pager leaves them.  Slots in ``dead``
-    hold nothing.  ``last`` wraps slot 0's ring: its keys are the ``c``
-    positions up to ``last``."""
-    c = nbs * bs
-    n_blocks = b * nbs + 2
-    pools = rng.standard_normal((2, n_blocks + 1, bs, kh, d), np.float32)
-    q = rng.standard_normal((b, kq, h, d), np.float32)
-    bt = rng.permutation(n_blocks)[:b * nbs].reshape(b, nbs).astype(np.int32)
-    n_keys = np.asarray(lens) + kq - 1
-    cols = np.arange(c)[None]
-    key_pos = np.where(cols < n_keys[:, None], cols, -1).astype(np.int32)
-    pos = (np.asarray(lens) - 1).astype(np.int32)
-    if last is not None:
-        key_pos[0] = last - (last - np.arange(c)) % c
-        pos[0] = last - kq + 1
-    used = -(-(key_pos.max(axis=1) + 1) // bs)
-    bt[np.arange(nbs)[None] >= np.minimum(used, nbs)[:, None]] = -1
-    for i in dead:
-        bt[i], key_pos[i] = -1, -1
-    return dict(q=q, k_pool=pools[0], v_pool=pools[1], bt=bt,
-                key_pos=key_pos, pos=pos)
-
-
-KERNEL_CASES = [
-    # name, shapes, options
-    ("llama2-7b g=1", dict(b=4, h=32, kh=32, nbs=32, lens=(512, 300, 17, 129),
-                           kq=1), {}),
-    ("llama2-7b g=1 KQ=4", dict(b=4, h=32, kh=32, nbs=32,
-                                lens=(509, 300, 17, 129), kq=4), {}),
-    ("qwen3-0.6b g=2 softcap", dict(b=3, h=16, kh=8, nbs=16,
-                                    lens=(40, 25, 200), kq=1),
+PAGED_CASES = [
+    # name, paged_case(b, h, kh, d, bs, nbs, lens, kq, seed), options
+    ("llama2-7b g=1", (4, 32, 32, 128, 16, 32, (512, 300, 17, 129), 1), {}),
+    ("llama2-7b g=1 KQ=4", (4, 32, 32, 128, 16, 32, (509, 300, 17, 129), 4),
+     {}),
+    ("qwen3-0.6b g=2 softcap", (3, 16, 8, 128, 16, 16, (40, 25, 200), 1),
      dict(softcap=30.0)),
-    ("qwen3-0.6b g=2 KQ=4 softcap", dict(b=3, h=16, kh=8, nbs=16,
-                                         lens=(40, 25, 200), kq=4),
+    ("qwen3-0.6b g=2 KQ=4 softcap", (3, 16, 8, 128, 16, 16, (40, 25, 200), 4),
      dict(softcap=30.0)),
-    ("llama2-70b g=8", dict(b=2, h=64, kh=8, nbs=8, lens=(100, 1), kq=1), {}),
-    ("llama2-70b g=8 KQ=4", dict(b=2, h=64, kh=8, nbs=8, lens=(100, 1),
-                                 kq=4), {}),
-    ("wrapped ring + window", dict(b=1, h=32, kh=32, nbs=4, lens=(1,), kq=1,
-                                   last=150), dict(window=40)),
-    ("wrapped ring + window KQ=4", dict(b=1, h=64, kh=8, nbs=4, lens=(1,),
-                                        kq=4, last=150), dict(window=40)),
-    ("fully masked row", dict(b=2, h=16, kh=8, nbs=2, lens=(20, 5), kq=1,
-                              dead=(1,)), {}),
-    ("fully masked row KQ=4", dict(b=2, h=64, kh=8, nbs=2, lens=(20, 5),
-                                   kq=4, dead=(1,)), {}),
+    ("llama2-70b g=8", (2, 64, 8, 128, 16, 8, (100, 1), 1), {}),
+    ("llama2-70b g=8 KQ=4", (2, 64, 8, 128, 16, 8, (100, 1), 4), {}),
+    ("wrapped ring + window", (1, 32, 32, 128, 16, 4, (1,), 1),
+     dict(window=40)),
+    ("wrapped ring + window KQ=4", (1, 64, 8, 128, 16, 4, (1,), 4),
+     dict(window=40)),
+    ("fully masked row", (2, 16, 8, 128, 16, 2, (20, 5), 1), {}),
+    ("fully masked row KQ=4", (2, 64, 8, 128, 16, 2, (20, 5), 4), {}),
+]
+
+RING_CASES = [
+    # name, ring_case(b, h, kh, d, c, valid), options
+    ("llama2-7b g=1 per-row", (4, 32, 32, 128, 512, (512, 300, 17, 129)),
+     {}),
+    ("qwen3-0.6b g=2 per-row softcap", (3, 16, 8, 128, 256, (40, 25, 200)),
+     dict(softcap=30.0)),
+    ("g=8 C=700 650 valid shared", (1, 8, 1, 128, 700, 650), {}),
+    ("llama2-70b g=8 C=700 per-row", (2, 64, 8, 128, 700, (650, 100)), {}),
+    ("llama2-7b g=1 C=4096 per-row", (4, 32, 32, 128, 4096,
+                                      (4096, 1024, 288, 17)), {}),
+    ("wrapped ring + window 50", (1, 2, 1, 32, 128, 0), dict(window=50)),
+    ("fully masked row", (2, 16, 8, 128, 64, (20, 5)), {}),
 ]
 
 
 def to_device(case, dtype):
     out = {}
     for k, v in case.items():
-        t = torch.from_numpy(v).to(DEVICE)
+        t = torch.from_numpy(np.asarray(v)).to(DEVICE)
         out[k] = t.to(dtype) if t.is_floating_point() else t
-    if out["q"].shape[1] == 1:           # one token per slot: q [B, H, D]
+    if out["q"].dim() == 4 and out["q"].shape[1] == 1:   # q [B, H, D]
         out["q"] = out["q"][:, 0].contiguous()
     return out
 
 
-def check_kernels(pa):
-    """Every case in float32 and bfloat16; returns the largest error."""
-    worst = 0.0
+def compare(name, kernel, plain, x, opts, dtype, dead=()):
+    """One kernel call against its plain version; returns the largest
+    error and a note of the extra checks."""
+    tol = TOL[str(dtype).split(".")[1]]
+    got = kernel(**x, **opts)
+    want = plain(**x, **opts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol,
+                               msg=lambda m: f"{name} {dtype}: {m}")
+    extra = ""
+    for row in dead:
+        if not bool((got[row] == 0).all()):
+            raise AssertionError(f"{name}: masked row {row} is not exact "
+                                 f"zeros")
+        extra = ", masked row exact zeros"
+    return got, (got.float() - want.float()).abs().max().item(), extra
+
+
+def check_kernels(pa, da):
+    """Every case of both kernels in float32 and bfloat16; returns the
+    largest error of each."""
+    from paged_cases import paged_case, ring_case
+    worst = {"paged_attention": 0.0, "decode_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
-        for i, (name, shape, opts) in enumerate(KERNEL_CASES):
-            case = paged_case(np.random.default_rng(100 + i), **shape)
-            x = to_device(case, dtype)
-            got = pa.paged_attention(**x, **opts)
-            want = pa.paged_attention_plain(**x, **opts)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), **tol,
-                                       msg=lambda m: f"{name} {dtype}: {m}")
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            extra = ""
-            for row in shape.get("dead", ()):
-                if not bool((got[row] == 0).all()):
-                    raise AssertionError(f"{name}: masked row {row} is not "
-                                         f"exact zeros")
-                extra = ", masked row exact zeros"
+        for i, (name, shape, opts) in enumerate(PAGED_CASES):
+            dead = (1,) if name.startswith("fully masked") else ()
+            x = to_device(paged_case(*shape, seed=100 + i, dead=dead,
+                                     last=150 if "window" in opts else None),
+                          dtype)
+            got, err, extra = compare(name, pa.paged_attention,
+                                      pa.paged_attention_plain, x, opts,
+                                      dtype, dead)
+            worst["paged_attention"] = max(worst["paged_attention"], err)
             if (x["bt"] < 0).any():
                 # the scratch block and unmapped entries are never read
                 x["k_pool"][-1] = 1e6
@@ -178,13 +194,38 @@ def check_kernels(pa):
                 extra += ", scratch block never read"
             print(f"kernels: paged_attention {name} {str(dtype)[6:]}: max abs "
                   f"err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
+        for i, (name, shape, opts) in enumerate(RING_CASES):
+            dead = (1,) if name.startswith("fully masked") else ()
+            x = to_device(ring_case(*shape, seed=300 + i, dead=dead,
+                                    wrap_pos=200 if "window" in opts
+                                    else None), dtype)
+            got, err, extra = compare(name, da.decode_attention,
+                                      da.decode_attention_plain, x, opts,
+                                      dtype, dead)
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+            kp = x["key_pos"].expand(x["k_cache"].shape[:2])
+            qpos = x["pos"].expand(kp.shape[:1])[:, None]
+            masked = (kp < 0) | (kp > qpos)
+            if "window" in opts:
+                masked |= kp <= qpos - opts["window"]
+            if masked.any():
+                # masked ring rows are never read
+                x["k_cache"][masked] = 1e6
+                x["v_cache"][masked] = -1e6
+                again = da.decode_attention(**x, **opts)
+                if not torch.equal(again, got):
+                    raise AssertionError(f"{name}: output depends on a "
+                                         f"masked ring row")
+                extra += ", masked rows never read"
+            print(f"kernels: decode_attention {name} {str(dtype)[6:]}: max "
+                  f"abs err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
     return worst
 
 
 def time_ms(fn, n_sets, iters=200):
     """Device time of one call from CUDA events over ``iters`` calls,
     rotating over ``n_sets`` input sets so the caches come cold from device
-    memory, as each layer's pool does on the main path."""
+    memory, as each layer's cache does on the main path."""
     for i in range(10):
         fn(i % n_sets)
     torch.cuda.synchronize()
@@ -198,27 +239,34 @@ def time_ms(fn, n_sets, iters=200):
     return start.elapsed_time(end) / iters
 
 
-def time_kernels(pa, card_name):
-    """paged_attention at the main path's shapes: llama2-7b, 4 slots with
-    512 keys each, bf16."""
+def time_paged(pa, card, kq):
+    """paged_attention at the paged serve's shapes: llama2-7b, 4 slots with
+    512 keys each, bf16, ``kq`` query tokens per slot."""
     import torch.nn.functional as F
-    shape = dict(b=SLOTS, h=32, kh=32, nbs=MAX_LEN // BLOCK_SIZE,
-                 lens=(MAX_LEN,) * SLOTS, kq=1)
+
+    from paged_cases import paged_case
     n_sets = 4                      # 4 x 34 MB of K/V: more than the L2
-    sets = [to_device(paged_case(np.random.default_rng(200 + i), **shape),
-                      torch.bfloat16) for i in range(n_sets)]
+    sets = [to_device(paged_case(SLOTS, 32, 32, 128, BLOCK_SIZE,
+                                 MAX_LEN // BLOCK_SIZE,
+                                 (MAX_LEN - kq + 1,) * SLOTS, kq,
+                                 seed=200 + i), torch.bfloat16)
+            for i in range(n_sets)]
     lib = []
     for x in sets:
-        b, h, d = x["q"].shape
+        q4 = x["q"] if x["q"].dim() == 4 else x["q"][:, None]
+        b, _, h, d = q4.shape
         read = x["bt"].clamp(min=0).long()
         kh = x["k_pool"].shape[2]
         k = x["k_pool"][read].reshape(b, -1, kh, d).transpose(1, 2)
         v = x["v_pool"][read].reshape(b, -1, kh, d).transpose(1, 2)
-        mask = (x["key_pos"] >= 0) & (x["key_pos"] <= x["pos"][:, None])
-        lib.append((x["q"][:, :, None], k.contiguous(), v.contiguous(),
-                    mask[:, None, None]))
-    err = max((pa.paged_attention(**x) - pa.paged_attention_plain(**x))
-              .float().abs().max().item() for x in sets)
+        qpos = x["pos"][:, None] + torch.arange(kq, device=DEVICE)
+        kp = x["key_pos"][:, None]
+        mask = (kp >= 0) & (kp <= qpos[..., None])           # [B, KQ, C]
+        lib.append((q4.transpose(1, 2).contiguous(), k.contiguous(),
+                    v.contiguous(), mask[:, None]))
+    err = max(compare(f"paged_attention timing set {i} KQ={kq}",
+                      pa.paged_attention, pa.paged_attention_plain, x, {},
+                      torch.bfloat16)[1] for i, x in enumerate(sets))
     ms = time_ms(lambda i: pa.paged_attention(**sets[i]), n_sets)
     plain_ms = time_ms(lambda i: pa.paged_attention_plain(**sets[i]), n_sets,
                        iters=20)
@@ -226,20 +274,63 @@ def time_kernels(pa, card_name):
         lambda i: F.scaled_dot_product_attention(
             lib[i][0], lib[i][1], lib[i][2], attn_mask=lib[i][3]), n_sets)
     # the least work: read q, each valid key and value once, the slots'
-    # key_pos over their mapped blocks, the table and pos; write the output
+    # key_pos, the table and pos; write the output
     x = sets[0]
-    b, h, d = x["q"].shape
+    h, d = x["q"].shape[-2:]
     kh, item = x["k_pool"].shape[2], x["k_pool"].element_size()
     n_keys = int((x["key_pos"] >= 0).sum())
     n_bytes = (2 * x["q"].numel() * item + n_keys * kh * d * 2 * item
-               + n_keys * 4 + x["bt"].numel() * 4 + b * 4)
-    n_ops = n_keys * (h // kh) * kh * 4 * d
-    bytes_ms = n_bytes / mem_rate(card_name) * 1e3
-    ops_ms = n_ops / PEAK_BF16 * 1e3
+               + x["key_pos"].numel() * 4 + x["bt"].numel() * 4 + SLOTS * 4)
+    n_ops = n_keys * kq * h * 4 * d
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms, n_bytes=n_bytes)
+                library_ms=library_ms, **bound(n_bytes, n_ops, card))
+
+
+def time_decode(da, card, n_valid):
+    """decode_attention at the contiguous serve's shapes: llama2-7b, 4
+    slots with a 4096-key bf16 ring each, ``n_valid`` keys filled."""
+    import torch.nn.functional as F
+
+    from paged_cases import ring_case
+    n_sets = 3                      # 3 x 268 MB of K/V: more than the L2
+    c = CONTIGUOUS_MAX_LEN
+    sets = [to_device(ring_case(SLOTS, 32, 32, 128, c, (n_valid,) * SLOTS,
+                                seed=400 + i), torch.bfloat16)
+            for i in range(n_sets)]
+    lib = []
+    for x in sets:
+        kp = x["key_pos"]
+        mask = (kp >= 0) & (kp <= x["pos"][:, None])             # [B, C]
+        lib.append((x["q"][:, :, None], x["k_cache"].transpose(1, 2)
+                    .contiguous(), x["v_cache"].transpose(1, 2).contiguous(),
+                    mask[:, None, None]))
+    err = max(compare(f"decode_attention timing set {i} {n_valid} keys",
+                      da.decode_attention, da.decode_attention_plain, x, {},
+                      torch.bfloat16)[1] for i, x in enumerate(sets))
+    ms = time_ms(lambda i: da.decode_attention(**sets[i]), n_sets)
+    plain_ms = time_ms(lambda i: da.decode_attention_plain(**sets[i]),
+                       n_sets, iters=20)
+    library_ms = time_ms(
+        lambda i: F.scaled_dot_product_attention(
+            lib[i][0], lib[i][1], lib[i][2], attn_mask=lib[i][3]), n_sets)
+    # the least work: read q, each valid key and value once and key_pos;
+    # write the output
+    x = sets[0]
+    b, h, d = x["q"].shape
+    kh, item = x["k_cache"].shape[2], x["k_cache"].element_size()
+    n_keys = int((x["key_pos"] >= 0).sum())
+    n_bytes = (2 * x["q"].numel() * item + n_keys * kh * d * 2 * item
+               + x["key_pos"].numel() * 4 + b * 4)
+    n_ops = n_keys * h * 4 * d
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bound(n_bytes, n_ops, card))
+
+
+def timing_line(name, shape, t, card):
+    print(f"kernels: {name} at {shape}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['n_bytes'] / 1e6:.2f} MB by "
+          f"{t['bound_by']}), max abs err {t['max_abs_err']:.3g} [{card}]")
 
 
 # --------------------------------------------------------------------------- #
@@ -247,18 +338,25 @@ def time_kernels(pa, card_name):
 # --------------------------------------------------------------------------- #
 
 class StepClock:
-    """Host-clock times of a backend's prefill and decode calls.  Each call
-    ends in the logits readback, which waits for the card."""
+    """Host-clock times of a backend's prefill, decode and verify calls.
+    Each call ends in the logits readback, which waits for the card.
+    ``verify_kq`` records the query tokens per slot of each verify call and
+    ``verify_slots`` the slots it verified."""
 
     def __init__(self, backend):
-        self.prefill_ms, self.decode_ms = [], []
+        self.prefill_ms, self.decode_ms, self.verify_ms = [], [], []
+        self.verify_kq, self.verify_slots = [], []
         for name, log in (("prefill", self.prefill_ms),
-                          ("decode_step", self.decode_ms)):
-            setattr(backend, name, self._timed(getattr(backend, name), log))
+                          ("decode_step", self.decode_ms),
+                          ("verify_step", self.verify_ms)):
+            setattr(backend, name, self._timed(getattr(backend, name), log,
+                                               name == "verify_step"))
 
-    @staticmethod
-    def _timed(fn, log):
+    def _timed(self, fn, log, verify):
         def call(*args, **kw):
+            if verify:
+                self.verify_kq.append(max(len(f) for f in args[0].values()))
+                self.verify_slots.append(len(args[0]))
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             log.append((time.perf_counter() - t0) * 1e3)
@@ -266,25 +364,38 @@ class StepClock:
         return call
 
     def reset(self):
-        self.prefill_ms.clear()
-        self.decode_ms.clear()
+        for log in (self.prefill_ms, self.decode_ms, self.verify_ms,
+                    self.verify_kq, self.verify_slots):
+            log.clear()
+
+    def summary(self, what="decode"):
+        ms = self.verify_ms if what == "verify" else self.decode_ms
+        return (f"prefill ms per wave {[round(t, 3) for t in self.prefill_ms]}"
+                f", {what} ms per step median {statistics.median(ms):.3f} "
+                f"(min {min(ms):.3f}, max {max(ms):.3f})")
 
 
-def teacher_forced(backend, prompts, outs):
-    """Decode logits [n_req, MAX_TOKENS - 1, V] with each request's own
-    generated tokens fed back, waves of ``SLOTS`` requests."""
-    rows = []
+def waves(prompts):
+    """The requests in waves of ``SLOTS``, left-padded per wave."""
     for w in range(0, len(prompts), SLOTS):
         wave = list(range(w, min(w + SLOTS, len(prompts))))
         width = max(len(prompts[i]) for i in wave)
         padded = np.zeros((len(wave), width), np.int32)
         for j, i in enumerate(wave):
             padded[j, width - len(prompts[i]):] = prompts[i]
+        yield wave, padded, [len(prompts[i]) for i in wave]
+
+
+def teacher_forced(backend, prompts, tokens):
+    """Decode logits [n_req, MAX_TOKENS - 1, V] with each request's own
+    generated tokens fed back."""
+    rows = []
+    for wave, padded, lens in waves(prompts):
         slots = list(range(len(wave)))
-        backend.prefill(slots, padded, [len(prompts[i]) for i in wave])
+        backend.prefill(slots, padded, lens)
         steps = []
         for t in range(MAX_TOKENS - 1):
-            evs = backend.decode_step({s: outs[i].tokens[t]
+            evs = backend.decode_step({s: tokens[i][t]
                                        for s, i in zip(slots, wave)})
             steps.append(np.stack([ev.logits for ev in evs]))
         rows.append(np.stack(steps, axis=1))
@@ -293,43 +404,101 @@ def teacher_forced(backend, prompts, outs):
     return np.concatenate(rows)
 
 
-def serve(pa, card):
-    from repro_torch.bridge import init_params
-    from repro_torch.configs import get_config
-    from repro_torch.runtime import TorchTensorBackend
+def teacher_forced_verify(backend, prompts, tokens):
+    """Verify logits [n_req, MAX_TOKENS, V]: each request's own tokens fed
+    ``SPEC_K`` at a time through ``verify_step``, all accepted."""
+    rows = []
+    for wave, padded, lens in waves(prompts):
+        slots = list(range(len(wave)))
+        backend.prefill(slots, padded, lens)
+        steps = []
+        for t in range(0, MAX_TOKENS, SPEC_K):
+            evs = backend.verify_step({
+                s: np.asarray(tokens[i][t:t + SPEC_K], np.int32)
+                for s, i in zip(slots, wave)})
+            backend.accept({ev.slot: len(ev.logits) for ev in evs})
+            steps.append(np.stack([ev.logits for ev in evs]))
+        rows.append(np.concatenate(steps, axis=1))
+        for s in slots:
+            backend.free_slot(s)
+    return np.concatenate(rows)
+
+
+def compare_logits(what, got, card):
+    diff = np.abs(got["cuda"] - got["ref"])
+    if not np.isfinite(got["cuda"]).all() or diff.max() > LOGITS_ATOL:
+        raise AssertionError(f"{what} logits cuda vs ref: max abs diff "
+                             f"{diff.max():.4g} > {LOGITS_ATOL}")
+    agree = int((got["cuda"].argmax(-1) == got["ref"].argmax(-1)).sum())
+    print(f"serve: teacher-forced {what} logits {list(got['cuda'].shape)}, "
+          f"impl cuda vs ref max abs diff {diff.max():.4g} (mean "
+          f"{diff.mean():.3g}, |logits| max {np.abs(got['ref']).max():.3g}; "
+          f"atol {LOGITS_ATOL}), argmax agreement "
+          f"{agree}/{diff.shape[0] * diff.shape[1]} [{card}]")
+
+
+def run_requests(llm, prompts, sp):
+    """Serve every prompt through the stepping API, request i under uid i
+    (the oracle draft's keys); returns the outputs in prompt order."""
+    for uid, prompt in enumerate(prompts):
+        llm.submit(prompt, sp, uid=uid)
+    while llm.has_work:
+        llm.step()
+    outs = [llm.poll(uid) for uid in range(len(prompts))]
+    for o in outs:
+        if o.n_generated != sp.max_tokens or o.finish_reason != "length":
+            raise AssertionError(f"request {o.uid}: {o.n_generated} tokens, "
+                                 f"{o.finish_reason}")
+    return outs
+
+
+class Model:
+    """llama2-7b at full width and depth with random weights from SEED, and
+    the six requests."""
+
+    def __init__(self):
+        from repro_torch.bridge import init_params
+        from repro_torch.configs import get_config
+        self.cfg = get_config(ARCH)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED)
+        t0 = time.perf_counter()
+        self.params = init_params(self.cfg, gen, DEVICE)
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED)
+        self.prompts = [rng.integers(0, self.cfg.vocab_size, n)
+                        .astype(np.int32) for n in PROMPT_LENS]
+
+    def backend(self, impl, layout="paged", max_len=MAX_LEN):
+        from repro_torch.runtime import TorchTensorBackend
+        be = TorchTensorBackend(self.cfg, self.params, n_slots=SLOTS,
+                                max_len=max_len, impl=impl,
+                                cache_layout=layout, block_size=BLOCK_SIZE,
+                                device=DEVICE)
+        if be.info.attn_impl != impl:
+            raise AssertionError(f"backend reports attn_impl="
+                                 f"{be.info.attn_impl}, asked for {impl}")
+        return be
+
+
+def serve_paged(model, pa, card):
+    """The paged layout with plain decode."""
     from repro_torch.serving import LLM, SamplingParams
-
-    cfg = get_config(ARCH)
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = init_params(cfg, gen, DEVICE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in PROMPT_LENS]
-
-    def backend(impl):
-        return TorchTensorBackend(cfg, params, n_slots=SLOTS, max_len=MAX_LEN,
-                                  impl=impl, cache_layout="paged",
-                                  block_size=BLOCK_SIZE, device=DEVICE)
-
-    be = backend("cuda")
-    if be.info.attn_impl != "cuda":
-        raise AssertionError(f"backend reports attn_impl={be.info.attn_impl}")
+    cfg = model.cfg
+    be = model.backend("cuda")
     print(f"serve: {ARCH} {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{be.info.param_bytes / 1e9:.2f} GB of {cfg.dtype} weights from "
-          f"seed {SEED} in {init_s:.1f} s")
+          f"seed {SEED} in {model.init_s:.1f} s")
     clock = StepClock(be)
     llm = LLM.from_backend(be, seed=SEED)
     sp = SamplingParams(max_tokens=MAX_TOKENS)
-    llm.generate([prompts[0][:16]], SamplingParams(max_tokens=4))  # warm-up
+    llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=4))
 
     clock.reset()
     pa.paged_attention.launches = 0
     t0 = time.perf_counter()
-    outs = llm.generate(prompts, sp)
+    outs = llm.generate(model.prompts, sp)
     wall = time.perf_counter() - t0
     launches = pa.paged_attention.launches
 
@@ -343,37 +512,150 @@ def serve(pa, card):
         raise AssertionError(f"paged_attention launched {launches} times over "
                              f"{steps} decode steps of {cfg.n_layers} layers")
     total = sum(o.n_generated for o in outs)
-    print(f"serve: {len(outs)} requests {list(PROMPT_LENS)} prompt tokens x "
-          f"{MAX_TOKENS} greedy tokens over {SLOTS} slots: "
+    print(f"serve paged: {len(outs)} requests {list(PROMPT_LENS)} prompt "
+          f"tokens x {MAX_TOKENS} greedy tokens over {SLOTS} slots: "
           f"{len(clock.prefill_ms)} prefills, {steps} decode steps, "
           f"paged_attention launches {launches} = {cfg.n_layers} layers x "
           f"{steps} steps, {llm.stats.preemptions} preemptions")
-    print(f"serve: prefill ms per wave "
-          f"{[round(t, 3) for t in clock.prefill_ms]}, decode ms per step "
-          f"median {statistics.median(clock.decode_ms):.3f} "
-          f"(min {min(clock.decode_ms):.3f}, max {max(clock.decode_ms):.3f}), "
-          f"{total / wall:.1f} tokens/s over {wall:.2f} s [{card}]")
-    device_share(llm, prompts, card)
+    print(f"serve paged: {clock.summary()}, {total / wall:.1f} tokens/s over "
+          f"{wall:.2f} s [{card}]")
+    device_share("paged", llm, model.prompts, card)
     del llm, be, clock
     torch.cuda.empty_cache()
 
-    got = {impl: teacher_forced(backend(impl), prompts, outs)
-           for impl in ("cuda", "ref")}
+    tokens = [o.tokens for o in outs]
+    got = {}
+    for impl in ("cuda", "ref"):
+        got[impl] = teacher_forced(model.backend(impl), model.prompts, tokens)
+        torch.cuda.empty_cache()
+    compare_logits("paged decode", got, card)
+    return dict(launches=launches, tokens=tokens)
+
+
+def serve_contiguous(model, pa, da, card, paged_tokens):
+    """The default layout: one 4096-key ring per slot and layer."""
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = model.cfg
+    be = model.backend("cuda", "contiguous", CONTIGUOUS_MAX_LEN)
+    print(f"serve contiguous: max_len {CONTIGUOUS_MAX_LEN}, "
+          f"{be.info.cache_bytes / 2 ** 30:.2f} GiB of rings")
+    clock = StepClock(be)
+    llm = LLM.from_backend(be, seed=SEED)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=4))
+
+    clock.reset()
+    da.decode_attention.launches = 0
+    pa.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = llm.generate(model.prompts, sp)
+    wall = time.perf_counter() - t0
+    launches = da.decode_attention.launches
+    steps = len(clock.decode_ms)
+    if launches != cfg.n_layers * steps or launches == 0 \
+            or pa.paged_attention.launches != 0:
+        raise AssertionError(f"decode_attention launched {launches} times "
+                             f"and paged_attention "
+                             f"{pa.paged_attention.launches} over {steps} "
+                             f"decode steps of {cfg.n_layers} layers")
+    tokens = [o.tokens for o in outs]
+    for o in outs:
+        if o.n_generated != MAX_TOKENS or o.finish_reason != "length":
+            raise AssertionError(f"request {o.uid}: {o.n_generated} tokens, "
+                                 f"{o.finish_reason}")
+    same = sum(int(a == b) for t, u in zip(tokens, paged_tokens)
+               for a, b in zip(t, u))
+    total = sum(o.n_generated for o in outs)
+    print(f"serve contiguous: {len(outs)} requests x {MAX_TOKENS} greedy "
+          f"tokens over {SLOTS} slots: {len(clock.prefill_ms)} prefills, "
+          f"{steps} decode steps, decode_attention launches {launches} = "
+          f"{cfg.n_layers} layers x {steps} steps, paged_attention 0; "
+          f"greedy tokens equal to the paged serve's: {same}/{total}")
+    print(f"serve contiguous: {clock.summary()}, {total / wall:.1f} tokens/s "
+          f"over {wall:.2f} s [{card}]")
+    device_share("contiguous", llm, model.prompts, card)
+    del llm, be, clock
     torch.cuda.empty_cache()
-    diff = np.abs(got["cuda"] - got["ref"])
-    if not np.isfinite(got["cuda"]).all() or diff.max() > LOGITS_ATOL:
-        raise AssertionError(f"decode logits cuda vs ref: max abs diff "
-                             f"{diff.max():.4g} > {LOGITS_ATOL}")
-    agree = int((got["cuda"].argmax(-1) == got["ref"].argmax(-1)).sum())
-    print(f"serve: teacher-forced decode logits {list(got['cuda'].shape)}, "
-          f"impl cuda vs ref max abs diff {diff.max():.4g} (mean "
-          f"{diff.mean():.3g}, |logits| max "
-          f"{np.abs(got['ref']).max():.3g}; atol {LOGITS_ATOL}), argmax "
-          f"agreement {agree}/{diff.shape[0] * diff.shape[1]}")
+
+    got = {}
+    for impl in ("cuda", "ref"):
+        got[impl] = teacher_forced(
+            model.backend(impl, "contiguous", CONTIGUOUS_MAX_LEN),
+            model.prompts, tokens)
+        torch.cuda.empty_cache()
+    compare_logits("contiguous decode", got, card)
     return dict(launches=launches)
 
 
-def device_share(llm, prompts, card):
+def serve_spec(model, pa, da, card, paged_tokens):
+    """Paged layout with speculative decoding: ``SPEC_K`` tokens per verify
+    step from an oracle of the paged serve's tokens, corrupted at
+    ``1 - ACCEPT_PROB`` per token."""
+    from repro_torch.serving import LLM, SamplingParams
+    from repro_torch.serving.spec import OracleDraft
+    cfg = model.cfg
+    be = model.backend("cuda")
+    if not be.info.spec_decode:
+        raise AssertionError("the paged backend reports spec_decode=False")
+    clock = StepClock(be)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+
+    def llm():
+        oracle = OracleDraft(dict(enumerate(paged_tokens)),
+                             accept_prob=ACCEPT_PROB, seed=SEED,
+                             vocab_size=cfg.vocab_size)
+        return LLM.from_backend(be, seed=SEED, spec_k=SPEC_K, draft=oracle)
+
+    run_requests(llm(), model.prompts[:1], SamplingParams(max_tokens=4))
+    clock.reset()
+    spec = llm()
+    pa.paged_attention.launches = 0
+    da.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = run_requests(spec, model.prompts, sp)
+    wall = time.perf_counter() - t0
+    launches = pa.paged_attention.launches
+    steps = len(clock.verify_ms)
+    at_k = sum(int(kq == SPEC_K) for kq in clock.verify_kq)
+    if launches != cfg.n_layers * steps or not at_k or clock.decode_ms \
+            or da.decode_attention.launches:
+        raise AssertionError(f"paged_attention launched {launches} times over "
+                             f"{steps} verify steps ({at_k} at KQ={SPEC_K}) "
+                             f"and {len(clock.decode_ms)} decode steps of "
+                             f"{cfg.n_layers} layers")
+    st = spec.stats
+    if not 0 < st.spec_accepted < st.spec_drafted:
+        raise AssertionError(f"spec: {st.spec_accepted} of {st.spec_drafted} "
+                             f"drafts accepted: no rollback ran")
+    tokens = [o.tokens for o in outs]
+    same = sum(int(a == b) for t, u in zip(tokens, paged_tokens)
+               for a, b in zip(t, u))
+    total = sum(o.n_generated for o in outs)
+    print(f"serve spec: {len(outs)} requests x {MAX_TOKENS} greedy tokens, "
+          f"spec_k {SPEC_K}, oracle accept_prob {ACCEPT_PROB}: {steps} verify "
+          f"steps ({at_k} at KQ={SPEC_K}), paged_attention launches "
+          f"{launches} = {cfg.n_layers} layers x {steps} steps; drafts "
+          f"accepted {st.spec_accepted}/{st.spec_drafted} "
+          f"({st.spec_accepted / st.spec_drafted:.1%}), "
+          f"{(total - len(outs)) / sum(clock.verify_slots):.2f} tokens per "
+          f"slot and verify step (the first token of each request comes "
+          f"from its prefill); greedy tokens equal to the paged serve's: "
+          f"{same}/{total}")
+    print(f"serve spec: {clock.summary('verify')}, {total / wall:.1f} "
+          f"tokens/s over {wall:.2f} s [{card}]")
+    del spec, be, clock
+    torch.cuda.empty_cache()
+
+    got = {}
+    for impl in ("cuda", "ref"):
+        got[impl] = teacher_forced_verify(model.backend(impl), model.prompts,
+                                          tokens)
+        torch.cuda.empty_cache()
+    compare_logits(f"verify (KQ={SPEC_K})", got, card)
+    return dict(launches=launches)
+
+
+def device_share(what, llm, prompts, card):
     """The card's busy share over a short profiled serve (one wave of
     ``SLOTS`` requests, 8 tokens each), and the device time by kernel.  The
     profiler adds host time, so the busy share it shows is a lower bound."""
@@ -392,22 +674,24 @@ def device_share(llm, prompts, card):
                 + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not busy:
-        print("serve: device busy share not measured (the profiler saw no "
-              "device events)")
+        print(f"serve {what}: device busy share not measured (the profiler "
+              f"saw no device events)")
         return
-    print(f"serve: profiled {SLOTS} requests x 8 tokens: device busy "
+    print(f"serve {what}: profiled {SLOTS} requests x 8 tokens: device busy "
           f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
           f"({busy / wall_us:.1%}) [{card}]")
     kinds = {"matrix products": ("gemm", "nvjet", "cutlass", "xmma"),
-             "paged attention": ("paged_attention_kernel",)}
+             "paged attention": ("paged_attention_kernel",),
+             "decode attention": ("decode_attention_kernel",)}
     shares = {kind: sum(us for n, us in by_name.items()
                         if any(k in n for k in keys)) / busy
               for kind, keys in kinds.items()}
-    print("serve:   device time by kind: " + ", ".join(
+    print(f"serve {what}:   device time by kind: " + ", ".join(
         f"{kind} {share:.1%}" for kind, share in shares.items())
           + f", other {1 - sum(shares.values()):.1%}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"serve:   {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
+        print(f"serve {what}:   {us / 1e3:8.3f} ms {us / busy:6.1%}  "
+              f"{name[:90]}")
 
 
 def main():
@@ -417,7 +701,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; the port's "
                  "smoke test runs on an NVIDIA GPU")
-    sys.path.insert(0, str(SRC))
+    sys.path[:0] = [str(SRC), str(ROOT / "tests")]
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
 
     # float32 products in full float32 on both sides of every comparison
@@ -430,32 +716,63 @@ def main():
           f"{torch.version.cuda} | {name} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    built = pa.build()
+    built = build.build()
     print(f"build: {built.path.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc {built.seconds:.1f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}")
+          f"{time.perf_counter() - t0:.1f} s")
+    for source, log in built.logs.items():
+        print(f"build: {source}: nvcc {built.seconds[source]:.1f} s")
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"build:   {line.strip()[:140]}")
 
-    worst = check_kernels(pa)
-    timing = time_kernels(pa, card)
-    print(f"kernels: paged_attention at llama2-7b x {SLOTS} slots x "
-          f"{MAX_LEN} keys bf16: kernel {timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, sdpa on the gathered cache "
-          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-          f"({timing['n_bytes'] / 1e6:.2f} MB by {timing['bound_by']}) "
-          f"[{card}]; worst case error {worst:.3g}")
+    worst = check_kernels(pa, da)
+    print(f"kernels: worst case error paged_attention "
+          f"{worst['paged_attention']:.3g}, decode_attention "
+          f"{worst['decode_attention']:.3g}")
+    timing = {
+        "paged_attention": time_paged(pa, card, 1),
+        "paged_verify_attention": time_paged(pa, card, SPEC_K),
+        "decode_attention full": time_decode(da, card, CONTIGUOUS_MAX_LEN),
+        "decode_attention": time_decode(da, card, CONTIGUOUS_MAX_LEN // 4),
+    }
+    shapes = {
+        "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
+        "paged_verify_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} "
+                                  f"keys x KQ={SPEC_K} bf16",
+        "decode_attention full": f"llama2-7b x {SLOTS} slots x "
+                                 f"{CONTIGUOUS_MAX_LEN}-key ring, full, bf16",
+        "decode_attention": f"llama2-7b x {SLOTS} slots x "
+                            f"{CONTIGUOUS_MAX_LEN}-key ring, a quarter "
+                            f"full, bf16",
+    }
+    for key, t in timing.items():
+        timing_line(key.split()[0], shapes[key], t, card)
 
-    run = serve(pa, card)
+    model = Model()
+    paged = serve_paged(model, pa, card)
+    contiguous = serve_contiguous(model, pa, da, card, paged["tokens"])
+    spec = serve_spec(model, pa, da, card, paged["tokens"])
 
-    kernels = [dict(
-        name="paged_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:201",
-        launches=run["launches"], max_abs_err=timing["max_abs_err"],
-        ms=timing["ms"], plain_ms=timing["plain_ms"],
-        bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-        library_ms=timing["library_ms"])]
+    def entry(key, source, replaces, launches):
+        t = timing[key]
+        return dict(name=key, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=f"src/repro/kernels/decode_attention.py:"
+                             f"{replaces}",
+                    launches=launches, max_abs_err=t["max_abs_err"],
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"])
+
+    kernels = [
+        entry("paged_attention", "paged_attention.cu", 201,
+              paged["launches"]),
+        entry("paged_verify_attention", "paged_attention.cu", 256,
+              spec["launches"]),
+        entry("decode_attention", "decode_attention.cu", 153,
+              contiguous["launches"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

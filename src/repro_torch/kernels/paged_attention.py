@@ -1,5 +1,5 @@
-"""Paged GQA attention for one decode / verify step: the Hopper kernel, its
-plain PyTorch version, its wrapper and its build.
+"""Paged GQA attention for one decode / verify step: the Hopper kernel's
+wrapper and its plain PyTorch version.
 
 Port of ``repro.kernels.decode_attention.paged_decode_attention_bhd`` (and,
 with ``KQ > 1`` query tokens per slot, ``paged_verify_attention_bhd``)
@@ -23,86 +23,21 @@ row gives exact zeros.  The output has q's shape and dtype.
   kernel launches.
 - :func:`paged_attention_plain` -- the plain version: gather the slot's
   blocks in ring order, mask, softmax in float32.
-- :func:`build` -- ``nvcc`` at first use into ``build/repro_torch_kernels/``,
-  keyed by a hash of the source and flags.
+
+The kernel is built with the port's other kernels by
+:mod:`repro_torch.kernels.build`.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels._launch import (DTYPE_CODES, Entry, check_dtypes,
+                                         check_layout, on_cpu)
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib: Optional[ctypes.CDLL] = None
-
-
-class Build(NamedTuple):
-    """A built kernel library; ``log`` is what ``nvcc -Xptxas -v`` printed
-    (registers, shared memory, spills) and ``seconds`` the compile time,
-    both empty when the library was already built."""
-    path: Path
-    log: str = ""
-    seconds: float = 0.0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the paged attention kernel is built "
-                       "with the CUDA toolkit at first use on a GPU machine")
-
-
-def build() -> Build:
-    """Compile the kernel into a shared library, once per hash of the
-    source and flags."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"paged_attention-{key}.so"
-    if lib.exists():
-        return Build(lib)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
-    os.replace(tmp, lib)
-    return Build(lib, log, seconds)
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        fn = lib.paged_attention_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p,              # tensors
-                       i, i, i, i, i, i, i, i, i,        # shapes and strides
-                       ctypes.c_float, ctypes.c_float, i,  # scale, softcap, window
-                       i, i, p]                          # dtypes, stream
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_launch = Entry("paged_attention_launch", n_tensors=7, n_ints=9)
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -152,12 +87,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     fallback from the card to the plain version.
     """
     tensors = (q, k_pool, v_pool, bt, key_pos, pos)
-    if all(t.device.type == "cpu" for t in tensors):
+    if on_cpu("paged_attention", tensors):
         return paged_attention_plain(q, k_pool, v_pool, bt, key_pos, pos,
                                      window=window, softcap=softcap)
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
-        raise ValueError("paged_attention: all tensors must be on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
     q4 = q[:, None] if q.dim() == 3 else q
     if q4.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"paged_attention: bad shapes q {tuple(q.shape)}, "
@@ -168,11 +100,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged_attention: head_dim {d} (pools {dk}) must "
                          f"be a multiple of 32 up to 256 and H={h} a "
                          f"multiple of KH={kh}")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype not in _DTYPE_CODES \
-            or v_pool.dtype != k_pool.dtype:
-        raise ValueError(f"paged_attention: dtypes q {q.dtype}, pools "
-                         f"{k_pool.dtype}/{v_pool.dtype}; the kernel takes "
-                         f"float32 and bfloat16")
+    check_dtypes("paged_attention", q, k_pool, v_pool)
     c = key_pos.shape[-1]
     if key_pos.shape != (b, c) or c % bs or pos.shape != (b,) \
             or bt.dim() != 2 or bt.shape[0] != b or bt.shape[1] < c // bs:
@@ -185,25 +113,19 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{softcap} must be positive when given")
     if any(t.dtype != torch.int32 for t in (bt, key_pos, pos)):
         raise ValueError("paged_attention: bt, key_pos and pos must be int32")
-    if not all(t.is_contiguous() for t in (q4, k_pool, v_pool, key_pos, pos)) \
-            or bt.stride(1) != 1:
-        raise ValueError("paged_attention: q, pools, key_pos and pos must be "
-                         "contiguous and bt rows dense")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_attention: pools must be 16-byte aligned")
+    if bt.stride(1) != 1:
+        raise ValueError("paged_attention: bt rows must be dense")
+    check_layout("paged_attention", (q4, k_pool, v_pool, key_pos, pos),
+                 (k_pool, v_pool))
     if b == 0:
         return torch.empty_like(q)
     out = torch.empty_like(q4)
-    err = _load().paged_attention_launch(
-        q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
-        key_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, kq, h, kh, d, bs, c // bs, bt.stride(0), n_pool,
-        1.0 / math.sqrt(d), float(softcap or 0.0), int(window or 0),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch(q.device,
+            q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
+            key_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            b, kq, h, kh, d, bs, c // bs, bt.stride(0), n_pool,
+            1.0 / math.sqrt(d), float(softcap or 0.0), int(window or 0),
+            DTYPE_CODES[q.dtype], DTYPE_CODES[k_pool.dtype])
     paged_attention.launches += 1
     return out[:, 0] if q.dim() == 3 else out
 

@@ -1,17 +1,20 @@
 """Serving launcher of the port: request-lifecycle generation through the
-``LLM`` facade over :class:`~repro_torch.runtime.TorchTensorBackend` on the
-paged KV layout.  Weights are random, made from ``--seed``.
+``LLM`` facade over :class:`~repro_torch.runtime.TorchTensorBackend`, on
+the contiguous (default) or the paged KV layout, optionally with speculative
+decoding on the paged one.  Weights are random, made from ``--seed``.
 
+    python -m repro_torch.launch.serve --arch llama2-7b --impl cuda \
+        --batch 6 --slots 4 --prompt-len 256 --varlen --gen 32 --max-len 4096
     python -m repro_torch.launch.serve --arch llama2-7b --cache-layout paged \
         --impl cuda --batch 6 --slots 4 --prompt-len 256 --varlen --gen 32 \
-        --max-len 512
+        --max-len 512 --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --impl ref --batch 4 --gen 8 [--stream]
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when no GPU
-is present.  The pipeline mode, the contiguous layout, the prefix cache,
-speculative decoding and the SLO policies of ``repro.launch.serve`` arrive
-with later slices of the port; this launcher has no flags for them.
+is present.  The pipeline mode, the prefix cache, chunked prefill and the
+SLO policies of ``repro.launch.serve`` arrive with later slices of the port;
+this launcher has no flags for them.
 """
 import argparse
 import time
@@ -32,18 +35,31 @@ def main(argv=None):
                          "(bucketed admission serves them in one batch)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=64)
-    ap.add_argument("--cache-layout", default="paged", choices=["paged"],
-                    help="KV layout: block tables over a shared pool")
+    ap.add_argument("--cache-layout", default="contiguous",
+                    choices=["contiguous", "paged"],
+                    help="KV layout: one max_len ring per slot, or block "
+                         "tables over a shared pool")
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV block")
     ap.add_argument("--kv-blocks", type=int, default=0,
-                    help="shared pool size in blocks; 0 = worst-case "
-                         "provisioning.  Smaller pools overcommit: exhaustion "
-                         "preempts the youngest request")
+                    help="shared pool size in blocks (paged layout); 0 = "
+                         "worst-case provisioning.  Smaller pools overcommit: "
+                         "exhaustion preempts the youngest request")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: verify up to K tokens per "
+                         "quantum (the last emitted token + K-1 drafts) in "
+                         "one multi-query pass; greedy outputs stay "
+                         "bit-identical.  Needs --cache-layout paged; "
+                         "0/1 = off")
+    ap.add_argument("--draft", default="ngram",
+                    help="draft source for --spec-k: 'ngram' (prompt-lookup "
+                         "self-speculation, default), 'ngram:<max>', or "
+                         "'off' (verify quantum carries no drafts)")
     ap.add_argument("--impl", default="cuda", choices=["ref", "cuda"],
-                    help="paged decode read path: gather + masked sdpa, or "
-                         "the hand-written paged attention kernel (its plain "
-                         "version on --device cpu)")
+                    help="decode read path: masked sdpa (over the ring, or "
+                         "the gathered blocks), or the hand-written decode "
+                         "and paged attention kernels (their plain versions "
+                         "on --device cpu)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--stream", action="store_true",
@@ -80,7 +96,14 @@ def main(argv=None):
         impl=args.impl, cache_layout=args.cache_layout,
         block_size=args.block_size, num_blocks=args.kv_blocks or None,
         device=dev)
-    llm = LLM.from_backend(backend, seed=args.seed)
+    if args.spec_k >= 2 and not backend.info.spec_decode:
+        print(f"note: --spec-k {args.spec_k} ignored: the backend does not "
+              f"verify speculative drafts (cache_layout="
+              f"{backend.info.cache_layout!r}; speculative decoding needs "
+              f"the paged layout and no sliding window); serving plain "
+              f"decode")
+    llm = LLM.from_backend(backend, seed=args.seed, spec_k=args.spec_k,
+                           draft=args.draft)
     sp = SamplingParams(max_tokens=args.gen)
     t0 = time.time()
     if args.stream:

@@ -3,21 +3,26 @@ sliding windows.  Port of the cache-writing entry points of
 ``repro.models.attention``:
 
 - :func:`prefill_cache`       -- run prefill AND write k/v into a ring cache,
-- :func:`attend_decode_paged` -- one token per slot against a paged cache.
+- :func:`attend_decode`       -- one token per slot against its ring cache,
+- :func:`attend_decode_paged` -- one token per slot against a paged cache,
+- :func:`attend_verify_paged` -- K tokens per slot (speculative verify)
+  against a paged cache.
 
 Prefill supports *masked* left-padded batches: per-row positions [B, S]
 hold negative values at pad slots, which are masked out of the softmax and
 written with ``key_pos == -1``, so the output for real tokens (and every
 later decode step) is independent of the padded width.
 
-``impl`` selects how the paged cache is *read* at decode (unknown values
-raise, as ``DECODE_IMPLS`` does in the reference):
+``impl`` selects how the cache is *read* at decode and verify (unknown
+values raise, as ``DECODE_IMPLS`` does in the reference):
 
-- ``"ref"``  -- gather the slot's blocks in ring order and run the masked
-  :func:`_sdpa` (the reference's ``"xla"`` path),
-- ``"cuda"`` -- :func:`repro_torch.kernels.paged_attention.paged_attention`:
-  the hand-written kernel reads the pool through the block table; on CPU
-  tensors the wrapper runs the kernel's plain version.
+- ``"ref"``  -- the masked :func:`_sdpa` over the ring, or over the slot's
+  blocks gathered in ring order (the reference's ``"xla"`` path),
+- ``"cuda"`` -- the hand-written kernels: the contiguous ring through
+  :func:`repro_torch.kernels.decode_attention.decode_attention`, the paged
+  pool through the block table with
+  :func:`repro_torch.kernels.paged_attention.paged_attention`; on CPU
+  tensors the wrappers run the kernels' plain versions.
 
 Prefill runs :func:`_sdpa` under both impls, as the reference's does.
 Caches update in place (``index_put_``) where the reference rebuilt them.
@@ -28,14 +33,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm_headwise, softcap
 
 NEG_INF = -2.0 ** 30
 
-#: decode-path implementations: "ref" (gather + masked sdpa) and "cuda"
-#: (the paged attention kernel)
+#: decode-path implementations: "ref" (masked sdpa) and "cuda" (the decode
+#: and paged attention kernels)
 DECODE_IMPLS = ("ref", "cuda")
 
 
@@ -154,6 +160,37 @@ def prefill_cache(params: Dict, cfg: ModelConfig, spec: BlockSpec,
     return y, cache
 
 
+def attend_decode(params: Dict, cfg: ModelConfig, spec: BlockSpec,
+                  x: torch.Tensor, cache: Dict, impl: str = "ref",
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode against the ring ``cache``. x: [B, 1, d].
+
+    ``pos`` is per-row [B] and ``key_pos`` per-row [B, C]: every row writes
+    its new k/v and position at ring slot ``pos % C`` first, then attends
+    its own ring.  The ring, ``key_pos`` and ``pos`` update in place.
+    """
+    _check_decode_impl(impl)
+    b = x.shape[0]
+    pos, key_pos = cache["pos"], cache["key_pos"]
+    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
+    slot = (pos % key_pos.shape[1]).long()                       # [B]
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    key_pos[rows, slot] = pos
+    if impl == "cuda":
+        out = decode_attention(q, cache["k"], cache["v"], key_pos, pos,
+                               window=spec.window,
+                               softcap=cfg.attn_logit_softcap)
+        out = out.reshape(b, 1, cfg.q_dim)
+    else:
+        out = _sdpa(cfg, spec, q, cache["k"], cache["v"], pos[:, None],
+                    key_pos, k_valid=key_pos >= 0)
+    y = out @ params["wo"]
+    pos += 1
+    return y, cache
+
+
 def attend_decode_paged(params: Dict, cfg: ModelConfig, spec: BlockSpec,
                         x: torch.Tensor, cache: Dict, impl: str = "ref",
                         write_mask: Optional[torch.Tensor] = None,
@@ -210,4 +247,59 @@ def attend_decode_paged(params: Dict, cfg: ModelConfig, spec: BlockSpec,
                     k_valid=key_pos >= 0)
     y = out @ params["wo"]
     pos += live.to(pos.dtype)
+    return y, cache
+
+
+def attend_verify_paged(params: Dict, cfg: ModelConfig, spec: BlockSpec,
+                        x: torch.Tensor, lens: torch.Tensor, cache: Dict,
+                        impl: str = "ref") -> Tuple[torch.Tensor, Dict]:
+    """Multi-token speculative *verify* against a paged KV cache.
+
+    x [B, K, d]: row ``b``'s first ``lens[b]`` tokens are the last accepted
+    token plus its drafts, at positions ``pos[b] .. pos[b] + lens[b] - 1``.
+    All K tokens are scattered into the pool first -- columns past
+    ``lens[b]``, rows with ``lens == 0`` and unmapped blocks to the scratch
+    block, with those ring slots keeping their previous ``key_pos`` -- then
+    attended in one pass, query token ``i`` seeing keys up to ``pos + i``.
+    ``pos`` advances by ``lens``.  Only valid where ring slot == position
+    (``prefix_sharing_supported``), which makes the caller's rollback of
+    rejected drafts exact.  ``impl="cuda"`` runs the paged attention kernel
+    with K query tokens per slot.
+    """
+    _check_decode_impl(impl)
+    b, kq = x.shape[:2]
+    pos, bt, key_pos = cache["pos"], cache["bt"], cache["key_pos"]
+    k_pool, v_pool = cache["k_pool"], cache["v_pool"]
+    c_pad = key_pos.shape[-1]
+    bsz = k_pool.shape[1]
+    nbs = c_pad // bsz
+    scratch = k_pool.shape[0] - 1
+    cols = torch.arange(kq, dtype=pos.dtype, device=x.device)[None]
+    positions = pos[:, None] + cols                                  # [B, K]
+    valid = cols < lens[:, None]                                     # [B, K]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+
+    ring = (positions % c_pad).long()
+    blk = (ring // bsz).clamp(0, nbs - 1)
+    off = ring % bsz
+    phys = bt.gather(1, blk)                                         # [B, K]
+    tgt = torch.where(valid & (phys >= 0), phys, scratch).long()
+    k_pool[tgt, off] = k.to(k_pool.dtype)
+    v_pool[tgt, off] = v.to(v_pool.dtype)
+    rows = torch.arange(b, device=x.device)[:, None]
+    key_pos[rows, ring] = torch.where(valid, positions, key_pos[rows, ring])
+
+    if impl == "cuda":
+        out = paged_attention(q, k_pool, v_pool, bt, key_pos, pos,
+                              window=spec.window,
+                              softcap=cfg.attn_logit_softcap)
+        out = out.reshape(b, kq, cfg.q_dim)
+    else:
+        read = bt[:, :nbs].clamp(min=0)
+        ck = k_pool[read].reshape(b, c_pad, cfg.n_kv_heads, -1)
+        cv = v_pool[read].reshape(b, c_pad, cfg.n_kv_heads, -1)
+        out = _sdpa(cfg, spec, q, ck, cv, positions, key_pos,
+                    k_valid=key_pos >= 0)
+    y = out @ params["wo"]
+    pos += lens.to(pos.dtype)
     return y, cache

@@ -1,10 +1,13 @@
-"""Decoder-only transformer, dense attention path: prefill and paged decode.
+"""Decoder-only transformer, dense attention path: prefill, decode and
+speculative verify.
 
 Port of the serving entry points of ``repro.models.transformer``:
 
 - :func:`forward`     -- ``mode="prefill"`` of the reference: logits over the
   (left-padded) prompt plus populated ring caches,
-- :func:`decode_step` -- one token in, one logits row out, over paged caches.
+- :func:`decode_step` -- one token in, one logits row out, over ring or
+  paged caches,
+- :func:`verify_step` -- K tokens in, K logits rows out, over paged caches.
 
 Parameters are the reference's tree with the layer stack unrolled (see
 :mod:`repro_torch.bridge`)::
@@ -44,7 +47,8 @@ def _check_block(spec: BlockSpec) -> None:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> Caches:
-    """Ring caches, one per layer (the paged backend's prefill workspace)."""
+    """Ring caches, one per layer: the contiguous layout, and the
+    prefill workspace of both layouts."""
     return [init_block_cache(cfg, spec, batch, max_len, dtype, device)
             for spec in cfg.layer_specs()]
 
@@ -64,18 +68,26 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
                  x: torch.Tensor, positions: Optional[torch.Tensor], mode: str,
                  cache: Dict, impl: str,
                  write_mask: Optional[torch.Tensor] = None,
-                 seq_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 seq_valid: Optional[torch.Tensor] = None,
+                 verify_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block; ``cache`` updates in place.  ``seq_valid`` ([B, S],
-    masked prefill) re-zeroes pad activations on exit so they cannot leak
-    into later layers."""
+    masked prefill and verify) re-zeroes pad activations on exit so they
+    cannot leak into later layers.  Decode reads the cache by its kind:
+    a paged cache holds a block pool (``k_pool``), a ring cache ``k``."""
     _check_block(spec)
     h = apply_norm(params["norm1"], x, cfg.norm)
     if mode == "prefill":
         mix, _ = attn.prefill_cache(params["mixer"], cfg, spec, h, positions,
                                     cache, impl)
-    elif mode == "decode":
+    elif mode == "verify":
+        mix, _ = attn.attend_verify_paged(params["mixer"], cfg, spec, h,
+                                          verify_lens, cache, impl)
+    elif mode == "decode" and "k_pool" in cache:
         mix, _ = attn.attend_decode_paged(params["mixer"], cfg, spec, h,
                                           cache, impl, write_mask=write_mask)
+    elif mode == "decode":
+        mix, _ = attn.attend_decode(params["mixer"], cfg, spec, h, cache,
+                                    impl)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     if cfg.post_norm:
@@ -126,16 +138,46 @@ def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
                 caches: Caches, impl: str = "ref",
                 write_mask: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Caches]:
-    """One decode step over paged caches. inputs: [B] int tokens.
+    """One decode step over ring or paged caches. inputs: [B] int tokens.
 
     Returns (logits [B, vocab], caches).  Every slot decodes at its own
-    ``pos``; ``write_mask [B]`` freezes masked slots (their writes go to the
-    scratch block).  ``impl="cuda"`` reads the pools with the paged
-    attention kernel; unknown impls raise.
+    ``pos``.  On paged caches ``write_mask [B]`` freezes masked slots (their
+    writes go to the scratch block); ring caches take every row, as the
+    reference's vmapped decode does.  ``impl="cuda"`` reads the caches with
+    the decode or paged attention kernel; unknown impls raise.
     """
+    if write_mask is not None and "k_pool" not in caches[0]:
+        raise ValueError("write_mask applies to paged caches only")
     x = embed_tokens(params, cfg, inputs[:, None])
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
         x = _apply_block(cfg, spec, p, x, None, "decode", cache, impl,
                          write_mask=write_mask)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x)[:, 0], caches
+
+
+def verify_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                caches: Caches, lens: torch.Tensor, impl: str = "ref",
+                ) -> Tuple[torch.Tensor, Caches]:
+    """Speculative verify over paged caches: score ``tokens`` [B, K] -- row
+    ``b``'s first ``lens[b]`` entries are the last accepted token and its
+    drafts, left-aligned -- in one pass at positions ``pos[b] ..
+    pos[b] + lens[b] - 1``.
+
+    Returns (logits [B, K, vocab], caches): ``logits[b, i]`` is the next
+    token's distribution after fed token ``i``.  ``lens[b] == 0`` rows are
+    idle (writes to scratch, state frozen) and ``lens[b] == 1`` is a decode
+    step.  The caches come back advanced by ``lens`` with every candidate
+    key written; the caller rolls rejected positions back.
+    """
+    kq = tokens.shape[1]
+    lens = lens.to(torch.int32)
+    cols = torch.arange(kq, dtype=torch.int32, device=tokens.device)[None]
+    seq_valid = cols < lens[:, None]                               # [B, K]
+    x = embed_tokens(params, cfg, tokens)
+    x = torch.where(seq_valid[..., None], x, 0)
+    for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
+        x = _apply_block(cfg, spec, p, x, None, "verify", cache, impl,
+                         seq_valid=seq_valid, verify_lens=lens)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return lm_logits(params, cfg, x), caches

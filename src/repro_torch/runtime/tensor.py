@@ -1,28 +1,40 @@
 """TorchTensorBackend: the single-device torch execution path behind the
 :class:`~repro_torch.runtime.base.InferenceBackend` protocol.
 
-Port of ``repro.runtime.tensor.TensorBackend`` for the **paged** KV layout:
-slots map vLLM-style block tables into a shared pool of ``num_blocks`` KV
-blocks (``block_size`` tokens each, one pool per attention layer; see
-``models/kvcache.py``).  Decode runs the whole slot batch in one pass with
-per-slot positions, scattering the new token's k/v into the pool and
-attending through each slot's table: ``impl="cuda"`` reads the blocks with
-the paged attention kernel, ``impl="ref"`` gathers them into a dense
-``[B, C_pad, ...]`` temporary and runs the masked sdpa.  Host-side
-allocation (:class:`~repro_torch.runtime.base.SlotPager`) grows tables as
-slots cross block boundaries and raises
-:class:`~repro_torch.runtime.base.PoolExhausted` *before* mutating anything
-when the pool cannot cover the next quantum -- the scheduler's cue to
-preempt and requeue.
+Port of ``repro.runtime.tensor.TensorBackend``.  Two cache layouts,
+selected by ``cache_layout``:
 
-Prefill is *masked* (pads never become cache keys) and runs the admission
-wave through dense ring caches sized by the bucketed prompt length, then
-scatters them into the pool by absolute position -- the reference's path,
-not a direct paged prefill.
+- ``"contiguous"`` (default, as in the reference) -- one worst-case
+  ``max_len`` ring per slot and layer, ``[n_slots, C, KH, D]``.  Decode
+  runs every slot in one batched pass (the reference vmaps the
+  single-sequence step over the slot axis; here the slot axis is the batch
+  dimension): idle slots decode a 0 token into their own rows, which the
+  next prefill of the slot overwrites whole.  ``impl="cuda"`` reads the
+  rings with the decode attention kernel, ``impl="ref"`` runs the masked
+  sdpa over them.
+- ``"paged"`` -- slots map vLLM-style block tables into a shared pool of
+  ``num_blocks`` KV blocks (``block_size`` tokens each, one pool per
+  attention layer; see ``models/kvcache.py``).  Decode runs the whole slot
+  batch in one pass with per-slot positions, scattering the new token's k/v
+  into the pool and attending through each slot's table: ``impl="cuda"``
+  reads the blocks with the paged attention kernel, ``impl="ref"`` gathers
+  them into a dense ``[B, C_pad, ...]`` temporary and runs the masked sdpa.
+  Host-side allocation (:class:`~repro_torch.runtime.base.SlotPager`) grows
+  tables as slots cross block boundaries and raises
+  :class:`~repro_torch.runtime.base.PoolExhausted` *before* mutating
+  anything when the pool cannot cover the next quantum -- the scheduler's
+  cue to preempt and requeue.  Where ring slot == position (no effective
+  window), the paged layout also verifies speculative drafts
+  (``verify_step``/``accept``): K tokens per slot in one pass through the
+  same kernel, rejected drafts rolled back.
 
-Not in this slice: the contiguous layout, the prefix cache, ``extend``
-(streamed admission) and ``verify_step``/``accept`` (speculative decoding);
-:class:`BackendInfo` reports all of them off.
+Both layouts run *masked* prefill through dense ring caches -- at
+``max_len`` for the contiguous layout, at the bucketed prompt length for
+the paged one -- then scatter the wave's rows into the slots' storage: the
+reference's path, not a direct paged prefill.
+
+Not in this slice: the prefix cache and ``extend`` (streamed admission);
+:class:`BackendInfo` reports both off.
 """
 from __future__ import annotations
 
@@ -45,40 +57,50 @@ def _nbytes(tensors) -> int:
 
 
 class TorchTensorBackend(InferenceBackend):
-    """Masked wave prefill + batched paged decode on one device."""
+    """Masked wave prefill + batched (contiguous | paged) decode, and
+    speculative verify on the paged layout, on one device."""
 
     def __init__(self, cfg: ModelConfig, params: Dict, n_slots: int,
                  max_len: int, impl: str = "ref",
                  cache_dtype: Optional[torch.dtype] = None,
-                 cache_layout: str = "paged",
+                 cache_layout: str = "contiguous",
                  block_size: int = KV.DEFAULT_BLOCK_SIZE,
                  num_blocks: Optional[int] = None, device: Device = None):
-        if cache_layout != "paged":
-            raise ValueError(
-                f"cache_layout={cache_layout!r}: the contiguous layout "
-                f"arrives with the contiguous-decode kernel slice; this slice "
-                f"serves cache_layout='paged'")
+        if cache_layout not in ("contiguous", "paged"):
+            raise ValueError(f"cache_layout={cache_layout!r}: expected "
+                             f"'contiguous' or 'paged'")
         nbs = KV.max_ctx_blocks(cfg, max_len, block_size)
         if nbs == 0:
-            raise ValueError(f"{cfg.name} has no attention layers to page")
+            raise ValueError(f"{cfg.name} has no attention layers")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
         self.impl = impl
         #: KV storage dtype; defaults to the model dtype (torch matmuls do
-        #: not promote, and a float32 pool doubles a bf16 model's cache)
+        #: not promote, and a float32 cache doubles a bf16 model's)
         self.cache_dtype = cache_dtype if cache_dtype is not None \
             else torch_dtype(cfg.dtype)
         self.cache_layout = cache_layout
         self.block_size = block_size
-        self.num_blocks = num_blocks if num_blocks is not None \
-            else n_slots * nbs
-        self.pager = SlotPager(n_slots, self.num_blocks, block_size, nbs)
-        self.caches = T.init_paged_caches(cfg, n_slots, max_len,
-                                          self.num_blocks, block_size,
-                                          self.cache_dtype, self.device)
-        # host mirrors for paged allocation (decode position per slot)
+        paged = cache_layout == "paged"
+        self.num_blocks = 0
+        self.pager: Optional[SlotPager] = None
+        if paged:
+            self.num_blocks = num_blocks if num_blocks is not None \
+                else n_slots * nbs
+            self.pager = SlotPager(n_slots, self.num_blocks, block_size, nbs)
+            self.caches = T.init_paged_caches(cfg, n_slots, max_len,
+                                              self.num_blocks, block_size,
+                                              self.cache_dtype, self.device)
+        else:
+            self.caches = T.init_caches(cfg, n_slots, max_len,
+                                        self.cache_dtype, self.device)
+        # speculative verify needs ring slot == position, so rejected drafts
+        # roll back exactly: the paged layout with no effective window
+        self._spec_ok = paged and KV.prefix_sharing_supported(cfg, max_len)
+        self._pending: Dict[int, int] = {}     # slot -> fed len, last verify
+        # host mirrors: decode position and occupancy per slot
         self._pos = np.zeros(n_slots, np.int64)
         self._active = np.zeros(n_slots, bool)
 
@@ -90,16 +112,16 @@ class TorchTensorBackend(InferenceBackend):
             param_bytes=param_bytes,
             samples_in_backend=False,
             cache_layout=cache_layout,
-            block_size=block_size,
+            block_size=block_size if paged else 0,
             total_blocks=self.num_blocks,
             free_blocks=self.num_blocks,
-            bytes_per_block=KV.block_pool_bytes_per_block(cfg,
-                                                          self.cache_dtype),
-            max_ctx_blocks=nbs,
+            bytes_per_block=KV.block_pool_bytes_per_block(
+                cfg, self.cache_dtype) if paged else 0,
+            max_ctx_blocks=nbs if paged else 0,
             prefix_caching=False,
             supports_extend=False,
             attn_impl=effective_decode_impl(impl, self.device),
-            spec_decode=False)
+            spec_decode=self._spec_ok)
 
     @property
     def info(self) -> BackendInfo:
@@ -152,10 +174,10 @@ class TorchTensorBackend(InferenceBackend):
     def _grow_atomic(self, targets: Sequence[Tuple[int, int]]) -> bool:
         """Grow several slots' tables as ONE transaction: ensure every
         ``(slot, pos)`` or roll the partial growth back and re-raise
-        :class:`PoolExhausted`.  The aggregate precheck in decode_step makes
-        mid-loop exhaustion unreachable today, but the rollback keeps
-        ensure-then-mutate atomic even if the precheck and the pager's
-        accounting ever diverge.  Returns True when any table changed
+        :class:`PoolExhausted`.  The aggregate prechecks in decode_step and
+        verify_step make mid-loop exhaustion unreachable today, but the
+        rollback keeps ensure-then-mutate atomic even if the precheck and
+        the pager's accounting ever diverge.  Returns True when any table changed
         (caller refreshes the device tables)."""
         grown: List[Tuple[int, int]] = []   # (slot, n_alloc before growth)
         changed = False
@@ -174,6 +196,82 @@ class TorchTensorBackend(InferenceBackend):
             raise
         return changed
 
+    def _rollback(self, new_pos: torch.Tensor, mask: torch.Tensor) -> None:
+        """Verify rollback, in place: for every masked slot, mark positions
+        below ``new_pos[s]`` valid and everything above empty, and rewind
+        ``pos``.  Exact because ring slot == position on the spec path, so
+        a rejected draft's key is invalidated without touching any
+        surviving key."""
+        for cache in self.caches:
+            iota = torch.arange(cache["key_pos"].shape[-1], dtype=torch.int32,
+                                device=self.device)[None]
+            row = torch.where(iota < new_pos[:, None], iota, -1)  # [B, C]
+            cache["key_pos"].copy_(torch.where(mask[:, None], row,
+                                               cache["key_pos"]))
+            cache["pos"].copy_(torch.where(mask, new_pos, cache["pos"]))
+
+    # ------------------------------------------------------------------ #
+    # speculative verify: K fed tokens per slot, one forward pass
+    # ------------------------------------------------------------------ #
+    def verify_step(self, feeds: Dict[int, np.ndarray]) -> List[SlotEvent]:
+        if not feeds:
+            return []
+        assert self._spec_ok, "backend does not advertise spec_decode"
+        assert not self._pending, "verify_step before accept() of the last"
+        fed = {s: np.asarray(f, np.int64).ravel() for s, f in feeds.items()}
+        kq = max(len(f) for f in fed.values())
+        assert kq >= 1 and all(len(f) >= 1 for f in fed.values())
+        tokens = np.zeros((self.n_slots, kq), np.int64)
+        lens = np.zeros(self.n_slots, np.int32)
+        live = [s for s in sorted(fed) if self._active[s]]
+        for s in live:
+            assert int(self._pos[s]) + len(fed[s]) <= self.max_len, \
+                (s, int(self._pos[s]), len(fed[s]), self.max_len)
+            tokens[s, :len(fed[s])] = fed[s]
+            lens[s] = len(fed[s])
+        # atomic growth: blocks for ALL candidate positions up front (a
+        # rejected tail keeps its blocks -- they back the next tokens), and
+        # PoolExhausted before any state changes
+        need = sum(
+            max(self.pager.blocks_for_len(int(self._pos[s] + lens[s]))
+                - int(self.pager.n_alloc[s]), 0) for s in live)
+        if need > self.pager.free_blocks:
+            raise PoolExhausted(needed=need, free=self.pager.free_blocks)
+        if self._grow_atomic(
+                [(s, int(self._pos[s] + lens[s]) - 1) for s in live]):
+            self._push_tables()
+        dev = self.device
+        with torch.no_grad():
+            logits, self.caches = T.verify_step(
+                self.cfg, self.params, torch.from_numpy(tokens).to(dev),
+                self.caches, torch.from_numpy(lens).to(dev), impl=self.impl)
+            logits = logits.float().cpu().numpy()
+        # host _pos stays at the pre-verify position until accept() commits
+        self._pending = {s: int(lens[s]) for s in live}
+        return [SlotEvent(slot=s, logits=logits[s, :int(lens[s])])
+                for s in live]
+
+    def accept(self, counts: Dict[int, int]) -> None:
+        pend, self._pending = self._pending, {}
+        assert set(counts) == set(pend), (sorted(counts), sorted(pend))
+        new_pos = self._pos.copy()
+        mask = np.zeros(self.n_slots, bool)
+        partial = False
+        for s, e in counts.items():
+            e = int(e)
+            assert 0 <= e <= pend[s], (s, e, pend[s])
+            mask[s] = True
+            new_pos[s] = self._pos[s] + e
+            partial |= e < pend[s]
+        if partial:
+            # rewind rejected draft keys; full acceptance leaves the device
+            # state exactly right already (pos advanced by lens in verify)
+            self._rollback(torch.from_numpy(new_pos.astype(np.int32))
+                           .to(self.device),
+                           torch.from_numpy(mask).to(self.device))
+        for s in counts:
+            self._pos[s] = int(new_pos[s])
+
     # ------------------------------------------------------------------ #
     def prefill(self, slots: Sequence[int], prompts: np.ndarray,
                 prompt_lens: Optional[Sequence[int]] = None,
@@ -185,9 +283,12 @@ class TorchTensorBackend(InferenceBackend):
             else np.asarray(prompt_lens, np.int32)
         assert lens.shape == (k,) and np.all(lens >= 1) \
             and np.all(lens <= prompts.shape[1]), (lens, prompts.shape)
-        # atomic: on exhaustion nothing mutates and the scheduler can retry
-        # the wave after preempting.  Blocks cover each slot's TRUE length.
-        self.pager.realloc_wave(slots, lens)
+        paged = self.pager is not None
+        if paged:
+            # atomic: on exhaustion nothing mutates and the scheduler can
+            # retry the wave after preempting.  Blocks cover each slot's
+            # TRUE length.
+            self.pager.realloc_wave(slots, lens)
         # pad the wave to the full slot width by repeating the first entry
         # (duplicate scatter indices write identical values), so prefill
         # runs one batch shape per bucket whatever the wave size
@@ -198,10 +299,11 @@ class TorchTensorBackend(InferenceBackend):
             if pad else lens
         slots_p = np.asarray(list(slots) + [slots[0]] * pad)
         dev = self.device
-        # dense workspace sized by the bucketed prompt length (not max_len):
-        # transient prefill memory stays proportional to the wave, the pool
-        # holds the persistent state
-        fresh = T.init_caches(self.cfg, self.n_slots, prompts.shape[1],
+        # paged: a dense workspace sized by the bucketed prompt length (the
+        # pool holds the persistent state); contiguous: fresh max_len rings
+        # whose rows replace the slots' rows whole
+        fresh = T.init_caches(self.cfg, self.n_slots,
+                              prompts.shape[1] if paged else self.max_len,
                               self.cache_dtype, dev)
         with torch.no_grad():
             logits, dense = T.forward(
@@ -209,9 +311,14 @@ class TorchTensorBackend(InferenceBackend):
                 torch.from_numpy(prompts_p).to(dev, torch.long), fresh,
                 prompt_lens=torch.from_numpy(lens_p).to(dev), impl=self.impl)
             idx = torch.from_numpy(slots_p).to(dev)
-            bt_rows = torch.from_numpy(self.pager.table[slots_p]).to(dev)
-            for paged, d in zip(self.caches, dense):
-                self._scatter_one_paged(paged, d, idx, bt_rows)
+            if paged:
+                bt_rows = torch.from_numpy(self.pager.table[slots_p]).to(dev)
+                for store, d in zip(self.caches, dense):
+                    self._scatter_one_paged(store, d, idx, bt_rows)
+            else:
+                for store, d in zip(self.caches, dense):
+                    for key, t in store.items():
+                        t[idx[:k]] = d[key][:k].to(t.dtype)
             last = logits[:, -1].float().cpu().numpy()
         for s, n in zip(slots, lens):
             self._pos[s] = int(n)
@@ -225,19 +332,21 @@ class TorchTensorBackend(InferenceBackend):
         for s, t in feeds.items():
             tokens[s] = t
         live = [s for s in sorted(feeds) if self._active[s]]
-        need = sum(self.pager.blocks_needed(s, int(self._pos[s]))
-                   for s in live)
-        if need > self.pager.free_blocks:     # raise BEFORE any mutation
-            raise PoolExhausted(needed=need, free=self.pager.free_blocks)
-        if self._grow_atomic([(s, int(self._pos[s])) for s in live]):
-            self._push_tables()
-        mask = np.zeros(self.n_slots, bool)
-        mask[live] = True
+        mask = None
+        if self.pager is not None:
+            need = sum(self.pager.blocks_needed(s, int(self._pos[s]))
+                       for s in live)
+            if need > self.pager.free_blocks:  # raise BEFORE any mutation
+                raise PoolExhausted(needed=need, free=self.pager.free_blocks)
+            if self._grow_atomic([(s, int(self._pos[s])) for s in live]):
+                self._push_tables()
+            mask = np.zeros(self.n_slots, bool)
+            mask[live] = True
+            mask = torch.from_numpy(mask).to(self.device)
         with torch.no_grad():
             logits, self.caches = T.decode_step(
                 self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
-                self.caches, impl=self.impl,
-                write_mask=torch.from_numpy(mask).to(self.device))
+                self.caches, impl=self.impl, write_mask=mask)
             # the protocol hands numpy logits to the host sampler: one
             # readback per step, as in the reference
             logits = logits.float().cpu().numpy()
@@ -246,9 +355,11 @@ class TorchTensorBackend(InferenceBackend):
         return [SlotEvent(slot=s, logits=logits[s]) for s in sorted(feeds)]
 
     def free_slot(self, slot: int) -> None:
+        # contiguous rows are overwritten whole by the slot's next prefill;
         # the pool returns the slot's blocks to the free list immediately
         self._active[slot] = False
-        self.pager.release(slot)
+        if self.pager is not None:
+            self.pager.release(slot)
 
 
 def _leaves(tree) -> List[torch.Tensor]:

@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: the paged attention kernel against its plain
-version, the wrapper's checks, and the served model through the kernel
-against the gather path.  Every test is marked ``cuda`` and skips without a
+"""The port on an NVIDIA GPU: the paged and contiguous-ring attention kernels
+against their plain versions, the wrappers' checks, and the served model
+through the kernels against the gather path, with and without speculative
+decoding.  Every test is marked ``cuda`` and skips without a
 GPU (a CUDA kernel has no CPU or interpret mode).  The file imports no jax,
 so it runs on the GPU machine:
 
@@ -11,12 +12,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from paged_cases import paged_case  # noqa: E402
+from paged_cases import paged_case, ring_case  # noqa: E402
 from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.runtime import TorchTensorBackend  # noqa: E402
 from repro_torch.serving import LLM, SamplingParams  # noqa: E402
+from repro_torch.serving.spec import OracleDraft  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -37,9 +40,10 @@ def gpu():
 
 
 def _on(x, dev, dtype=torch.float32):
-    t = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
-    for k in ("q", "k_pool", "v_pool"):
-        t[k] = t[k].to(dtype)
+    t = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in x.items()}
+    for k in ("q", "k_pool", "v_pool", "k_cache", "v_cache"):
+        if k in t:
+            t[k] = t[k].to(dtype)
     return t
 
 
@@ -94,7 +98,7 @@ def test_served_tokens_kernel_equals_gather_path(gpu, arch):
     outs = {}
     for impl in ("cuda", "ref"):
         be = TorchTensorBackend(cfg, params, n_slots=3, max_len=64, impl=impl,
-                                block_size=16)
+                                cache_layout="paged", block_size=16)
         steps = []
         decode = be.decode_step
         be.decode_step = lambda feeds: steps.append(1) or decode(feeds)
@@ -106,3 +110,104 @@ def test_served_tokens_kernel_equals_gather_path(gpu, arch):
                             else 0)
         assert be.info.attn_impl == impl
     assert outs["cuda"] == outs["ref"]
+
+
+RING_CASES = [
+    # b, h, kh, d, c, valid, options
+    ((1, 8, 1, 128, 700, 650, 50), {}),                      # g=8, C=700
+    ((3, 16, 8, 128, 96, (96, 40, 5), 51), dict(softcap=30.0)),  # per row
+    ((4, 32, 32, 128, 64, (64, 10, 1, 33), 52), {}),         # g=1
+    ((1, 2, 1, 32, 128, 0, 53), dict(window=50)),            # wrapped ring
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_matches_plain_on_gpu(gpu, dtype):
+    """The contiguous-ring kernel against its plain version on the card:
+    GQA groups 8, 2 and 1, C=700, per-row positions, softcap, a wrapped
+    ring under a window, and a fully masked row (exact zeros)."""
+    for (b, h, kh, d, c, valid, seed), opts in RING_CASES:
+        x = ring_case(b, h, kh, d, c, valid, seed, dead=(1,) if b > 1 else (),
+                      wrap_pos=200 if "window" in opts else None)
+        t = _on(x, gpu, getattr(torch, dtype))
+        before = DA.decode_attention.launches
+        got = DA.decode_attention(**t, **opts)
+        want = DA.decode_attention_plain(**t, **opts)
+        torch.cuda.synchronize()
+        assert DA.decode_attention.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        if b > 1:
+            assert bool((got[1] == 0).all())
+        four = DA.decode_attention(t["q"][:, None], t["k_cache"],
+                                   t["v_cache"], t["key_pos"], t["pos"],
+                                   **opts)
+        assert torch.equal(four[:, 0], got)
+
+
+def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(gpu):
+    """No fallback to the plain version: wrong dtypes, shapes, strides,
+    devices or head dims raise before any launch."""
+    t = _on(ring_case(2, 4, 2, 64, 40, (40, 7), seed=54), gpu)
+    q, k, v, kp, pos = (t[n] for n in ("q", "k_cache", "v_cache", "key_pos",
+                                       "pos"))
+    before = DA.decode_attention.launches
+    bad = [
+        (q.half(), k, v, kp, pos),                             # float16
+        (q, k, v, kp.long(), pos),                             # int64
+        (q, k.transpose(0, 1).contiguous().transpose(0, 1), v, kp, pos),
+        (q.cpu(), k, v, kp, pos),                              # two devices
+        (q[..., :48].contiguous(), k[..., :48].contiguous(),
+         v[..., :48].contiguous(), kp, pos),                   # D=48
+        (torch.stack([q, q], 1), k, v, kp, pos),               # 2 tokens
+        (q, k, v, kp[:, :20].contiguous(), pos),               # key_pos
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            DA.decode_attention(*call)
+    assert DA.decode_attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "qwen3-0.6b"])
+def test_served_tokens_contiguous_and_spec(gpu, arch):
+    """Reduced model in float32 on the card, greedy tokens through
+    ``LLM.generate``: the contiguous ring read by the kernel equals the
+    gather path, and paged speculative decoding (``spec_k=4``, a corrupted
+    oracle draft, so rollbacks run) equals plain decoding.  Each kernel
+    launches once per layer and step of its path."""
+    cfg = get_config(arch).reduced(n_layers=3)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 40, 17, 9)]
+    sp = SamplingParams(max_tokens=12)
+
+    def serve(layout, impl, **kw):
+        be = TorchTensorBackend(cfg, params, n_slots=3, max_len=64,
+                                impl=impl, cache_layout=layout)
+        steps = []
+        for name in ("decode_step", "verify_step"):
+            fn = getattr(be, name)
+            setattr(be, name, lambda feeds, fn=fn: steps.append(1)
+                    or fn(feeds))
+        da, pa = DA.decode_attention.launches, PA.paged_attention.launches
+        llm = LLM.from_backend(be, **kw)
+        for uid, prompt in enumerate(prompts):      # the oracle's keys
+            llm.submit(prompt, sp, uid=uid)
+        while llm.has_work:
+            llm.step()
+        toks = [llm.poll(uid).tokens for uid in range(len(prompts))]
+        return toks, (DA.decode_attention.launches - da,
+                      PA.paged_attention.launches - pa), len(steps), llm
+
+    ref, launched, _, _ = serve("contiguous", "ref")
+    assert launched == (0, 0)
+    got, launched, steps, _ = serve("contiguous", "cuda")
+    assert got == ref
+    assert launched == (cfg.n_layers * steps, 0)
+    oracle = OracleDraft(dict(enumerate(ref)), accept_prob=0.75, seed=1,
+                         vocab_size=cfg.vocab_size)
+    got, launched, steps, llm = serve("paged", "cuda", spec_k=4,
+                                      draft=oracle)
+    assert got == ref
+    assert launched == (0, cfg.n_layers * steps)
+    assert 0 < llm.stats.spec_accepted < llm.stats.spec_drafted

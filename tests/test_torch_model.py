@@ -231,3 +231,156 @@ def test_unknown_impl_raises():
         TT.forward(tcfg, tparams, torch.zeros((1, 4), dtype=torch.long),
                    TT.init_caches(tcfg, 1, 4, torch.float32, "cpu"),
                    impl="xla")
+
+
+def _prefilled(jcfg, tcfg, jparams, tparams, lens, max_len):
+    """Both packages' ring caches after one masked prefill of ``lens``."""
+    r = np.random.default_rng(6)
+    s = max(lens)
+    lens = np.asarray(lens, np.int32)
+    tokens = r.integers(0, tcfg.vocab_size, (len(lens), s)).astype(np.int32)
+    _, jc, _ = JT.forward(jcfg, jparams, jnp.asarray(tokens), mode="prefill",
+                          caches=JT.init_caches(jcfg, len(lens), max_len,
+                                                jnp.float32),
+                          prompt_lens=jnp.asarray(lens))
+    with torch.no_grad():
+        _, tc = TT.forward(tcfg, tparams, torch.from_numpy(tokens).long(),
+                           TT.init_caches(tcfg, len(lens), max_len,
+                                          torch.float32, "cpu"),
+                           prompt_lens=torch.from_numpy(lens))
+    return jc, tc
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl,jimpl", IMPLS)
+@pytest.mark.parametrize("window", [None, 8])
+def test_contiguous_decode_steps(arch, impl, jimpl, window):
+    """Ring-cache decode over 12 steps after a masked prefill, every row at
+    its own position; with a window of 8 the rings wrap.  Logits and
+    caches match the reference's decode_step on its ring caches."""
+    jcfg, tcfg, jparams, tparams = _model(arch, window)
+    jc, tc = _prefilled(jcfg, tcfg, jparams, tparams, (9, 3, 6), 32)
+    r = np.random.default_rng(7)
+    step = jax.jit(lambda p, t, c: JT.decode_step(jcfg, p, t, c, impl=jimpl))
+    for _ in range(12):
+        tok = r.integers(0, tcfg.vocab_size, 3).astype(np.int32)
+        jl, jc = step(jparams, jnp.asarray(tok), jc)
+        with torch.no_grad():
+            tl, tc = TT.decode_step(tcfg, tparams,
+                                    torch.from_numpy(tok).long(), tc,
+                                    impl=impl)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+        np.testing.assert_array_equal(_np(tl).argmax(-1), _np(jl).argmax(-1))
+    assert _np(tc[0]["pos"]).tolist() == [21, 15, 18]
+    for i, layer in enumerate(tc):
+        jlayer = {k: v[i] for k, v in jc["stack"]["p0"].items()}
+        _same_cache(layer, jlayer, valid=_np(jlayer["key_pos"]) >= 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl,jimpl", IMPLS)
+def test_attend_decode_ring(arch, impl, jimpl):
+    """One ring decode call on random caches with per-row positions, one
+    row wrapped under a window of 6: the new k/v land at pos % C first."""
+    jcfg, tcfg, jparams, tparams = _model(arch, window=6)
+    spec_j, spec_t = jcfg.pattern[0], tcfg.pattern[0]
+    r = np.random.default_rng(8)
+    c, hd = 6, tcfg.resolved_head_dim
+    k, v = r.standard_normal((2, 2, c, tcfg.n_kv_heads, hd)) \
+        .astype(np.float32)
+    pos = np.asarray([13, 4], np.int32)
+    cols = np.arange(c)
+    kp = np.stack([13 - (13 - cols) % c,                # wrapped
+                   np.where(cols < 4, cols, -1)]).astype(np.int32)
+    x = r.standard_normal((2, 1, tcfg.d_model)).astype(np.float32)
+    jcache = {"k": jnp.asarray(k), "v": jnp.asarray(v),
+              "key_pos": jnp.asarray(kp), "pos": jnp.asarray(pos)}
+    tcache = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy()),
+              "key_pos": torch.from_numpy(kp.copy()),
+              "pos": torch.from_numpy(pos.copy())}
+    jy, jnew = JA.attend_decode(_attn(jparams), jcfg, spec_j, jnp.asarray(x),
+                                jcache, impl=jimpl)
+    with torch.no_grad():
+        ty, tnew = TA.attend_decode(_attn(tparams), tcfg, spec_t,
+                                    torch.from_numpy(x), tcache, impl=impl)
+    np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
+    _same_cache(tnew, jnew)
+    assert _np(tnew["pos"]).tolist() == [14, 5]
+    assert _np(tnew["key_pos"])[:, [13 % c, 4]].diagonal().tolist() == [13, 4]
+
+
+def _verify_pair(jcfg, tcfg, jparams, tparams):
+    """Paged caches of 3 slots after 9 decode steps in both packages: slot
+    0 and 1 live (slot 1 frozen on some steps), slot 2 never written."""
+    jc, tc = _paged_pair(jcfg, tcfg)
+    r = np.random.default_rng(9)
+    step = jax.jit(lambda p, t, c, m: JT.decode_step(jcfg, p, t, c,
+                                                     write_mask=m))
+    for i in range(9):
+        tok = r.integers(0, tcfg.vocab_size, 3).astype(np.int32)
+        mask = np.asarray([True, i % 3 != 1, False])
+        _, jc = step(jparams, jnp.asarray(tok), jc, jnp.asarray(mask))
+        with torch.no_grad():
+            _, tc = TT.decode_step(tcfg, tparams,
+                                   torch.from_numpy(tok).long(), tc,
+                                   write_mask=torch.from_numpy(mask))
+    return jc, tc
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl,jimpl", IMPLS)
+@pytest.mark.parametrize("lens", [(4, 1, 0), (3, 4, 0), (1, 1, 0)])
+def test_verify_step_matches_reference(arch, impl, jimpl, lens):
+    """Four tokens per slot, ``lens`` 0 (idle: scratch writes, state
+    frozen), 1 (a decode step) and more: logits at the fed columns, pool
+    contents, key_pos and pos match the reference's verify_step."""
+    jcfg, tcfg, jparams, tparams = _model(arch)
+    jc, tc = _verify_pair(jcfg, tcfg, jparams, tparams)
+    r = np.random.default_rng(10)
+    tok = r.integers(0, tcfg.vocab_size, (3, 4)).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    jl, jc = jax.jit(lambda p, t, c, n: JT.verify_step(jcfg, p, t, c, n,
+                                                       impl=jimpl))(
+        jparams, jnp.asarray(tok), jc, jnp.asarray(lens))
+    with torch.no_grad():
+        tl, tc = TT.verify_step(tcfg, tparams, torch.from_numpy(tok).long(),
+                                tc, torch.from_numpy(lens), impl=impl)
+    fed = np.arange(4)[None] < lens[:, None]
+    np.testing.assert_allclose(_np(tl)[fed], _np(jl)[fed], **TOL)
+    np.testing.assert_array_equal(_np(tl)[fed].argmax(-1),
+                                  _np(jl)[fed].argmax(-1))
+    for i, layer in enumerate(tc):
+        jlayer = {k: v[i] for k, v in jc["stack"]["p0"].items()}
+        real = np.arange(jlayer["k_pool"].shape[0] - 1)  # all but scratch
+        _same_cache({k: (layer[k][real] if k.endswith("pool") else layer[k])
+                     for k in layer},
+                    {k: (jlayer[k][real] if k.endswith("pool") else jlayer[k])
+                     for k in jlayer})
+    assert _np(tc[0]["pos"])[2] == 0
+
+
+@pytest.mark.parametrize("impl", ["ref", "cuda"])
+def test_verify_one_token_is_a_decode_step(impl):
+    """lens == 1 is exactly a decode step: the live slots' logits and the
+    caches equal decode_step's with the idle slot masked, alone (K = 1)
+    and beside a slot verifying four tokens.  (The idle row differs: verify
+    zeroes its embedding, decode embeds token 0; both discard it.)"""
+    jcfg, tcfg, jparams, tparams = _model("qwen3-0.6b")
+    _, tc = _verify_pair(jcfg, tcfg, jparams, tparams)
+    tok = np.asarray([[5, 6, 7, 8], [9, 1, 2, 3], [0, 0, 0, 0]], np.int64)
+    decoded = [{k: v.clone() for k, v in c.items()} for c in tc]
+    with torch.no_grad():
+        dl, decoded = TT.decode_step(
+            tcfg, tparams, torch.from_numpy(tok[:, 0]), decoded, impl=impl,
+            write_mask=torch.tensor([True, True, False]))
+        for k, lens in ((1, [1, 1, 0]), (4, [1, 4, 0])):
+            caches = [{n: v.clone() for n, v in c.items()} for c in tc]
+            vl, caches = TT.verify_step(
+                tcfg, tparams, torch.from_numpy(tok[:, :k]), caches,
+                torch.tensor(lens), impl=impl)
+            if k == 1:
+                torch.testing.assert_close(vl[:2, 0], dl[:2], rtol=0, atol=0)
+                for c, d in zip(caches, decoded):
+                    for n in ("key_pos", "pos", "bt"):
+                        assert torch.equal(c[n], d[n]), n
+            torch.testing.assert_close(vl[0, 0], dl[0], **TOL)

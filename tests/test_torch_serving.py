@@ -1,17 +1,21 @@
 """Serving through the port (``LLM`` -> ``ContinuousBatcher`` ->
-``TorchTensorBackend`` on the paged KV cache, on the CPU) against the JAX
-package's ``LLM`` over ``TensorBackend(cache_layout="paged",
-impl="pallas")``, with the reference's own weights in float32.
+``TorchTensorBackend`` on the contiguous and the paged KV cache, on the
+CPU) against the JAX package's ``LLM`` over ``TensorBackend(impl="pallas")``
+on the same layout, with the reference's own weights in float32.
 
 Greedy tokens must be bit-identical, with varlen prompts, fewer slots than
-requests (slots recycle) and a pool small enough to preempt and resume.
-Temperature > 0 draws from torch generators, which give other numbers than
-``jax.random``: those tests check determinism per seed and the top-k
-support only.
+requests (slots recycle), a pool small enough to preempt and resume, and a
+sliding window shorter than prompt + generation (the contiguous ring
+wraps).  Temperature > 0 draws from torch generators, which give other
+numbers than ``jax.random``: those tests check determinism per seed and the
+top-k support only.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -23,6 +27,7 @@ from repro.serving import LLM as JaxLLM  # noqa: E402
 from repro.serving import SamplingParams as JaxSamplingParams  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.runtime import PoolExhausted, TorchTensorBackend  # noqa: E402
 from repro_torch.serving import LLM, SamplingParams  # noqa: E402
@@ -103,22 +108,72 @@ def test_stream_and_stepping_match_generate(model):
     assert [llm.poll(u).tokens for u in uids] == want
 
 
+def _windowed(cfg, window):
+    return dataclasses.replace(cfg, pattern=tuple(
+        dataclasses.replace(s, window=window) for s in cfg.pattern))
+
+
+@pytest.mark.parametrize("impl", ["cuda", "ref"])
+@pytest.mark.parametrize("n_slots,lens,window", [
+    (4, (5, 17, 9, 12), None),             # one wave, varlen buckets
+    (2, (6, 9, 4, 7, 5), None),            # slots < batch: slots recycle
+    (3, (6, 9, 4, 7, 5), 8),               # window 8 < prompt + gen: wraps
+])
+def test_contiguous_greedy_tokens_bit_identical(model, impl, n_slots, lens,
+                                                window):
+    """The default layout: one ring per slot, every slot decoding each
+    step (idle ones too, as the reference's vmap does)."""
+    jcfg, tcfg, jparams, tparams = model
+    if window is not None:
+        jcfg, tcfg = _windowed(jcfg, window), _windowed(tcfg, window)
+    prompts = _prompts(tcfg, lens)
+    want = JaxLLM.from_backend(TensorBackend(
+        jcfg, jparams, n_slots=n_slots, max_len=32, impl="pallas")).generate(
+        prompts, JaxSamplingParams(max_tokens=12))
+    be = TorchTensorBackend(tcfg, tparams, n_slots=n_slots, max_len=32,
+                            impl=impl, device="cpu")
+    assert be.info.cache_layout == "contiguous"
+    got = LLM.from_backend(be).generate(prompts,
+                                        SamplingParams(max_tokens=12))
+    for g, w in zip(got, want):
+        assert g.tokens == w.tokens, (g.uid, g.tokens, w.tokens)
+        assert g.n_generated == 12
+    assert DA.decode_attention.launches == 0     # CPU: the plain version
+
+
 def test_backend_info_and_unported_layouts(model):
-    _, tcfg, _, tparams = model
-    be = TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
-                            impl="cuda", device="cpu")
-    info = be.info
-    assert info.cache_layout == "paged" and info.block_size == 16
-    assert info.attn_impl == "plain"          # the kernel runs only on a GPU
-    assert not (info.supports_extend or info.prefix_caching
-                or info.spec_decode)
-    assert info.total_blocks == 2 * 2 and info.free_blocks == 4
-    with pytest.raises(ValueError, match="contiguous"):
-        TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
-                           cache_layout="contiguous", device="cpu")
+    """BackendInfo matches the JAX backend's field for field on both
+    layouts, but for two: ``attn_impl`` names the port's read path ("plain":
+    the kernel's plain version on the CPU, where the reference says
+    "pallas"), and ``supports_extend`` stays False until streamed admission
+    is ported (the reference's paged backend has it).  An unknown impl
+    still raises, and streamed admission raises until its slice."""
+    jcfg, tcfg, jparams, tparams = model
+    for layout in ("contiguous", "paged"):
+        want = TensorBackend(jcfg, jparams, n_slots=2, max_len=32,
+                             impl="pallas", cache_layout=layout).info
+        be = TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
+                                impl="cuda", cache_layout=layout,
+                                cache_dtype=torch.float32, device="cpu")
+        got = dataclasses.asdict(be.info)
+        assert got.pop("attn_impl") == "plain"
+        assert got.pop("supports_extend") is False
+        want = dataclasses.asdict(want)
+        assert want.pop("attn_impl") == "pallas"
+        assert want.pop("supports_extend") == (layout == "paged")
+        assert got == want, layout
+        assert be.info.spec_decode == (layout == "paged")
+        with pytest.raises(NotImplementedError):
+            be.start_stream(0, np.arange(4, dtype=np.int32))
+        with pytest.raises(NotImplementedError):
+            be.prefill_chunk([0], np.zeros((1, 4), np.int32), [4], [0],
+                             [True])
     with pytest.raises(ValueError, match="unknown decode impl"):
         TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
                            impl="pallas", device="cpu")
+    with pytest.raises(ValueError, match="cache_layout"):
+        TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
+                           cache_layout="ring", device="cpu")
 
 
 def test_pool_exhausted_before_any_mutation(model):
@@ -126,7 +181,7 @@ def test_pool_exhausted_before_any_mutation(model):
     caches, so the scheduler can preempt and retry."""
     _, tcfg, _, tparams = model
     be = TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
-                            num_blocks=2, device="cpu")
+                            cache_layout="paged", num_blocks=2, device="cpu")
     prompts = np.stack(_prompts(tcfg, (16, 16), seed=3))
     be.prefill([0, 1], prompts)
     table = be.pager.table.copy()
@@ -182,6 +237,26 @@ def test_serve_launcher_on_cpu(capsys):
     from repro_torch.launch.serve import main
     main(["--arch", ARCH, "--smoke", "--device", "cpu", "--impl", "cuda",
           "--batch", "3", "--slots", "2", "--varlen", "--prompt-len", "10",
-          "--gen", "4", "--kv-blocks", "4"])
+          "--gen", "4", "--cache-layout", "paged", "--kv-blocks", "4"])
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "attn_impl=plain" in out
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_serve_launcher_layouts_and_spec(capsys, layout):
+    """The default layout is contiguous; --spec-k 4 verifies drafts on the
+    paged layout and prints a note, serving plain decode, on the
+    contiguous one."""
+    from repro_torch.launch.serve import main
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "3",
+            "--slots", "2", "--prompt-len", "10", "--gen", "6",
+            "--spec-k", "4"]
+    if layout == "paged":
+        argv += ["--cache-layout", "paged"]
+    with pytest.warns(RuntimeWarning) if layout == "contiguous" else \
+            contextlib.nullcontext():
+        main(argv)
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out
+    assert ("note: --spec-k 4 ignored" in out) == (layout == "contiguous")
+    assert ("spec_drafted=" in out) == (layout == "paged")
