@@ -11,17 +11,23 @@ exits non-zero and prints no result line; no phase catches its own failure.
 2. build   -- ``nvcc`` builds every kernel of the main path from the sources
    in this checkout, one process per source, all started together; each
    source's compile time and register and spill report;
-3. kernels -- each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16.  The paged kernel over the cases of the JAX kernel
-   tests (GQA group sizes of llama2-7b, qwen3-0.6b and llama2-70b, unmapped
-   table entries, a wrapped ring with a window, softcap, a fully masked row,
-   1 and 4 query tokens per slot); the contiguous-ring kernel over GQA
-   groups 1, 2 and 8, C=700 with 650 valid keys, the contiguous serve's
-   4096-key ring, shared and per-row positions, the wrapped ring with a
-   window of 50, softcap and a fully masked row.  Then each is timed at the
-   main path's shapes beside the plain version, one library call and the
-   card's bound, and every timing input set is held against the plain
-   version too;
+3. kernels -- each kernel against its plain PyTorch version on the card.
+   The attention kernels in float32 and bfloat16: the paged kernel over the
+   cases of the JAX kernel tests (GQA group sizes of llama2-7b, qwen3-0.6b
+   and llama2-70b, unmapped table entries, a wrapped ring with a window,
+   softcap, a fully masked row, 1 and 4 query tokens per slot); the
+   contiguous-ring kernel over GQA groups 1, 2 and 8, C=700 with 650 valid
+   keys, the contiguous serve's 4096-key ring, recurrentgemma-2b's MQA
+   group of 10 at D=256 over its 2048-key window (one row wrapped), shared
+   and per-row positions, the wrapped ring with a window of 50, softcap and
+   a fully masked row.  The RG-LRU scan in float32 at R = 2560 and 200
+   (ragged), S = 1, 7 and 4096, with and without h0, and left-pad identity
+   steps that must leave h bit for bit.  Then each is timed at the main
+   path's shapes beside the plain version, one library call where there is
+   one and the card's bound, and every timing input set is held against
+   the plain version too.  Kernel and library calls are timed as a CUDA
+   graph's replay, so a short kernel's time is the card's and not the
+   host's launch rate;
 4. serve   -- llama2-7b at full width and depth, random weights from a seed,
    six greedy requests over four slots, so slots recycle, through the
    ``LLM`` API over ``TorchTensorBackend(impl="cuda")``, three times:
@@ -33,11 +39,20 @@ exits non-zero and prints no result line; no phase catches its own failure.
      step, with 4 query tokens per slot;
    and each time the logits, fed the run's own tokens, must agree with the
    ``impl="ref"`` read path;
-5. result  -- one JSON line of per-kernel numbers, then the result line.
+5. hybrid  -- the llama2 weights freed, recurrentgemma-2b at full width and
+   depth (18 RG-LRU and 8 local-attention layers, window 2048), random
+   weights from a seed, ``max_len`` 4096, six greedy requests over four
+   slots, one prompt of 2100 tokens so its ring wraps: the scan kernel
+   launches once per RG-LRU layer and prefill wave, the contiguous-ring
+   kernel once per attention layer and decode step, the paged one never;
+   the paged layout refuses the hybrid; teacher-forced logits, cuda
+   against ref (the doubling scan and the ring sdpa);
+6. result  -- one JSON line of per-kernel numbers, then the result line.
 
 It imports torch, numpy and the port only, never jax and nothing of
 ``repro``.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -57,6 +72,9 @@ SRC = ROOT / "src"
 # neighbouring bf16 value, one step of 2**-7 relative.
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
        "bfloat16": dict(rtol=2 ** -7, atol=2 ** -7)}
+# the RG-LRU scan against its plain version: the JAX kernel test's
+# tolerance (both round a*h, then +b, in float32; only expf may differ)
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
 # logits of impl="cuda" against impl="ref" over the whole bf16 model: the
 # ref path rounds the probabilities to bf16 before the PV product and the
 # kernels do not, and 32 layers carry that difference to the logits
@@ -70,11 +88,16 @@ MAX_TOKENS = 32
 SPEC_K, ACCEPT_PROB = 4, 0.75
 SEED = 0
 DEVICE = "cuda"
+HYBRID = "recurrentgemma-2b"
+HYBRID_MAX_LEN = 4096
+HYBRID_WINDOW = 2048
+HYBRID_PROMPT_LENS = (17, 64, 100, 128, 200, 2100)   # 2100: the ring wraps
 
 # datasheet device-memory rates (bytes/s) and dense bf16 tensor rate
 MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12))
 PEAK_BF16 = 989e12
+PEAK_F32 = 67e12                    # float32 outside the tensor cores
 
 
 def card_line() -> str:
@@ -92,11 +115,11 @@ def mem_rate(name: str) -> float:
     raise ValueError(f"no datasheet memory rate for card {name!r}")
 
 
-def bound(n_bytes, n_ops, card):
+def bound(n_bytes, n_ops, card, peak=PEAK_BF16):
     """The least time of a call: its bytes over the memory rate or its
-    operations over the bf16 tensor rate, whichever is larger."""
+    operations over the peak rate of their type, whichever is larger."""
     bytes_ms = n_bytes / mem_rate(card) * 1e3
-    ops_ms = n_ops / PEAK_BF16 * 1e3
+    ops_ms = n_ops / peak * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms), n_bytes=n_bytes,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -134,6 +157,9 @@ RING_CASES = [
     ("llama2-70b g=8 C=700 per-row", (2, 64, 8, 128, 700, (650, 100)), {}),
     ("llama2-7b g=1 C=4096 per-row", (4, 32, 32, 128, 4096,
                                       (4096, 1024, 288, 17)), {}),
+    ("recurrentgemma-2b g=10 D=256 C=2048 per-row, row 0 wrapped",
+     (4, 10, 1, 256, HYBRID_WINDOW, (2048, 2048, 700, 17)),
+     dict(window=HYBRID_WINDOW)),
     ("wrapped ring + window 50", (1, 2, 1, 32, 128, 0), dict(window=50)),
     ("fully masked row", (2, 16, 8, 128, 64, (20, 5)), {}),
 ]
@@ -149,10 +175,10 @@ def to_device(case, dtype):
     return out
 
 
-def compare(name, kernel, plain, x, opts, dtype, dead=()):
+def compare(name, kernel, plain, x, opts, dtype, dead=(), tol=None):
     """One kernel call against its plain version; returns the largest
     error and a note of the extra checks."""
-    tol = TOL[str(dtype).split(".")[1]]
+    tol = tol or TOL[str(dtype).split(".")[1]]
     got = kernel(**x, **opts)
     want = plain(**x, **opts)
     torch.cuda.synchronize()
@@ -196,9 +222,9 @@ def check_kernels(pa, da):
                   f"err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
         for i, (name, shape, opts) in enumerate(RING_CASES):
             dead = (1,) if name.startswith("fully masked") else ()
+            wrap = {50: 200, HYBRID_WINDOW: 2130}.get(opts.get("window"))
             x = to_device(ring_case(*shape, seed=300 + i, dead=dead,
-                                    wrap_pos=200 if "window" in opts
-                                    else None), dtype)
+                                    wrap_pos=wrap), dtype)
             got, err, extra = compare(name, da.decode_attention,
                                       da.decode_attention_plain, x, opts,
                                       dtype, dead)
@@ -222,18 +248,89 @@ def check_kernels(pa, da):
     return worst
 
 
-def time_ms(fn, n_sets, iters=200):
+def scan_inputs(b, s, r, seed, h0=True):
+    """Seeded scan inputs on the card: log_a = -|N(0, 1)|, b = N(0, 1)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    x = dict(log_a=-torch.randn((b, s, r), generator=gen, device=DEVICE)
+             .abs(),
+             b=torch.randn((b, s, r), generator=gen, device=DEVICE))
+    x["h0"] = torch.randn((b, r), generator=gen, device=DEVICE) if h0 \
+        else None
+    return x
+
+
+def check_rglru(rs):
+    """The scan kernel against its plain version in float32 at the serve's
+    width and a ragged one, and left-pad identity steps exact; returns the
+    largest error."""
+    worst = 0.0
+    for i, (r, s, h0) in enumerate((r, s, h0) for r in (2560, 200)
+                                   for s in (1, 7, 4096)
+                                   for h0 in (True, False)):
+        x = scan_inputs(4, s, r, seed=500 + i, h0=h0)
+        name = f"B=4 S={s} R={r} h0={'yes' if h0 else 'none'}"
+        _, err, _ = compare(name, rs.rglru_scan, rs.rglru_scan_plain, x, {},
+                            torch.float32, tol=SCAN_TOL)
+        worst = max(worst, err)
+        print(f"kernels: rglru_scan {name}: max abs err {err:.3g} "
+              f"(rtol/atol {SCAN_TOL['rtol']:.3g})")
+    # a masked prefill's left pads: log_a = 0, b = 0 leave h bit for bit,
+    # and the rest equals the scan of the unpadded rows from the same h0
+    x = scan_inputs(4, 300, 2560, seed=520)
+    pads = (0, 37, 150, 299)
+    for row, p in enumerate(pads):
+        x["log_a"][row, :p] = 0.0
+        x["b"][row, :p] = 0.0
+    _, err, _ = compare("left pads", rs.rglru_scan, rs.rglru_scan_plain, x,
+                        {}, torch.float32, tol=SCAN_TOL)
+    worst = max(worst, err)
+    got = rs.rglru_scan(**x)
+    for row, p in enumerate(pads):
+        h0 = x["h0"][row:row + 1]
+        rest = rs.rglru_scan(x["log_a"][row:row + 1, p:].contiguous(),
+                             x["b"][row:row + 1, p:].contiguous(), h0)
+        if not torch.equal(got[row, :p], h0.expand(p, -1)) \
+                or not torch.equal(got[row:row + 1, p:], rest):
+            raise AssertionError(f"rglru_scan: {p} left pad steps of row "
+                                 f"{row} are not the identity, bit for bit")
+    print(f"kernels: rglru_scan B=4 S=300 R=2560 left pads {list(pads)}: max "
+          f"abs err {err:.3g}; pad steps keep h0 bit for bit and the rest "
+          f"equals the unpadded scan bit for bit")
+    return worst
+
+
+def time_ms(fn, n_sets, iters=200, warmup=10, graph=True):
     """Device time of one call from CUDA events over ``iters`` calls,
     rotating over ``n_sets`` input sets so the caches come cold from device
-    memory, as each layer's cache does on the main path."""
-    for i in range(10):
-        fn(i % n_sets)
+    memory, as each layer's cache does on the main path.
+
+    With ``graph`` the ``iters`` calls are captured once in a CUDA graph
+    and one replay is timed, so a short call is timed on the card and not
+    at the rate the host issues it.  The plain versions, which the host
+    drives step by step, are timed without (``graph=False``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(i % n_sets)
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+
+    def run():
+        for i in range(iters):
+            fn(i % n_sets)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        g.replay()                  # the first replay uploads the graph
+        torch.cuda.synchronize()
+        run = g.replay
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fn(i % n_sets)
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -269,7 +366,7 @@ def time_paged(pa, card, kq):
                       torch.bfloat16)[1] for i, x in enumerate(sets))
     ms = time_ms(lambda i: pa.paged_attention(**sets[i]), n_sets)
     plain_ms = time_ms(lambda i: pa.paged_attention_plain(**sets[i]), n_sets,
-                       iters=20)
+                       iters=20, graph=False)
     library_ms = time_ms(
         lambda i: F.scaled_dot_product_attention(
             lib[i][0], lib[i][1], lib[i][2], attn_mask=lib[i][3]), n_sets)
@@ -286,15 +383,17 @@ def time_paged(pa, card, kq):
                 library_ms=library_ms, **bound(n_bytes, n_ops, card))
 
 
-def time_decode(da, card, n_valid):
-    """decode_attention at the contiguous serve's shapes: llama2-7b, 4
-    slots with a 4096-key bf16 ring each, ``n_valid`` keys filled."""
+def time_decode(da, card, n_valid, heads=(32, 32, 128),
+                c=CONTIGUOUS_MAX_LEN, n_sets=3):
+    """decode_attention at a contiguous serve's shapes, 4 slots with a
+    ``c``-key bf16 ring each, ``n_valid`` keys filled: by default
+    llama2-7b's (``heads`` = H, KH, D) and its 4096-key ring.  ``n_sets``
+    input sets together exceed the L2."""
     import torch.nn.functional as F
 
     from paged_cases import ring_case
-    n_sets = 3                      # 3 x 268 MB of K/V: more than the L2
-    c = CONTIGUOUS_MAX_LEN
-    sets = [to_device(ring_case(SLOTS, 32, 32, 128, c, (n_valid,) * SLOTS,
+    h, kh, d = heads
+    sets = [to_device(ring_case(SLOTS, h, kh, d, c, (n_valid,) * SLOTS,
                                 seed=400 + i), torch.bfloat16)
             for i in range(n_sets)]
     lib = []
@@ -304,15 +403,17 @@ def time_decode(da, card, n_valid):
         lib.append((x["q"][:, :, None], x["k_cache"].transpose(1, 2)
                     .contiguous(), x["v_cache"].transpose(1, 2).contiguous(),
                     mask[:, None, None]))
-    err = max(compare(f"decode_attention timing set {i} {n_valid} keys",
-                      da.decode_attention, da.decode_attention_plain, x, {},
-                      torch.bfloat16)[1] for i, x in enumerate(sets))
+    err = max(compare(f"decode_attention timing set {i} {n_valid} keys "
+                      f"H={h} KH={kh} D={d}", da.decode_attention,
+                      da.decode_attention_plain, x, {}, torch.bfloat16)[1]
+              for i, x in enumerate(sets))
     ms = time_ms(lambda i: da.decode_attention(**sets[i]), n_sets)
     plain_ms = time_ms(lambda i: da.decode_attention_plain(**sets[i]),
-                       n_sets, iters=20)
+                       n_sets, iters=20, graph=False)
     library_ms = time_ms(
         lambda i: F.scaled_dot_product_attention(
-            lib[i][0], lib[i][1], lib[i][2], attn_mask=lib[i][3]), n_sets)
+            lib[i][0], lib[i][1], lib[i][2], attn_mask=lib[i][3],
+            enable_gqa=kh != h), n_sets)
     # the least work: read q, each valid key and value once and key_pos;
     # write the output
     x = sets[0]
@@ -326,9 +427,30 @@ def time_decode(da, card, n_valid):
                 library_ms=library_ms, **bound(n_bytes, n_ops, card))
 
 
+def time_rglru(rs, card, s):
+    """rglru_scan at the hybrid serve's wave: 4 slots x ``s`` steps x
+    R = 2560, float32.  No PyTorch call computes a linear recurrence, so
+    there is no library time."""
+    b, r = SLOTS, 2560
+    n_sets = max(1, -(-200_000_000 // (3 * b * s * r * 4)))   # past the L2
+    sets = [scan_inputs(b, s, r, seed=600 + i) for i in range(n_sets)]
+    err = max(compare(f"rglru_scan timing set {i} S={s}", rs.rglru_scan,
+                      rs.rglru_scan_plain, x, {}, torch.float32,
+                      tol=SCAN_TOL)[1] for i, x in enumerate(sets))
+    ms = time_ms(lambda i: rs.rglru_scan(**sets[i]), n_sets, iters=50)
+    plain_ms = time_ms(lambda i: rs.rglru_scan_plain(**sets[i]), n_sets,
+                       iters=2, warmup=1, graph=False)
+    # the least work: read log_a, b and h0 once, write h; exp, * and + per
+    # element
+    n_bytes = (3 * b * s * r + b * r) * 4
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(n_bytes, 3 * b * s * r, card, PEAK_F32))
+
+
 def timing_line(name, shape, t, card):
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
     print(f"kernels: {name} at {shape}: kernel {t['ms']:.4f} ms, plain "
-          f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+          f"{t['plain_ms']:.4f} ms, library {lib}, bound "
           f"{t['bound_ms']:.4f} ms ({t['n_bytes'] / 1e6:.2f} MB by "
           f"{t['bound_by']}), max abs err {t['max_abs_err']:.3g} [{card}]")
 
@@ -453,13 +575,13 @@ def run_requests(llm, prompts, sp):
 
 
 class Model:
-    """llama2-7b at full width and depth with random weights from SEED, and
-    the six requests."""
+    """A model at full width and depth with random weights from SEED (by
+    default llama2-7b), and its six requests."""
 
-    def __init__(self):
+    def __init__(self, arch=ARCH, prompt_lens=PROMPT_LENS):
         from repro_torch.bridge import init_params
         from repro_torch.configs import get_config
-        self.cfg = get_config(ARCH)
+        self.cfg = get_config(arch)
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(SEED)
         t0 = time.perf_counter()
@@ -468,7 +590,7 @@ class Model:
         self.init_s = time.perf_counter() - t0
         rng = np.random.default_rng(SEED)
         self.prompts = [rng.integers(0, self.cfg.vocab_size, n)
-                        .astype(np.int32) for n in PROMPT_LENS]
+                        .astype(np.int32) for n in prompt_lens]
 
     def backend(self, impl, layout="paged", max_len=MAX_LEN):
         from repro_torch.runtime import TorchTensorBackend
@@ -655,6 +777,76 @@ def serve_spec(model, pa, da, card, paged_tokens):
     return dict(launches=launches)
 
 
+def serve_hybrid(model, pa, da, rs, card):
+    """recurrentgemma-2b on the contiguous layout: RG-LRU state per slot
+    beside windowed rings of 2048 keys."""
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = model.cfg
+    n_scan = sum(spec.kind == "rglru" for spec in cfg.layer_specs())
+    n_attn = cfg.n_layers - n_scan
+    try:
+        model.backend("cuda", "paged", HYBRID_MAX_LEN)
+    except ValueError as e:
+        print(f"serve hybrid: the paged layout refuses it: {e}")
+    else:
+        raise AssertionError("the paged layout served a hybrid model")
+    be = model.backend("cuda", "contiguous", HYBRID_MAX_LEN)
+    print(f"serve hybrid: {HYBRID} {cfg.n_layers} layers ({n_scan} RG-LRU, "
+          f"{n_attn} local attention, window {HYBRID_WINDOW}), d_model "
+          f"{cfg.d_model}, {be.info.param_bytes / 1e9:.2f} GB of {cfg.dtype} "
+          f"weights from seed {SEED} in {model.init_s:.1f} s; max_len "
+          f"{HYBRID_MAX_LEN}, {be.info.cache_bytes / 2 ** 20:.1f} MiB of "
+          f"rings and state")
+    clock = StepClock(be)
+    llm = LLM.from_backend(be, seed=SEED)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=4))
+
+    clock.reset()
+    rs.rglru_scan.launches = 0
+    da.decode_attention.launches = 0
+    pa.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = llm.generate(model.prompts, sp)
+    wall = time.perf_counter() - t0
+    scans, attends = rs.rglru_scan.launches, da.decode_attention.launches
+    waves_, steps = len(clock.prefill_ms), len(clock.decode_ms)
+    if scans != n_scan * waves_ or attends != n_attn * steps or not scans \
+            or not attends or pa.paged_attention.launches:
+        raise AssertionError(
+            f"rglru_scan launched {scans} times over {waves_} prefill waves "
+            f"of {n_scan} RG-LRU layers, decode_attention {attends} times "
+            f"over {steps} decode steps of {n_attn} attention layers, "
+            f"paged_attention {pa.paged_attention.launches} times")
+    for o in outs:
+        if o.n_generated != MAX_TOKENS or o.finish_reason != "length" \
+                or not all(0 <= t < cfg.vocab_size for t in o.tokens):
+            raise AssertionError(f"request {o.uid}: {o.n_generated} tokens, "
+                                 f"{o.finish_reason}")
+    total = sum(o.n_generated for o in outs)
+    print(f"serve hybrid: {len(outs)} requests {list(HYBRID_PROMPT_LENS)} "
+          f"prompt tokens x {MAX_TOKENS} greedy tokens over {SLOTS} slots: "
+          f"{waves_} prefills, {steps} decode steps, rglru_scan launches "
+          f"{scans} = {n_scan} layers x {waves_} waves, decode_attention "
+          f"launches {attends} = {n_attn} layers x {steps} steps, "
+          f"paged_attention 0")
+    print(f"serve hybrid: {clock.summary()}, {total / wall:.1f} tokens/s over "
+          f"{wall:.2f} s [{card}]")
+    device_share("hybrid", llm, model.prompts, card)
+    del llm, be, clock
+    torch.cuda.empty_cache()
+
+    tokens = [o.tokens for o in outs]
+    got = {}
+    for impl in ("cuda", "ref"):
+        got[impl] = teacher_forced(
+            model.backend(impl, "contiguous", HYBRID_MAX_LEN),
+            model.prompts, tokens)
+        torch.cuda.empty_cache()
+    compare_logits("hybrid decode", got, card)
+    return dict(scans=scans, attends=attends)
+
+
 def device_share(what, llm, prompts, card):
     """The card's busy share over a short profiled serve (one wave of
     ``SLOTS`` requests, 8 tokens each), and the device time by kernel.  The
@@ -682,7 +874,8 @@ def device_share(what, llm, prompts, card):
           f"({busy / wall_us:.1%}) [{card}]")
     kinds = {"matrix products": ("gemm", "nvjet", "cutlass", "xmma"),
              "paged attention": ("paged_attention_kernel",),
-             "decode attention": ("decode_attention_kernel",)}
+             "decode attention": ("decode_attention_kernel",),
+             "rglru scan": ("rglru_scan_kernel",)}
     shares = {kind: sum(us for n, us in by_name.items()
                         if any(k in n for k in keys)) / busy
               for kind, keys in kinds.items()}
@@ -705,6 +898,7 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rglru_scan as rs
 
     # float32 products in full float32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -727,14 +921,20 @@ def main():
                 print(f"build:   {line.strip()[:140]}")
 
     worst = check_kernels(pa, da)
-    print(f"kernels: worst case error paged_attention "
-          f"{worst['paged_attention']:.3g}, decode_attention "
-          f"{worst['decode_attention']:.3g}")
+    worst["rglru_scan"] = check_rglru(rs)
+    print("kernels: worst case error " + ", ".join(
+        f"{k} {v:.3g}" for k, v in worst.items()))
     timing = {
         "paged_attention": time_paged(pa, card, 1),
         "paged_verify_attention": time_paged(pa, card, SPEC_K),
         "decode_attention full": time_decode(da, card, CONTIGUOUS_MAX_LEN),
         "decode_attention": time_decode(da, card, CONTIGUOUS_MAX_LEN // 4),
+        # 4 x 8.4 MB of K/V per set: 8 sets exceed the L2
+        "decode_attention hybrid": time_decode(
+            da, card, HYBRID_WINDOW, heads=(10, 1, 256), c=HYBRID_WINDOW,
+            n_sets=8),
+        "rglru_scan": time_rglru(rs, card, HYBRID_MAX_LEN),
+        "rglru_scan short": time_rglru(rs, card, 256),
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
@@ -745,6 +945,11 @@ def main():
         "decode_attention": f"llama2-7b x {SLOTS} slots x "
                             f"{CONTIGUOUS_MAX_LEN}-key ring, a quarter "
                             f"full, bf16",
+        "decode_attention hybrid": f"{HYBRID} (H=10, KH=1, D=256) x {SLOTS} "
+                                   f"slots x {HYBRID_WINDOW}-key window "
+                                   f"ring, full, bf16",
+        "rglru_scan": f"{HYBRID} {SLOTS} x {HYBRID_MAX_LEN} x 2560 f32",
+        "rglru_scan short": f"{HYBRID} {SLOTS} x 256 x 2560 f32",
     }
     for key, t in timing.items():
         timing_line(key.split()[0], shapes[key], t, card)
@@ -753,25 +958,37 @@ def main():
     paged = serve_paged(model, pa, card)
     contiguous = serve_contiguous(model, pa, da, card, paged["tokens"])
     spec = serve_spec(model, pa, da, card, paged["tokens"])
+    del model                       # 13.48 GB of llama2-7b weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = serve_hybrid(Model(HYBRID, HYBRID_PROMPT_LENS), pa, da, rs,
+                          card)
 
-    def entry(key, source, replaces, launches):
+    def entry(key, name, source, replaces, launches):
         t = timing[key]
-        return dict(name=key, route="cuda",
+        return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
-                    replaces=f"src/repro/kernels/decode_attention.py:"
-                             f"{replaces}",
+                    replaces=f"src/repro/kernels/{replaces}",
                     launches=launches, max_abs_err=t["max_abs_err"],
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
 
+    # library_ms of rglru_scan is null: no PyTorch call computes a linear
+    # recurrence
     kernels = [
-        entry("paged_attention", "paged_attention.cu", 201,
-              paged["launches"]),
-        entry("paged_verify_attention", "paged_attention.cu", 256,
+        entry("paged_attention", "paged_attention", "paged_attention.cu",
+              "decode_attention.py:201", paged["launches"]),
+        entry("paged_verify_attention", "paged_verify_attention",
+              "paged_attention.cu", "decode_attention.py:256",
               spec["launches"]),
-        entry("decode_attention", "decode_attention.cu", 153,
-              contiguous["launches"]),
+        entry("decode_attention", "decode_attention", "decode_attention.cu",
+              "decode_attention.py:153", contiguous["launches"]),
+        entry("decode_attention hybrid", f"decode_attention@{HYBRID}",
+              "decode_attention.cu", "decode_attention.py:153",
+              hybrid["attends"]),
+        entry("rglru_scan", "rglru_scan", "rglru_scan.cu",
+              "rglru_scan.py:36", hybrid["scans"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -93,10 +93,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             out["bias"] = zeros(cfg.d_model)
         return out
 
-    def block(spec: BlockSpec) -> Dict:
-        if spec.kind != "attn" or spec.moe is not None:
-            raise ValueError(f"block kind={spec.kind!r} arrives with its "
-                             f"mixer in a later slice")
+    def attention() -> Dict[str, torch.Tensor]:
         d, q, kv, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.resolved_head_dim
         mixer = {"wq": normal(d, q), "wk": normal(d, kv), "wv": normal(d, kv),
                  "wo": normal(q, d)}
@@ -104,6 +101,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             mixer.update(bq=zeros(q), bk=zeros(kv), bv=zeros(kv))
         if cfg.qk_norm:
             mixer.update(q_norm=ones(hd), k_norm=ones(hd))
+        return mixer
+
+    def recurrent() -> Dict[str, torch.Tensor]:
+        # init_rglru_block of the reference
+        d, r = cfg.d_model, cfg.rnn_dim
+        return {"w_gelu": normal(d, r), "w_rnn_in": normal(d, r),
+                "conv_w": normal(cfg.conv_width, r), "conv_b": zeros(r),
+                "w_a": normal(d, r), "w_x": normal(d, r),
+                "lam": normal(r, scale=0.5), "w_out": normal(r, d)}
+
+    def block(spec: BlockSpec) -> Dict:
+        if spec.kind not in ("attn", "rglru") or spec.moe is not None:
+            raise ValueError(f"block kind={spec.kind!r} arrives with its "
+                             f"mixer in a later slice")
+        mixer = attention() if spec.kind == "attn" else recurrent()
+        d = cfg.d_model
         out: Dict[str, Any] = {"norm1": norm(), "mixer": mixer}
         if cfg.post_norm:
             out["post_norm1"] = norm()

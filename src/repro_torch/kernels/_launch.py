@@ -46,23 +46,31 @@ def check_layout(name: str, dense: Sequence[torch.Tensor],
         raise ValueError(f"{name}: K/V storage must be 16-byte aligned")
 
 
+#: what every attention entry takes after its shapes and strides: scale,
+#: softcap, window and the dtype codes of q and K/V
+ATTENTION_SCALARS = (ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int)
+
+
 class Entry:
     """One C entry point of the kernel library.  Every entry takes
-    ``n_tensors`` pointers, ``n_ints`` shapes and strides, then scale,
-    softcap, window, the dtype codes of q and K/V, and the stream, and
-    returns ``cudaGetLastError()``.  It is typed at its first call, which
-    builds the library, and raises if the launch failed."""
+    ``n_tensors`` pointers, ``n_ints`` shapes and strides, then the
+    ``scalars`` (by default those of the attention entries) and the stream,
+    and returns ``cudaGetLastError()``.  It is typed at its first call,
+    which builds the library, and raises if the launch failed."""
 
-    def __init__(self, symbol: str, n_tensors: int, n_ints: int):
+    def __init__(self, symbol: str, n_tensors: int, n_ints: int,
+                 scalars: Sequence = ATTENTION_SCALARS):
         self.symbol, self.n_tensors, self.n_ints = symbol, n_tensors, n_ints
+        self.scalars = tuple(scalars)
         self._fn = None
 
     def __call__(self, device: torch.device, *args) -> None:
         if self._fn is None:
             fn = getattr(build.load(), self.symbol)
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            p, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = ([p] * self.n_tensors + [i] * self.n_ints
-                           + [f, f, i, i, i, p])
+                           + list(self.scalars) + [p])
             fn.restype = ctypes.c_int
             self._fn = fn
         err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -8,11 +8,14 @@ decoding on the paged one.  Weights are random, made from ``--seed``.
     python -m repro_torch.launch.serve --arch llama2-7b --cache-layout paged \
         --impl cuda --batch 6 --slots 4 --prompt-len 256 --varlen --gen 32 \
         --max-len 512 --spec-k 4
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --impl cuda \
+        --batch 6 --slots 4 --prompt-len 256 --varlen --gen 32 --max-len 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --impl ref --batch 4 --gen 8 [--stream]
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when no GPU
-is present.  The pipeline mode, the prefix cache, chunked prefill and the
+is present.  The hybrid recurrentgemma-2b serves on the contiguous layout
+only; ``--cache-layout paged`` raises for it.  The pipeline mode, the prefix cache, chunked prefill and the
 SLO policies of ``repro.launch.serve`` arrive with later slices of the port;
 this launcher has no flags for them.
 """

@@ -8,9 +8,14 @@ paged block pool.  Port of the attention part of ``repro.models.kvcache``.
   length per sequence.
 - paged: see :func:`init_paged_block_cache`.
 
+- rglru: the RG-LRU block's dense state, ``h [B, R]`` float32 whatever
+  the cache dtype, ``conv [B, W-1, R]`` (the causal conv's last inputs) in
+  the cache dtype, and ``pos [B]``.
+
 Caches are plain dicts of tensors, one dict per layer.  Unlike the
-reference's immutable pytrees, the port updates them in place.  Recurrent
-state caches (RG-LRU, xLSTM) arrive with their mixers in a later slice.
+reference's immutable pytrees, the port updates them in place.  The xLSTM
+states arrive with their mixers, and the paged layout of hybrid models
+(dense recurrent state beside the block pools) with a later slice.
 """
 from __future__ import annotations
 
@@ -86,8 +91,9 @@ def block_pool_bytes_per_block(cfg: ModelConfig,
 def _check_attn(cfg: ModelConfig, spec: BlockSpec) -> None:
     if spec.kind != "attn":
         raise ValueError(
-            f"{spec.kind!r} caches arrive with the recurrent-mixer slice; "
-            f"this slice serves attention decoders only")
+            f"a paged {spec.kind!r} cache: the paged layout of models with "
+            f"recurrent layers arrives in a later slice; serve them on the "
+            f"contiguous layout")
     if cfg.kv_dtype != "bfloat16":
         raise ValueError(
             f"kv_dtype={cfg.kv_dtype!r} (the int8 KV cache) arrives in a "
@@ -127,8 +133,21 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      max_len: int, dtype: torch.dtype = torch.bfloat16,
                      device=None) -> Dict[str, torch.Tensor]:
-    """Contiguous ring cache for one attention layer (the paged backend's
-    prefill workspace, sized by the bucketed prompt length)."""
+    """Contiguous cache for one layer: the attention ring (also the paged
+    backend's prefill workspace, sized by the bucketed prompt length) or
+    the RG-LRU state."""
+    if spec.kind == "rglru":
+        r = cfg.rnn_dim
+        return {
+            "h": torch.zeros((batch, r), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=dtype,
+                                device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
+    if spec.kind != "attn":
+        raise ValueError(
+            f"{spec.kind!r} caches arrive with the xLSTM recurrent mixers in "
+            f"a later slice")
     _check_attn(cfg, spec)
     c = attn_cache_len(spec, max_len)
     shape = (batch, c, cfg.n_kv_heads, cfg.resolved_head_dim)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense attention path: prefill, decode and
-speculative verify.
+"""Decoder-only transformer over attention and RG-LRU blocks: prefill,
+decode and speculative verify.
 
 Port of the serving entry points of ``repro.models.transformer``:
 
@@ -17,8 +17,9 @@ Parameters are the reference's tree with the layer stack unrolled (see
 
 and caches are one dict per layer.  A Python loop over layers replaces the
 reference's ``lax.scan`` over stacked parameters, and the caches update in
-place (``index_put_``) where the reference rebuilt them.  Recurrent and MoE
-blocks arrive with their mixers in later slices; the train mode with the
+place (``index_put_``) where the reference rebuilt them.  Attention and
+RG-LRU (the hybrid recurrentgemma) blocks run here; xLSTM and MoE blocks
+arrive with their mixers in later slices, the train mode with the
 flash-attention slice.
 """
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.kvcache import (DEFAULT_BLOCK_SIZE, init_block_cache,
                                         init_paged_block_cache)
@@ -38,11 +40,11 @@ Caches = List[Dict[str, torch.Tensor]]
 
 
 def _check_block(spec: BlockSpec) -> None:
-    if spec.kind != "attn" or spec.moe is not None:
+    if spec.kind not in ("attn", "rglru") or spec.moe is not None:
         raise ValueError(
             f"block kind={spec.kind!r} moe={spec.moe is not None} arrives "
-            f"with its mixer in a later slice; this slice runs dense "
-            f"attention decoders")
+            f"with its mixer in a later slice; the port runs dense "
+            f"attention and RG-LRU blocks")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -72,11 +74,24 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
                  verify_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block; ``cache`` updates in place.  ``seq_valid`` ([B, S],
     masked prefill and verify) re-zeroes pad activations on exit so they
-    cannot leak into later layers.  Decode reads the cache by its kind:
-    a paged cache holds a block pool (``k_pool``), a ring cache ``k``."""
+    cannot leak into later layers; recurrent blocks treat its pad steps as
+    state-preserving no-ops.  Decode reads an attention cache by its kind:
+    a paged cache holds a block pool (``k_pool``), a ring cache ``k``.
+    Verify needs attention caches, as in the reference."""
     _check_block(spec)
+    if mode == "verify" and spec.kind != "attn":
+        raise ValueError(
+            f"verify (speculative decoding) requires attention caches; got "
+            f"{spec.kind!r} -- gate via kvcache.prefix_sharing_supported")
     h = apply_norm(params["norm1"], x, cfg.norm)
-    if mode == "prefill":
+    if spec.kind == "rglru" and mode == "prefill":
+        mix, _ = rglru.apply_rglru_seq(params["mixer"], cfg, h, cache, impl,
+                                       seq_valid=seq_valid)
+    elif spec.kind == "rglru" and mode == "decode":
+        mix, _ = rglru.apply_rglru_decode(params["mixer"], cfg, h, cache)
+    elif spec.kind == "rglru":
+        raise ValueError(f"unknown mode {mode!r}")
+    elif mode == "prefill":
         mix, _ = attn.prefill_cache(params["mixer"], cfg, spec, h, positions,
                                     cache, impl)
     elif mode == "verify":

@@ -33,6 +33,13 @@ Both layouts run *masked* prefill through dense ring caches -- at
 the paged one -- then scatter the wave's rows into the slots' storage: the
 reference's path, not a direct paged prefill.
 
+Hybrid models (recurrentgemma: RG-LRU and local-attention layers) serve on
+the contiguous layout: each RG-LRU layer keeps its dense state (``h``
+float32, the conv window, ``pos``) per slot, written by the same row
+scatter as the rings.  The paged layout refuses them until the slice that
+keeps dense state beside the block pools; speculative verify needs
+all-attention layers, as in the reference.
+
 Not in this slice: the prefix cache and ``extend`` (streamed admission);
 :class:`BackendInfo` reports both off.
 """
@@ -72,6 +79,13 @@ class TorchTensorBackend(InferenceBackend):
         nbs = KV.max_ctx_blocks(cfg, max_len, block_size)
         if nbs == 0:
             raise ValueError(f"{cfg.name} has no attention layers")
+        recurrent = sorted({s.kind for s in cfg.layer_specs()} - {"attn"})
+        if cache_layout == "paged" and recurrent:
+            raise ValueError(
+                f"cache_layout='paged': {cfg.name} has {recurrent} layers, "
+                f"and the paged layout of hybrid models (dense recurrent "
+                f"state beside the block pools) arrives in a later slice; "
+                f"serve it with cache_layout='contiguous'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -37,16 +37,21 @@ def ring_case(b, h, kh, d, c, valid, seed, *, dead=(), wrap_pos=None):
     rings [b, c, kh, d].  ``valid`` is one count (key_pos [c] shared by the
     rows, pos a scalar: keys 0..valid-1, decoding from valid-1) or one per
     row (key_pos [b, c], pos [b]).  ``dead`` rows hold no key.
-    ``wrap_pos`` fills a shared ring that has wrapped: slot c holds the
-    latest position <= wrap_pos that maps to it, decoding at wrap_pos."""
+    ``wrap_pos`` fills a ring that has wrapped: slot c holds the latest
+    position <= wrap_pos that maps to it, decoding at wrap_pos -- the
+    shared ring when ``valid`` is one count, row 0's ring when it is one per
+    row."""
     r = np.random.default_rng(seed)
     q = r.standard_normal((b, h, d)).astype(np.float32)
     k = r.standard_normal((b, c, kh, d)).astype(np.float32)
     v = r.standard_normal((b, c, kh, d)).astype(np.float32)
     cols = np.arange(c)
+    wrapped = None
     if wrap_pos is not None:
-        key_pos = (cols + (wrap_pos + 1) // c * c
+        wrapped = (cols + (wrap_pos + 1) // c * c
                    - np.where(cols > wrap_pos % c, c, 0)).astype(np.int32)
+    if wrapped is not None and np.ndim(valid) == 0:
+        key_pos = wrapped
         pos = np.asarray(wrap_pos, np.int32)
     elif np.ndim(valid) == 0:
         key_pos = np.where(cols < valid, cols, -1).astype(np.int32)
@@ -55,6 +60,8 @@ def ring_case(b, h, kh, d, c, valid, seed, *, dead=(), wrap_pos=None):
         n = np.asarray(valid)[:, None]
         key_pos = np.where(cols[None] < n, cols[None], -1).astype(np.int32)
         pos = (np.asarray(valid) - 1).astype(np.int32)
+        if wrapped is not None:
+            key_pos[0], pos[0] = wrapped, wrap_pos
     if dead:
         key_pos = np.array(np.broadcast_to(key_pos, (b, c)))
         key_pos[list(dead)] = -1

@@ -1,9 +1,10 @@
 """The port on an NVIDIA GPU: the paged and contiguous-ring attention kernels
-against their plain versions, the wrappers' checks, and the served model
-through the kernels against the gather path, with and without speculative
-decoding.  Every test is marked ``cuda`` and skips without a
-GPU (a CUDA kernel has no CPU or interpret mode).  The file imports no jax,
-so it runs on the GPU machine:
+and the RG-LRU scan kernel against their plain versions, the wrappers'
+checks, and the served models through the kernels against the ref paths,
+with and without speculative decoding and for the hybrid recurrentgemma.
+Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
+CPU or interpret mode).  The file imports no jax, so it runs on the GPU
+machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -17,6 +18,7 @@ from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 from repro_torch.runtime import TorchTensorBackend  # noqa: E402
 from repro_torch.serving import LLM, SamplingParams  # noqa: E402
 from repro_torch.serving.spec import OracleDraft  # noqa: E402
@@ -118,6 +120,8 @@ RING_CASES = [
     ((3, 16, 8, 128, 96, (96, 40, 5), 51), dict(softcap=30.0)),  # per row
     ((4, 32, 32, 128, 64, (64, 10, 1, 33), 52), {}),         # g=1
     ((1, 2, 1, 32, 128, 0, 53), dict(window=50)),            # wrapped ring
+    # recurrentgemma-2b: MQA g=10, D=256, window 2048, row 0 wrapped
+    ((4, 10, 1, 256, 2048, (2048, 2048, 700, 17), 55), dict(window=2048)),
 ]
 
 
@@ -125,10 +129,12 @@ RING_CASES = [
 def test_decode_kernel_matches_plain_on_gpu(gpu, dtype):
     """The contiguous-ring kernel against its plain version on the card:
     GQA groups 8, 2 and 1, C=700, per-row positions, softcap, a wrapped
-    ring under a window, and a fully masked row (exact zeros)."""
+    ring under a window, a fully masked row (exact zeros), and the
+    hybrid's MQA group of 10 at D=256 over a wrapped 2048-key window."""
     for (b, h, kh, d, c, valid, seed), opts in RING_CASES:
+        wrap = {50: 200, 2048: 2130}.get(opts.get("window"))
         x = ring_case(b, h, kh, d, c, valid, seed, dead=(1,) if b > 1 else (),
-                      wrap_pos=200 if "window" in opts else None)
+                      wrap_pos=wrap)
         t = _on(x, gpu, getattr(torch, dtype))
         before = DA.decode_attention.launches
         got = DA.decode_attention(**t, **opts)
@@ -211,3 +217,87 @@ def test_served_tokens_contiguous_and_spec(gpu, arch):
     assert got == ref
     assert launched == (0, cfg.n_layers * steps)
     assert 0 < llm.stats.spec_accepted < llm.stats.spec_drafted
+
+
+RGLRU_CASES = [(4, 7, 2560), (2, 33, 200), (3, 1, 200), (1, 300, 128)]
+
+
+@pytest.mark.parametrize("b,s,r", RGLRU_CASES)
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_kernel_matches_plain_on_gpu(gpu, b, s, r, with_h0):
+    """The scan kernel against its plain version on the card (ragged R,
+    S=1, with and without h0), and left-pad identity steps exact."""
+    rng = np.random.default_rng(60)
+    log_a = -np.abs(rng.standard_normal((b, s, r))).astype(np.float32)
+    bb = rng.standard_normal((b, s, r)).astype(np.float32)
+    la, bv = torch.from_numpy(log_a).to(gpu), torch.from_numpy(bb).to(gpu)
+    h0 = torch.randn((b, r), device=gpu) if with_h0 else None
+    before = RS.rglru_scan.launches
+    got = RS.rglru_scan(la, bv, h0)
+    want = RS.rglru_scan_plain(la, bv, h0)
+    torch.cuda.synchronize()
+    assert RS.rglru_scan.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    pad = min(3, s)
+    la[:, :pad], bv[:, :pad] = 0.0, 0.0
+    padded = RS.rglru_scan(la, bv, h0)
+    start = torch.zeros((b, r), device=gpu) if h0 is None else h0
+    assert torch.equal(padded[:, :pad], start[:, None].expand(b, pad, r))
+    if s > pad:
+        tail = RS.rglru_scan(la[:, pad:].contiguous(),
+                             bv[:, pad:].contiguous(), h0)
+        assert torch.equal(padded[:, pad:], tail)
+
+
+def test_rglru_wrapper_raises_on_what_the_kernel_does_not_take(gpu):
+    la = torch.zeros((2, 5, 64), device=gpu)
+    b = torch.zeros((2, 5, 64), device=gpu)
+    before = RS.rglru_scan.launches
+    bad = [
+        (la.bfloat16(), b.bfloat16(), None),                  # bfloat16
+        (la.transpose(1, 2).contiguous().transpose(1, 2), b, None),
+        (la, b, torch.zeros((2, 32), device=gpu)),            # h0 shape
+        (la, b[:, :4].contiguous(), None),                    # b shape
+        (la, b.cpu(), None),                                  # two devices
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            RS.rglru_scan(*call)
+    assert RS.rglru_scan.launches == before
+
+
+def test_served_hybrid_tokens_kernel_equals_ref(gpu):
+    """Reduced recurrentgemma-2b (rglru, rglru, local attention, and a tail
+    of two rglru) in float32 on the card: greedy tokens through
+    ``LLM.generate`` on the contiguous layout are the same with the
+    kernels and the ref paths (doubling scan, ring sdpa), past the window
+    of 16.  The scan launches once per RG-LRU layer and prefill, the decode
+    kernel once per attention layer and decode step."""
+    cfg = get_config("recurrentgemma-2b").reduced(n_layers=5)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 40, 17, 9)]
+    n_rglru = sum(s.kind == "rglru" for s in cfg.layer_specs())
+    n_attn = cfg.n_layers - n_rglru
+    outs = {}
+    for impl in ("cuda", "ref"):
+        be = TorchTensorBackend(cfg, params, n_slots=3, max_len=64,
+                                impl=impl)
+        calls = {"prefill": 0, "decode_step": 0}
+
+        def counted(name, fn):
+            def call(*args, **kw):
+                calls[name] += 1
+                return fn(*args, **kw)
+            return call
+        for name in calls:
+            setattr(be, name, counted(name, getattr(be, name)))
+        rs, da = RS.rglru_scan.launches, DA.decode_attention.launches
+        outs[impl] = [o.tokens for o in LLM.from_backend(be).generate(
+            prompts, SamplingParams(max_tokens=12))]
+        launched = (RS.rglru_scan.launches - rs,
+                    DA.decode_attention.launches - da)
+        want = (n_rglru * calls["prefill"], n_attn * calls["decode_step"])
+        assert launched == (want if impl == "cuda" else (0, 0))
+    assert outs["cuda"] == outs["ref"]

@@ -82,7 +82,7 @@ def test_initial_caches_match(arch):
 
 def test_unported_cache_kinds_raise():
     cfg = get_config("llama2-7b").reduced()
-    rec = dataclasses.replace(cfg.pattern[0], kind="rglru")
+    rec = dataclasses.replace(cfg.pattern[0], kind="mlstm")
     with pytest.raises(ValueError, match="recurrent"):
         TKV.init_block_cache(cfg, rec, 1, 8)
     with pytest.raises(ValueError, match="int8"):
