@@ -8,8 +8,9 @@ exits non-zero and prints no result line; no phase catches its own failure.
 
 1. device  -- the card's name and power limit from ``nvidia-smi``, and
    torch's name for it;
-2. build   -- ``nvcc`` builds every kernel of the main path from the sources
-   in this checkout, one process per source, all started together; each
+2. build   -- ``nvcc`` builds every kernel of the main paths from the sources
+   in this checkout (four: paged, contiguous-ring and flash attention, the
+   RG-LRU scan), one process per source, all started together; each
    source's compile time and register and spill report;
 3. kernels -- each kernel against its plain PyTorch version on the card.
    The attention kernels in float32 and bfloat16: the paged kernel over the
@@ -22,12 +23,18 @@ exits non-zero and prints no result line; no phase catches its own failure.
    and per-row positions, the wrapped ring with a window of 50, softcap and
    a fully masked row.  The RG-LRU scan in float32 at R = 2560 and 200
    (ragged), S = 1, 7 and 4096, with and without h0, and left-pad identity
-   steps that must leave h bit for bit.  Then each is timed at the main
-   path's shapes beside the plain version, one library call where there is
-   one and the card's bound, and every timing input set is held against
-   the plain version too.  Kernel and library calls are timed as a CUDA
-   graph's replay, so a short kernel's time is the card's and not the
-   host's launch rate;
+   steps that must leave h bit for bit.  The flash-attention kernel in
+   float32 and bfloat16 over the cases of the JAX kernel tests (MHA, GQA
+   with a ragged S, MQA at D=128, S below one tile; windows 16, 64 and 128
+   with and without softcap), and every shape a main path gives it: the
+   score phases' 2 x 4096 at llama2-7b's heads and at recurrentgemma-2b's
+   (H=10, KH=1, D=256, window 2048; also at a ragged S=2500), and the train
+   phase's qwen3-0.6b 4 x 512 (H=16, KH=8, D=128).  Then
+   each is timed at the main path's shapes beside the plain version, one
+   library call where there is one and the card's bound, and every timing
+   input set is held against the plain version too.  Kernel and library
+   calls are timed as a CUDA graph's replay, so a short kernel's time is
+   the card's and not the host's launch rate;
 4. serve   -- llama2-7b at full width and depth, random weights from a seed,
    six greedy requests over four slots, so slots recycle, through the
    ``LLM`` API over ``TorchTensorBackend(impl="cuda")``, three times:
@@ -39,6 +46,9 @@ exits non-zero and prints no result line; no phase catches its own failure.
      step, with 4 query tokens per slot;
    and each time the logits, fed the run's own tokens, must agree with the
    ``impl="ref"`` read path;
+   then the score phase: ``forward(mode="train")`` over 2 x 4096 seeded
+   tokens under ``torch.no_grad``, ``impl="cuda"`` (one flash launch per
+   layer, no decode kernel) against ``impl="ref"``;
 5. hybrid  -- the llama2 weights freed, recurrentgemma-2b at full width and
    depth (18 RG-LRU and 8 local-attention layers, window 2048), random
    weights from a seed, ``max_len`` 4096, six greedy requests over four
@@ -46,8 +56,15 @@ exits non-zero and prints no result line; no phase catches its own failure.
    launches once per RG-LRU layer and prefill wave, the contiguous-ring
    kernel once per attention layer and decode step, the paged one never;
    the paged layout refuses the hybrid; teacher-forced logits, cuda
-   against ref (the doubling scan and the ring sdpa);
-6. result  -- one JSON line of per-kernel numbers, then the result line.
+   against ref (the doubling scan and the ring sdpa); then its score
+   phase at 2 x 4096 tokens (8 windowed flash launches, 18 scan launches);
+6. train   -- the hybrid's weights freed, qwen3-0.6b at full width and
+   depth (28 layers, bf16 weights, float32 moments): 8 AdamW steps of the
+   port's ``train`` on the synthetic stream (batch 4 x 512 tokens,
+   ``impl="ref"``), whose loss must fall; timed train steps; the
+   evaluation loss through the flash kernel (28 launches, ``no_grad``)
+   against ``impl="ref"``; a checkpoint written and restored bit for bit;
+7. result  -- one JSON line of per-kernel numbers, then the result line.
 
 It imports torch, numpy and the port only, never jax and nothing of
 ``repro``.
@@ -57,6 +74,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,6 +97,11 @@ SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
 # ref path rounds the probabilities to bf16 before the PV product and the
 # kernels do not, and 32 layers carry that difference to the logits
 LOGITS_ATOL = 0.25
+# the evaluation loss through the flash kernel against impl="ref" (qwen3-0.6b,
+# bf16, 4 x 512 tokens; the ref path alone rounds P to bf16 before P V): set
+# from readings on an H100, differences of 7.0e-5 and 2.0e-4 on two seeded
+# batches (PERF.md), as ten times the larger
+LOSS_ATOL = 2e-3
 
 ARCH = "llama2-7b"
 SLOTS, MAX_LEN, BLOCK_SIZE = 4, 512, 16
@@ -92,6 +115,10 @@ HYBRID = "recurrentgemma-2b"
 HYBRID_MAX_LEN = 4096
 HYBRID_WINDOW = 2048
 HYBRID_PROMPT_LENS = (17, 64, 100, 128, 200, 2100)   # 2100: the ring wraps
+SCORE_BATCH, SCORE_LEN = 2, 4096    # the score phases' train-mode forward
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN = 8, 4, 512
+TRAIN_DATA_VOCAB = 64               # the launcher's synthetic token support
 
 # datasheet device-memory rates (bytes/s) and dense bf16 tensor rate
 MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -162,6 +189,25 @@ RING_CASES = [
      dict(window=HYBRID_WINDOW)),
     ("wrapped ring + window 50", (1, 2, 1, 32, 128, 0), dict(window=50)),
     ("fully masked row", (2, 16, 8, 128, 64, (20, 5)), {}),
+]
+
+
+FLASH_CASES = [
+    # name, (b, s, h, kh, d), options
+    ("MHA", (1, 128, 4, 4, 64), {}),
+    ("GQA ragged S", (2, 200, 4, 2, 64), {}),
+    ("MQA D=128", (1, 384, 8, 1, 128), {}),
+    ("S below a tile", (1, 96, 2, 2, 32), {}),
+    *((f"window {w}{' softcap 30' if c else ''}", (1, 256, 4, 2, 64),
+       dict(window=w, softcap=c)) for w in (16, 64, 128) for c in (None, 30.0)),
+    # the main paths' shapes: the score phases' batch of 2, the train
+    # phase's qwen3-0.6b batch (GQA group 2), and a ragged S for the hybrid
+    ("llama2-7b score", (SCORE_BATCH, SCORE_LEN, 32, 32, 128), {}),
+    (f"{HYBRID} score window {HYBRID_WINDOW}",
+     (SCORE_BATCH, SCORE_LEN, 10, 1, 256), dict(window=HYBRID_WINDOW)),
+    (f"{HYBRID} S=2500 window {HYBRID_WINDOW}",
+     (SCORE_BATCH, 2500, 10, 1, 256), dict(window=HYBRID_WINDOW)),
+    (f"{TRAIN_ARCH} train", (TRAIN_BATCH, TRAIN_LEN, 16, 8, 128), {}),
 ]
 
 
@@ -245,6 +291,32 @@ def check_kernels(pa, da):
                 extra += ", masked rows never read"
             print(f"kernels: decode_attention {name} {str(dtype)[6:]}: max "
                   f"abs err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
+    return worst
+
+
+def flash_inputs(b, s, h, kh, d, seed, dtype):
+    """Seeded q [B, S, H, D] and k, v [B, S, KH, D] on the card."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return {n: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            for n, shape in (("q", (b, s, h, d)), ("k", (b, s, kh, d)),
+                             ("v", (b, s, kh, d)))}
+
+
+def check_flash(fa):
+    """The flash kernel against its plain version over FLASH_CASES in float32
+    and bfloat16; returns the largest error."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for i, (name, shape, opts) in enumerate(FLASH_CASES):
+            x = flash_inputs(*shape, seed=700 + i, dtype=dtype)
+            _, err, _ = compare(name, fa.flash_attention,
+                                fa.flash_attention_plain, x, opts, dtype)
+            worst = max(worst, err)
+            print(f"kernels: flash_attention {name} {list(shape)} "
+                  f"{str(dtype)[6:]}: max abs err {err:.3g} (rtol/atol "
+                  f"{tol['rtol']:.3g})")
     return worst
 
 
@@ -447,6 +519,46 @@ def time_rglru(rs, card, s):
                 **bound(n_bytes, 3 * b * s * r, card, PEAK_F32))
 
 
+def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2):
+    """flash_attention at a score phase's shape per sequence: 1 x 4096
+    tokens, bf16; by default llama2-7b's heads (H, KH, D), causal.
+    ``n_sets`` input sets together exceed the L2."""
+    import torch.nn.functional as F
+    h, kh, d = heads
+    s = SCORE_LEN
+    sets = [flash_inputs(1, s, h, kh, d, seed=800 + i, dtype=torch.bfloat16)
+            for i in range(n_sets)]
+    err = max(compare(f"flash_attention timing set {i} H={h} KH={kh} D={d}",
+                      fa.flash_attention, fa.flash_attention_plain, x,
+                      dict(window=window), torch.bfloat16)[1]
+              for i, x in enumerate(sets))
+    lib = [{n: t.transpose(1, 2).contiguous() for n, t in x.items()}
+           for x in sets]
+    pos = torch.arange(s, device=DEVICE)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    ms = time_ms(lambda i: fa.flash_attention(**sets[i], window=window),
+                 n_sets, iters=20, warmup=2)
+    plain_ms = time_ms(
+        lambda i: fa.flash_attention_plain(**sets[i], window=window), n_sets,
+        iters=3, warmup=1, graph=False)
+    # causal: sdpa's own causal mask; with a window: the boolean mask
+    library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
+        lib[i]["q"], lib[i]["k"], lib[i]["v"],
+        attn_mask=None if window is None else mask, is_causal=window is None,
+        enable_gqa=True), n_sets, iters=20, warmup=2)
+    # the least work: read q, k, v once and write the output; 4 D flops per
+    # visible (query, key) pair and head, the pairs this mask shows
+    x = sets[0]
+    n_bytes = sum(t.numel() * t.element_size() for t in x.values()) \
+        + x["q"].numel() * x["q"].element_size()
+    n_pairs = int(mask.sum())
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                **bound(n_bytes, 4 * h * d * n_pairs, card))
+
+
 def timing_line(name, shape, t, card):
     lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
     print(f"kernels: {name} at {shape}: kernel {t['ms']:.4f} ms, plain "
@@ -641,7 +753,9 @@ def serve_paged(model, pa, card):
           f"{steps} steps, {llm.stats.preemptions} preemptions")
     print(f"serve paged: {clock.summary()}, {total / wall:.1f} tokens/s over "
           f"{wall:.2f} s [{card}]")
-    device_share("paged", llm, model.prompts, card)
+    device_share("serve paged", f"{SLOTS} requests x 8 tokens",
+                 lambda: llm.generate(model.prompts[:SLOTS],
+                                      SamplingParams(max_tokens=8)), card)
     del llm, be, clock
     torch.cuda.empty_cache()
 
@@ -695,7 +809,9 @@ def serve_contiguous(model, pa, da, card, paged_tokens):
           f"greedy tokens equal to the paged serve's: {same}/{total}")
     print(f"serve contiguous: {clock.summary()}, {total / wall:.1f} tokens/s "
           f"over {wall:.2f} s [{card}]")
-    device_share("contiguous", llm, model.prompts, card)
+    device_share("serve contiguous", f"{SLOTS} requests x 8 tokens",
+                 lambda: llm.generate(model.prompts[:SLOTS],
+                                      SamplingParams(max_tokens=8)), card)
     del llm, be, clock
     torch.cuda.empty_cache()
 
@@ -832,7 +948,9 @@ def serve_hybrid(model, pa, da, rs, card):
           f"paged_attention 0")
     print(f"serve hybrid: {clock.summary()}, {total / wall:.1f} tokens/s over "
           f"{wall:.2f} s [{card}]")
-    device_share("hybrid", llm, model.prompts, card)
+    device_share("serve hybrid", f"{SLOTS} requests x 8 tokens",
+                 lambda: llm.generate(model.prompts[:SLOTS],
+                                      SamplingParams(max_tokens=8)), card)
     del llm, be, clock
     torch.cuda.empty_cache()
 
@@ -847,17 +965,167 @@ def serve_hybrid(model, pa, da, rs, card):
     return dict(scans=scans, attends=attends)
 
 
-def device_share(what, llm, prompts, card):
-    """The card's busy share over a short profiled serve (one wave of
-    ``SLOTS`` requests, 8 tokens each), and the device time by kernel.  The
-    profiler adds host time, so the busy share it shows is a lower bound."""
-    from torch.profiler import ProfilerActivity, profile
+def score(model, kernels, card):
+    """The train-mode forward of ``SCORE_BATCH`` x ``SCORE_LEN`` seeded tokens
+    under ``torch.no_grad``: ``impl="cuda"`` launches the flash kernel once
+    per attention layer and the scan once per RG-LRU layer, and no decode
+    kernel; its logits agree with ``impl="ref"``'s.  ``kernels`` maps each
+    kernel's name to its wrapper; returns the launches of the cuda run."""
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SCORE_BATCH, SCORE_LEN))).to(DEVICE)
+    n_scan = sum(spec.kind == "rglru" for spec in cfg.layer_specs())
+    want = dict(flash_attention=cfg.n_layers - n_scan, rglru_scan=n_scan,
+                decode_attention=0, paged_attention=0)
+    logits, secs = {}, {}
+    with torch.no_grad():
+        for impl in ("cuda", "ref"):
+            for fn in kernels.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[impl], caches = T.forward(cfg, model.params, tokens,
+                                             mode="train", impl=impl)
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t0
+            if impl == "cuda":
+                launches = {n: fn.launches for n, fn in kernels.items()}
+    if launches != want or caches is not None:
+        raise AssertionError(f"score {cfg.name}: launches {launches}, "
+                             f"expected {want}")
+    diff = agree = 0
+    for row in range(SCORE_BATCH):           # one row at a time: V is large
+        got, ref = logits["cuda"][row].float(), logits["ref"][row].float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"score {cfg.name}: non-finite logits")
+        diff = max(diff, (got - ref).abs().max().item())
+        agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+    if diff > LOGITS_ATOL:
+        raise AssertionError(f"score {cfg.name}: logits cuda vs ref max abs "
+                             f"diff {diff:.4g} > {LOGITS_ATOL}")
+    print(f"score {cfg.name}: forward(mode='train') over {SCORE_BATCH} x "
+          f"{SCORE_LEN} tokens, logits {list(logits['cuda'].shape)}: impl "
+          f"cuda vs ref max abs diff {diff:.4g} (atol {LOGITS_ATOL}), argmax "
+          f"agreement {agree}/{SCORE_BATCH * SCORE_LEN}; launches "
+          f"{launches}; {secs['cuda'] * 1e3:.1f} ms cuda, "
+          f"{secs['ref'] * 1e3:.1f} ms ref [{card}]")
+    del logits
+    torch.cuda.empty_cache()
+    return launches
 
-    from repro_torch.serving import SamplingParams
+
+def train_phase(fa, card):
+    """qwen3-0.6b at full width and depth: the port's ``train`` (the loss
+    must fall), timed train steps, the evaluation loss through the flash
+    kernel against ``impl="ref"``, and a checkpoint round trip."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      adamw_init, make_dataset,
+                                      make_train_step, restore_checkpoint,
+                                      save_checkpoint, train)
+    from repro_torch.training.adamw import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    dcfg = DataConfig(vocab_size=TRAIN_DATA_VOCAB, seq_len=TRAIN_LEN,
+                      batch=TRAIN_BATCH, seed=SEED)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1, impl="ref",
+                       optimizer=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                             total_steps=TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = train(cfg, tcfg, dcfg, device=DEVICE, seed=SEED)
+    wall = time.perf_counter() - t0
+    if not metrics["final_loss"] < metrics["first_loss"]:
+        raise AssertionError(f"train {TRAIN_ARCH}: loss did not fall: "
+                             f"{metrics}")
+    print(f"train {TRAIN_ARCH}: {cfg.n_layers} layers, {cfg.dtype} weights, "
+          f"float32 moments: {TRAIN_STEPS} AdamW steps of {TRAIN_BATCH} x "
+          f"{TRAIN_LEN} tokens, impl ref: loss {metrics['first_loss']:.4f} -> "
+          f"{metrics['final_loss']:.4f} (mean last 10 "
+          f"{metrics['mean_last10']:.4f}) in {wall:.1f} s with set-up; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=DEVICE)
+    params = init_params(cfg, gen.manual_seed(SEED), DEVICE)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, tcfg)
+    data = make_dataset(dcfg)
+    step_ms = []
+    for i in range(4):
+        tokens, labels = (torch.from_numpy(a).to(DEVICE, torch.long)
+                          for a in data.batch_at(i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, tokens, labels)
+        float(m["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"train {TRAIN_ARCH}: step ms {[round(t, 3) for t in step_ms]} "
+          f"(host clock to the loss readback; the first warms up) [{card}]")
+    tokens, labels = (torch.from_numpy(a).to(DEVICE, torch.long)
+                      for a in data.batch_at(len(step_ms)))
+    state = {}
+    device_share(f"train {TRAIN_ARCH}", "one train step",
+                 lambda: state.update(out=step(params, opt, tokens, labels)),
+                 card)
+    params, opt, _ = state["out"]
+
+    tokens, labels = (torch.from_numpy(a).to(DEVICE, torch.long)
+                      for a in data.batch_at(len(step_ms) + 1))
+    loss = {}
+    with torch.no_grad():
+        for impl in ("cuda", "ref"):
+            fa.flash_attention.launches = 0
+            loss[impl] = float(T.train_loss(cfg, params, tokens, labels,
+                                            impl=impl)[0])
+            if impl == "cuda":
+                launches = fa.flash_attention.launches
+    if launches != cfg.n_layers or not np.isfinite(loss["cuda"]) or \
+            abs(loss["cuda"] - loss["ref"]) > LOSS_ATOL:
+        raise AssertionError(f"train {TRAIN_ARCH}: evaluation loss cuda "
+                             f"{loss['cuda']} vs ref {loss['ref']} (atol "
+                             f"{LOSS_ATOL}), {launches} flash launches")
+    print(f"train {TRAIN_ARCH}: evaluation loss under no_grad, impl cuda "
+          f"{loss['cuda']:.6f} vs ref {loss['ref']:.6f}: diff "
+          f"{abs(loss['cuda'] - loss['ref']):.3g} (atol {LOSS_ATOL}); "
+          f"flash_attention launches {launches} = {cfg.n_layers} layers "
+          f"[{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fname = save_checkpoint(tmp, cfg, params, opt, step=opt.step)
+        t_save = time.perf_counter() - t0
+        size = Path(fname).stat().st_size
+        template = init_params(cfg, gen.manual_seed(SEED + 1), DEVICE)
+        t0 = time.perf_counter()
+        back, back_opt, back_step = restore_checkpoint(
+            fname, cfg, template, adamw_init(template))
+        t_load = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves((params, opt.mu, opt.nu)),
+                     tree_leaves((back, back_opt.mu, back_opt.nu))))
+    if back_step != opt.step or back_opt.step != opt.step or not all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"train {TRAIN_ARCH}: the checkpoint did not "
+                             f"restore bit for bit")
+    print(f"train {TRAIN_ARCH}: checkpoint of step {opt.step} "
+          f"({size / 1e9:.2f} GB, {len(pairs)} tensors) written in "
+          f"{t_save:.1f} s, restored bit for bit in {t_load:.1f} s")
+
+
+def device_share(label, what, run, card):
+    """The card's busy share over one profiled call of ``run`` (``what``
+    says what it does), and the device time by kernel.  The profiler adds
+    host time, so the busy share it shows is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        llm.generate(prompts[:SLOTS], SamplingParams(max_tokens=8))
+        run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
     for e in prof.events():
@@ -866,24 +1134,24 @@ def device_share(what, llm, prompts, card):
                 + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not busy:
-        print(f"serve {what}: device busy share not measured (the profiler "
-              f"saw no device events)")
+        print(f"{label}: device busy share not measured (the profiler saw "
+              f"no device events)")
         return
-    print(f"serve {what}: profiled {SLOTS} requests x 8 tokens: device busy "
-          f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
-          f"({busy / wall_us:.1%}) [{card}]")
+    print(f"{label}: profiled {what}: device busy {busy / 1e3:.2f} ms of "
+          f"{wall_us / 1e3:.2f} ms wall ({busy / wall_us:.1%}) [{card}]")
     kinds = {"matrix products": ("gemm", "nvjet", "cutlass", "xmma"),
              "paged attention": ("paged_attention_kernel",),
              "decode attention": ("decode_attention_kernel",),
+             "flash attention": ("flash_attention_kernel",),
              "rglru scan": ("rglru_scan_kernel",)}
     shares = {kind: sum(us for n, us in by_name.items()
                         if any(k in n for k in keys)) / busy
               for kind, keys in kinds.items()}
-    print(f"serve {what}:   device time by kind: " + ", ".join(
+    print(f"{label}:   device time by kind: " + ", ".join(
         f"{kind} {share:.1%}" for kind, share in shares.items())
           + f", other {1 - sum(shares.values()):.1%}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"serve {what}:   {us / 1e3:8.3f} ms {us / busy:6.1%}  "
+        print(f"{label}:   {us / 1e3:8.3f} ms {us / busy:6.1%}  "
               f"{name[:90]}")
 
 
@@ -897,8 +1165,13 @@ def main():
     sys.path[:0] = [str(SRC), str(ROOT / "tests")]
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rglru_scan as rs
+    wrappers = dict(flash_attention=fa.flash_attention,
+                    rglru_scan=rs.rglru_scan,
+                    decode_attention=da.decode_attention,
+                    paged_attention=pa.paged_attention)
 
     # float32 products in full float32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -922,6 +1195,7 @@ def main():
 
     worst = check_kernels(pa, da)
     worst["rglru_scan"] = check_rglru(rs)
+    worst["flash_attention"] = check_flash(fa)
     print("kernels: worst case error " + ", ".join(
         f"{k} {v:.3g}" for k, v in worst.items()))
     timing = {
@@ -935,6 +1209,10 @@ def main():
             n_sets=8),
         "rglru_scan": time_rglru(rs, card, HYBRID_MAX_LEN),
         "rglru_scan short": time_rglru(rs, card, 256),
+        "flash_attention": time_flash(fa, card),
+        # 1 x 4096 x 10 x 256 bf16 q and out, 2 x 2 MB of K/V: 46 MB a set
+        "flash_attention hybrid": time_flash(
+            fa, card, heads=(10, 1, 256), window=HYBRID_WINDOW, n_sets=3),
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
@@ -950,6 +1228,11 @@ def main():
                                    f"ring, full, bf16",
         "rglru_scan": f"{HYBRID} {SLOTS} x {HYBRID_MAX_LEN} x 2560 f32",
         "rglru_scan short": f"{HYBRID} {SLOTS} x 256 x 2560 f32",
+        "flash_attention": f"llama2-7b (H=KH=32, D=128) 1 x {SCORE_LEN}, "
+                           f"causal, bf16",
+        "flash_attention hybrid": f"{HYBRID} (H=10, KH=1, D=256) 1 x "
+                                  f"{SCORE_LEN}, window {HYBRID_WINDOW}, "
+                                  f"bf16",
     }
     for key, t in timing.items():
         timing_line(key.split()[0], shapes[key], t, card)
@@ -958,11 +1241,17 @@ def main():
     paged = serve_paged(model, pa, card)
     contiguous = serve_contiguous(model, pa, da, card, paged["tokens"])
     spec = serve_spec(model, pa, da, card, paged["tokens"])
+    scored = score(model, wrappers, card)
     del model                       # 13.48 GB of llama2-7b weights
     gc.collect()
     torch.cuda.empty_cache()
-    hybrid = serve_hybrid(Model(HYBRID, HYBRID_PROMPT_LENS), pa, da, rs,
-                          card)
+    model = Model(HYBRID, HYBRID_PROMPT_LENS)
+    hybrid = serve_hybrid(model, pa, da, rs, card)
+    hybrid_scored = score(model, wrappers, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(fa, card)
 
     def entry(key, name, source, replaces, launches):
         t = timing[key]
@@ -989,6 +1278,11 @@ def main():
               hybrid["attends"]),
         entry("rglru_scan", "rglru_scan", "rglru_scan.cu",
               "rglru_scan.py:36", hybrid["scans"]),
+        entry("flash_attention", "flash_attention", "flash_attention.cu",
+              "flash_attention.py:86", scored["flash_attention"]),
+        entry("flash_attention hybrid", f"flash_attention@{HYBRID}",
+              "flash_attention.cu", "flash_attention.py:86",
+              hybrid_scored["flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's parameters as the port's, and seeded
-weights made in torch with the reference's shapes and scales.
+"""Weight bridge: the JAX package's parameters as the port's and back, and
+seeded weights made in torch with the reference's shapes and scales.
 
 The reference keeps full pattern periods *stacked* with a leading layer
 axis (``params["stack"]["p<p>"][...]``, leaf shape ``[n_periods, ...]``)
@@ -9,13 +9,17 @@ runs a Python loop over layers, so it keeps one dict per layer in
 per-layer tree under each block) has the reference's names and shapes.
 
 JAX never runs beside the port on the GPU machine, so the bridge takes the
-reference tree as numpy arrays (``jax.tree.map(np.asarray, params)``);
-bfloat16 leaves go through float32, which is exact.
+reference tree as numpy arrays (``jax.tree.map(np.asarray, params)``) and
+gives it back as numpy arrays; bfloat16 leaves go through float32, which is
+exact.  :func:`reference_leaves` names each of the port's leaves by its
+path in the reference's tree; the checkpoints of
+:mod:`repro_torch.training.checkpoint` are written under those paths.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -59,6 +63,87 @@ def params_from_numpy(cfg: ModelConfig, params: Dict, device: Device = None,
     out["layers"] = [_to_torch(_layer_tree(params, cfg, i), dev, dtype)
                      for i in range(cfg.n_layers)]
     return out
+
+
+def _flat(tree: Any, prefix: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def reference_leaves(cfg: ModelConfig, params: Dict,
+                     ) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
+    """The port's leaves by their path in the reference's tree
+    (``"embedding"``, ``"stack/p0/mixer/wq"``, ``"tail/t1/norm1/scale"``):
+    a path under ``stack`` maps to the list of its layers' tensors, in the
+    order of the reference's leading layer axis; every other path to one
+    tensor.  The inverse of :func:`params_from_numpy`'s layout, for any
+    tree with the parameters' structure (AdamW moments too)."""
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k != "layers":
+            out.update(_flat(v, k))
+    n_stacked = cfg.n_full_periods * cfg.period
+    for i, layer in enumerate(params["layers"]):
+        if i < n_stacked:
+            for path, t in _flat(layer, f"stack/p{i % cfg.period}"):
+                out.setdefault(path, []).append(t)
+        else:
+            out.update(_flat(layer, f"tail/t{i - n_stacked}"))
+    return out
+
+
+def reference_ndim(cfg: ModelConfig, params: Dict) -> Dict:
+    """The rank each of the port's leaves has in the reference's tree, in
+    the structure of ``params``: one more than its own for a layer under
+    ``stack`` (the leading layer axis), its own elsewhere.  The reference's
+    AdamW decays the leaves of rank 2 and more of that tree, so its stacked
+    norm scales are decayed and its tail ones are not; the port's trainer
+    follows it through this."""
+    def ranks(tree: Any, extra: int) -> Any:
+        if isinstance(tree, dict):
+            return {k: ranks(v, extra) for k, v in tree.items()}
+        return tree.dim() + extra
+
+    n_stacked = cfg.n_full_periods * cfg.period
+    out = {k: ranks(v, 0) for k, v in params.items() if k != "layers"}
+    out["layers"] = [ranks(layer, int(i < n_stacked))
+                     for i, layer in enumerate(params["layers"])]
+    return out
+
+
+def _float_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def reference_arrays(cfg: ModelConfig, params: Dict,
+                     to_numpy: Callable[[torch.Tensor], np.ndarray]
+                     = _float_numpy) -> Dict[str, np.ndarray]:
+    """The port's leaves as numpy arrays by their path in the reference's
+    tree, each ``stack`` path's layers stacked along a leading layer axis;
+    ``to_numpy`` converts one tensor (by default bfloat16 to float32,
+    exact)."""
+    return {path: np.stack([to_numpy(t) for t in leaf])
+            if isinstance(leaf, list) else to_numpy(leaf)
+            for path, leaf in reference_leaves(cfg, params).items()}
+
+
+def params_to_numpy(cfg: ModelConfig, params: Dict) -> Dict:
+    """The port's parameters (or a tree of their structure) as the
+    reference's tree of numpy arrays, ``stack`` stacked along a leading
+    layer axis; the inverse of :func:`params_from_numpy`.  bfloat16 leaves
+    come back as float32 (exact)."""
+    tree: Dict[str, Any] = {}
+    for path, arr in reference_arrays(cfg, params).items():
+        *parents, name = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[name] = arr
+    return tree
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

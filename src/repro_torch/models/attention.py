@@ -1,7 +1,9 @@
-"""GQA attention on the serving path: qk-norm, bias, logit soft-capping,
-sliding windows.  Port of the cache-writing entry points of
+"""GQA attention: qk-norm, bias, logit soft-capping, sliding windows.  Port
+of the train-mode and cache-writing entry points of
 ``repro.models.attention``:
 
+- :func:`attend_full`         -- causal attention over the whole sequence
+  (train mode: no cache),
 - :func:`prefill_cache`       -- run prefill AND write k/v into a ring cache,
 - :func:`attend_decode`       -- one token per slot against its ring cache,
 - :func:`attend_decode_paged` -- one token per slot against a paged cache,
@@ -13,12 +15,16 @@ hold negative values at pad slots, which are masked out of the softmax and
 written with ``key_pos == -1``, so the output for real tokens (and every
 later decode step) is independent of the padded width.
 
-``impl`` selects how the cache is *read* at decode and verify (unknown
-values raise, as ``DECODE_IMPLS`` does in the reference):
+``impl`` selects how attention runs in train mode and how the cache is
+*read* at decode and verify (unknown values raise, as ``DECODE_IMPLS`` does
+in the reference):
 
-- ``"ref"``  -- the masked :func:`_sdpa` over the ring, or over the slot's
-  blocks gathered in ring order (the reference's ``"xla"`` path),
-- ``"cuda"`` -- the hand-written kernels: the contiguous ring through
+- ``"ref"``  -- the masked :func:`_sdpa` over the sequence, the ring, or
+  the slot's blocks gathered in ring order (the reference's ``"xla"``
+  path),
+- ``"cuda"`` -- the hand-written kernels: the whole sequence through
+  :func:`repro_torch.kernels.flash_attention.flash_attention`, the
+  contiguous ring through
   :func:`repro_torch.kernels.decode_attention.decode_attention`, the paged
   pool through the block table with
   :func:`repro_torch.kernels.paged_attention.paged_attention`; on CPU
@@ -34,14 +40,15 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm_headwise, softcap
 
 NEG_INF = -2.0 ** 30
 
-#: decode-path implementations: "ref" (masked sdpa) and "cuda" (the decode
-#: and paged attention kernels)
+#: implementations: "ref" (masked sdpa) and "cuda" (the flash, decode and
+#: paged attention kernels)
 DECODE_IMPLS = ("ref", "cuda")
 
 
@@ -122,6 +129,24 @@ def _sdpa(cfg: ModelConfig, spec: BlockSpec, q: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngst,btnd->bsngd", probs.to(v.dtype), v)
     return out.reshape(b, sq, h * hd).to(q.dtype)
+
+
+def attend_full(params: Dict, cfg: ModelConfig, spec: BlockSpec,
+                x: torch.Tensor, positions: torch.Tensor, impl: str = "ref",
+                ) -> torch.Tensor:
+    """Causal attention over the whole sequence (train mode). x: [B, S, d];
+    ``positions`` is ``arange(S)``, which the kernel assumes: it masks by
+    index.  ``impl="cuda"`` runs the flash-attention kernel, which has no
+    backward: with autograd on it raises for inputs that need gradients."""
+    _check_decode_impl(impl)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if impl == "cuda":
+        out = flash_attention(q, k, v, window=spec.window,
+                              softcap=cfg.attn_logit_softcap)
+        out = out.reshape(*x.shape[:2], cfg.q_dim)
+    else:
+        out = _sdpa(cfg, spec, q, k, v, positions, positions)
+    return out @ params["wo"]
 
 
 def prefill_cache(params: Dict, cfg: ModelConfig, spec: BlockSpec,

@@ -1,10 +1,13 @@
-"""Decoder-only transformer over attention and RG-LRU blocks: prefill,
-decode and speculative verify.
+"""Decoder-only transformer over attention and RG-LRU blocks: the train-mode
+forward and its losses, prefill, decode and speculative verify.
 
-Port of the serving entry points of ``repro.models.transformer``:
+Port of the entry points of ``repro.models.transformer``:
 
-- :func:`forward`     -- ``mode="prefill"`` of the reference: logits over the
-  (left-padded) prompt plus populated ring caches,
+- :func:`forward`     -- ``mode="train"``: logits over the full sequence, no
+  caches; ``mode="prefill"``: logits over the (left-padded) prompt plus
+  populated ring caches,
+- :func:`forward_hidden`, :func:`cross_entropy_loss`, :func:`chunked_xent`
+  and :func:`train_loss` -- the training objective,
 - :func:`decode_step` -- one token in, one logits row out, over ring or
   paged caches,
 - :func:`verify_step` -- K tokens in, K logits rows out, over paged caches.
@@ -19,8 +22,8 @@ and caches are one dict per layer.  A Python loop over layers replaces the
 reference's ``lax.scan`` over stacked parameters, and the caches update in
 place (``index_put_``) where the reference rebuilt them.  Attention and
 RG-LRU (the hybrid recurrentgemma) blocks run here; xLSTM and MoE blocks
-arrive with their mixers in later slices, the train mode with the
-flash-attention slice.
+arrive with their mixers in later slices, so the auxiliary (load-balance)
+loss of :func:`train_loss` is always 0.
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ from repro_torch.models.kvcache import (DEFAULT_BLOCK_SIZE, init_block_cache,
                                         init_paged_block_cache)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        lm_logits)
+
+#: the modes of :func:`forward`
+FORWARD_MODES = ("train", "prefill")
 
 Caches = List[Dict[str, torch.Tensor]]
 
@@ -68,29 +74,32 @@ def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
                  x: torch.Tensor, positions: Optional[torch.Tensor], mode: str,
-                 cache: Dict, impl: str,
+                 cache: Optional[Dict], impl: str,
                  write_mask: Optional[torch.Tensor] = None,
                  seq_valid: Optional[torch.Tensor] = None,
                  verify_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block; ``cache`` updates in place.  ``seq_valid`` ([B, S],
-    masked prefill and verify) re-zeroes pad activations on exit so they
-    cannot leak into later layers; recurrent blocks treat its pad steps as
-    state-preserving no-ops.  Decode reads an attention cache by its kind:
-    a paged cache holds a block pool (``k_pool``), a ring cache ``k``.
-    Verify needs attention caches, as in the reference."""
+    """One block; ``cache`` updates in place (``None`` in train mode).
+    ``seq_valid`` ([B, S], masked prefill and verify) re-zeroes pad
+    activations on exit so they cannot leak into later layers; recurrent
+    blocks treat its pad steps as state-preserving no-ops.  Decode reads an
+    attention cache by its kind: a paged cache holds a block pool
+    (``k_pool``), a ring cache ``k``.  Verify needs attention caches, as in
+    the reference."""
     _check_block(spec)
     if mode == "verify" and spec.kind != "attn":
         raise ValueError(
             f"verify (speculative decoding) requires attention caches; got "
             f"{spec.kind!r} -- gate via kvcache.prefix_sharing_supported")
     h = apply_norm(params["norm1"], x, cfg.norm)
-    if spec.kind == "rglru" and mode == "prefill":
+    if spec.kind == "rglru" and mode in ("train", "prefill"):
         mix, _ = rglru.apply_rglru_seq(params["mixer"], cfg, h, cache, impl,
                                        seq_valid=seq_valid)
     elif spec.kind == "rglru" and mode == "decode":
         mix, _ = rglru.apply_rglru_decode(params["mixer"], cfg, h, cache)
     elif spec.kind == "rglru":
         raise ValueError(f"unknown mode {mode!r}")
+    elif mode == "train":
+        mix = attn.attend_full(params["mixer"], cfg, spec, h, positions, impl)
     elif mode == "prefill":
         mix, _ = attn.prefill_cache(params["mixer"], cfg, spec, h, positions,
                                     cache, impl)
@@ -120,17 +129,34 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
 
 
 def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
-            caches: Caches, *, prompt_lens: Optional[torch.Tensor] = None,
-            impl: str = "ref") -> Tuple[torch.Tensor, Caches]:
-    """Prefill: inputs [B, S] int tokens -> (logits [B, S, vocab], caches).
+            caches: Optional[Caches] = None, *, mode: str = "prefill",
+            prompt_lens: Optional[torch.Tensor] = None,
+            impl: str = "ref") -> Tuple[torch.Tensor, Optional[Caches]]:
+    """inputs [B, S] int tokens -> (logits [B, S, vocab], caches or None).
 
-    ``prompt_lens`` ([B] int) marks inputs as *left-padded* to S with true
-    lengths ``prompt_lens[b]``: positions become per-row
-    (``s - (S - plen)``; negative at pads), pad keys are masked out of
-    attention and written with ``key_pos == -1``, and pad activations are
-    zeroed between blocks -- so logits at real positions and the resulting
-    caches are independent of the padded width.
+    ``mode="train"``: the full sequence at positions ``0 .. S-1``, no caches
+    (``caches`` and ``prompt_lens`` must be None); returns (logits, None).
+    ``impl="cuda"`` runs the flash-attention kernel, which has no backward:
+    take gradients on ``"ref"``, as the reference takes them on ``"xla"``.
+
+    ``mode="prefill"`` fills ``caches``.  ``prompt_lens`` ([B] int) marks
+    inputs as *left-padded* to S with true lengths ``prompt_lens[b]``:
+    positions become per-row (``s - (S - plen)``; negative at pads), pad
+    keys are masked out of attention and written with ``key_pos == -1``,
+    and pad activations are zeroed between blocks -- so logits at real
+    positions and the resulting caches are independent of the padded width.
     """
+    if mode not in FORWARD_MODES:
+        raise ValueError(f"unknown mode {mode!r}: expected one of "
+                         f"{FORWARD_MODES}")
+    if mode == "train":
+        if caches is not None or prompt_lens is not None:
+            raise ValueError("mode='train' takes no caches and no "
+                             "prompt_lens")
+        hidden, _ = forward_hidden(cfg, params, inputs, impl)
+        return lm_logits(params, cfg, hidden), None
+    if caches is None:
+        raise ValueError("mode='prefill' needs caches (init_caches)")
     b, s = inputs.shape[:2]
     cols = torch.arange(s, dtype=torch.int32, device=inputs.device)
     if prompt_lens is None:
@@ -147,6 +173,77 @@ def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
                          seq_valid=seq_valid)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x), caches
+
+
+def forward_hidden(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
+                   impl: str = "ref") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train-mode forward up to the final normalized hidden state
+    [B, S, d] (no logits: :func:`chunked_xent` computes them blockwise),
+    and the auxiliary loss (float32 zeros: no MoE block runs here)."""
+    s = inputs.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=inputs.device)
+    x = embed_tokens(params, cfg, inputs)
+    for spec, p in zip(cfg.layer_specs(), params["layers"]):
+        x = _apply_block(cfg, spec, p, x, positions, "train", None, impl)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=inputs.device)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         z_loss: float) -> torch.Tensor:
+    """Per-token NLL in float32 plus ``z_loss * logsumexp**2``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return logz - gold + z_loss * logz.square()
+
+
+def cross_entropy_loss(cfg: ModelConfig, logits: torch.Tensor,
+                       labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token NLL in float32 plus ``z_loss * logsumexp**2``; with
+    ``mask`` ([B, S], 1 for counted tokens) the masked mean."""
+    nll = _nll(logits, labels, z_loss)
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def chunked_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
+                 labels: torch.Tensor, chunk: int,
+                 z_loss: float = 1e-4) -> torch.Tensor:
+    """Cross entropy (with z-loss, unmasked) over sequence chunks of
+    ``chunk`` positions, never holding the [B, S, V] logits at once; S must
+    be a multiple of ``chunk``.  A Python loop replaces the reference's
+    ``lax.scan``."""
+    b, s, _ = hidden.shape
+    if s % chunk:
+        raise ValueError(f"chunked_xent: S={s} is no multiple of chunk "
+                         f"{chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        logits = lm_logits(params, cfg, hidden[:, c0:c0 + chunk])
+        total = total + _nll(logits, labels[:, c0:c0 + chunk], z_loss).sum()
+    return total / (b * s)
+
+
+def train_loss(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+               labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+               impl: str = "ref", xent_chunk: Optional[int] = None,
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, {"ce", "aux"}): the cross entropy of ``labels`` under the
+    train-mode forward of ``tokens``, through :func:`chunked_xent` when
+    ``xent_chunk`` is set (which ignores ``mask``, as in the reference).
+    ``aux`` is 0 and ``total`` is ``ce``: the port runs no MoE block, the
+    only source of the reference's load-balance term."""
+    hidden, aux = forward_hidden(cfg, params, tokens, impl)
+    if xent_chunk:
+        ce = chunked_xent(cfg, params, hidden, labels, xent_chunk)
+    else:
+        ce = cross_entropy_loss(cfg, lm_logits(params, cfg, hidden), labels,
+                                mask)
+    return ce, {"ce": ce, "aux": aux}
 
 
 def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,

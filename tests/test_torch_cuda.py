@@ -1,7 +1,9 @@
-"""The port on an NVIDIA GPU: the paged and contiguous-ring attention kernels
-and the RG-LRU scan kernel against their plain versions, the wrappers'
-checks, and the served models through the kernels against the ref paths,
-with and without speculative decoding and for the hybrid recurrentgemma.
+"""The port on an NVIDIA GPU: the paged, contiguous-ring and flash attention
+kernels and the RG-LRU scan kernel against their plain versions, the
+wrappers' checks, the served models through the kernels against the ref
+paths, with and without speculative decoding and for the hybrid
+recurrentgemma, and the train mode (the forward through the flash kernel,
+gradients on the ref path).
 Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
 CPU or interpret mode).  The file imports no jax, so it runs on the GPU
 machine:
@@ -17,11 +19,15 @@ from paged_cases import paged_case, ring_case  # noqa: E402
 from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import rglru_scan as RS  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.runtime import TorchTensorBackend  # noqa: E402
 from repro_torch.serving import LLM, SamplingParams  # noqa: E402
 from repro_torch.serving.spec import OracleDraft  # noqa: E402
+from repro_torch.training import TrainConfig, adamw_init  # noqa: E402
+from repro_torch.training import make_train_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -301,3 +307,92 @@ def test_served_hybrid_tokens_kernel_equals_ref(gpu):
         want = (n_rglru * calls["prefill"], n_attn * calls["decode_step"])
         assert launched == (want if impl == "cuda" else (0, 0))
     assert outs["cuda"] == outs["ref"]
+
+
+FLASH_CASES = [
+    # b, s, h, kh, d, options
+    (2, 200, 4, 2, 32, {}),
+    (1, 300, 4, 4, 64, dict(window=70, softcap=20.0)),
+    (1, 130, 8, 1, 128, dict(softcap=30.0)),
+    (2, 257, 10, 1, 256, dict(window=64)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d,opts", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_gpu(gpu, b, s, h, kh, d, opts, dtype):
+    """The flash kernel against its plain version at D = 32, 64, 128 and
+    256: GQA and MQA, ragged S, window and softcap."""
+    g = torch.Generator(device=gpu).manual_seed(70 + d)
+    q, k, v = (torch.randn(shape, generator=g, device=gpu)
+               .to(getattr(torch, dtype))
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, **opts)
+    want = FA.flash_attention_plain(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(gpu):
+    """No fallback to the plain version and no silent loss of gradients:
+    inputs that need a gradient under autograd, head dims the kernel is not
+    built for, mixed or unsupported dtypes, strides and devices raise
+    before any launch."""
+    q = torch.randn((1, 40, 4, 64), device=gpu)
+    k = torch.randn((1, 40, 2, 64), device=gpu)
+    before = FA.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q.clone().requires_grad_(True), k, k)
+    bad = [
+        (q[..., :48].contiguous(), k[..., :48].contiguous(),
+         k[..., :48].contiguous()),                           # D=48
+        (torch.randn((1, 40, 4, 96), device=gpu),
+         torch.randn((1, 40, 2, 96), device=gpu),
+         torch.randn((1, 40, 2, 96), device=gpu)),            # D=96
+        (q.half(), k.half(), k.half()),                       # float16
+        (q.bfloat16(), k, k),                                 # mixed dtypes
+        (q.transpose(1, 2).contiguous().transpose(1, 2), k, k),  # strides
+        (q, k.cpu(), k.cpu()),                                # two devices
+        (q, k[:, :20].contiguous(), k[:, :20].contiguous()),  # S differs
+        (q[:, :, :3].contiguous(), k, k),                     # H % KH
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            FA.flash_attention(*call)
+    with torch.no_grad():               # no gradient needed: it launches
+        FA.flash_attention(q.clone().requires_grad_(True), k, k)
+    assert FA.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "qwen3-0.6b",
+                                  "recurrentgemma-2b"])
+def test_train_mode_on_gpu(gpu, arch):
+    """Reduced model in float32 on the card: ``forward(mode="train")``
+    through the flash kernel (one launch per attention layer) equals the
+    ref path at 2e-4; a train step on ``impl="ref"`` runs, and on
+    ``impl="cuda"`` it raises, as the kernel has no backward."""
+    cfg = get_config(arch).reduced(n_layers=5)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 40))).to(gpu)
+    n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
+    logits = {}
+    with torch.no_grad():
+        for impl in ("ref", "cuda"):
+            before = FA.flash_attention.launches
+            logits[impl], _ = TT.forward(cfg, params, tokens, mode="train",
+                                         impl=impl)
+            assert FA.flash_attention.launches - before == \
+                (n_attn if impl == "cuda" else 0)
+    torch.testing.assert_close(logits["cuda"], logits["ref"], rtol=2e-4,
+                               atol=2e-4)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, TrainConfig())
+    params, opt, metrics = step(params, opt, tokens, tokens)
+    assert opt.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    with pytest.raises(RuntimeError, match="no backward"):
+        make_train_step(cfg, TrainConfig(impl="cuda"))(params, opt, tokens,
+                                                       tokens)
