@@ -9,9 +9,9 @@ exits non-zero and prints no result line; no phase catches its own failure.
 1. device  -- the card's name and power limit from ``nvidia-smi``, and
    torch's name for it;
 2. build   -- ``nvcc`` builds every kernel of the main paths from the sources
-   in this checkout (four: paged, contiguous-ring and flash attention, the
-   RG-LRU scan), one process per source, all started together; each
-   source's compile time and register and spill report;
+   in this checkout (five: paged, contiguous-ring and flash attention, the
+   RG-LRU scan, the int8 matmul), one process per source, all started
+   together; each source's compile time and register and spill report;
 3. kernels -- each kernel against its plain PyTorch version on the card.
    The attention kernels in float32 and bfloat16: the paged kernel over the
    cases of the JAX kernel tests (GQA group sizes of llama2-7b, qwen3-0.6b
@@ -29,12 +29,18 @@ exits non-zero and prints no result line; no phase catches its own failure.
    with and without softcap), and every shape a main path gives it: the
    score phases' 2 x 4096 at llama2-7b's heads and at recurrentgemma-2b's
    (H=10, KH=1, D=256, window 2048; also at a ragged S=2500), and the train
-   phase's qwen3-0.6b 4 x 512 (H=16, KH=8, D=128).  Then
+   phase's qwen3-0.6b 4 x 512 (H=16, KH=8, D=128).  The int8 matmul in
+   float32 and bfloat16 at the JAX int8 test's shapes (one ragged in M, K
+   and N), with leading dimensions, and at llama2-7b's projections (K x N
+   4096 x 4096, 4096 x 11008, 11008 x 4096) at M = 4 and 8192.  Then
    each is timed at the main path's shapes beside the plain version, one
    library call where there is one and the card's bound, and every timing
    input set is held against the plain version too.  Kernel and library
    calls are timed as a CUDA graph's replay, so a short kernel's time is
-   the card's and not the host's launch rate;
+   the card's and not the host's launch rate.  Last, the int8 op's entry
+   point as its users call it: one llama2-7b layer's seven projections,
+   quantized, on a decode step and a 2 x 4096-token prefill in bf16 (one
+   launch per projection, the output equal to the plain chain's);
 4. serve   -- llama2-7b at full width and depth, random weights from a seed,
    six greedy requests over four slots, so slots recycle, through the
    ``LLM`` API over ``TorchTensorBackend(impl="cuda")``, three times:
@@ -45,7 +51,12 @@ exits non-zero and prints no result line; no phase catches its own failure.
      rollbacks run: the paged kernel launches once per layer and verify
      step, with 4 query tokens per slot;
    and each time the logits, fed the run's own tokens, must agree with the
-   ``impl="ref"`` read path;
+   ``impl="ref"`` read path; then streamed admission: eight requests of a
+   shared 1024-token prefix plus 16-200 tokens each, over four slots, with
+   the prefix cache and 256-token chunks (``max_len`` 1280): at least four
+   prefix hits, the paged kernel once per layer and decode step, and every
+   request's first-token logits within 0.25 of the monolithic paged serve
+   of the same prompts;
    then the score phase: ``forward(mode="train")`` over 2 x 4096 seeded
    tokens under ``torch.no_grad``, ``impl="cuda"`` (one flash launch per
    layer, no decode kernel) against ``impl="ref"``;
@@ -119,6 +130,21 @@ SCORE_BATCH, SCORE_LEN = 2, 4096    # the score phases' train-mode forward
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN = 8, 4, 512
 TRAIN_DATA_VOCAB = 64               # the launcher's synthetic token support
+# the streamed serve: 8 requests over 4 slots, each a shared 1024-token
+# prefix plus 16-200 tokens of its own, the prefix cache on, 256-token chunks
+STREAM_REQUESTS, STREAM_SHARED, STREAM_TAIL = 8, 1024, (16, 200)
+STREAM_CHUNK = 256
+STREAM_MAX_LEN = 1280               # 1024 + 200 + 32 = 1256, in whole blocks
+# the int8 matmul: the JAX kernel test's shapes (M, K, N), and llama2-7b's
+# projections (K x N: q/k/v/o, gate/up, down) at a decode step of 4 slots
+# and a prefill of 2 x 4096 tokens
+INT8_CASES = ((128, 512, 128), (70, 300, 130), (1, 1024, 256), (256, 64, 64))
+INT8_PROJ = ((4096, 4096), (4096, 11008), (11008, 4096))
+INT8_M = (4, 8192)
+# the JAX kernel test's _tol; float32 x sums in float64 in both the kernel and
+# the plain version, bfloat16 x in float32 in the kernel
+INT8_TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
 # datasheet device-memory rates (bytes/s) and dense bf16 tensor rate
 MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -408,16 +434,17 @@ def time_ms(fn, n_sets, iters=200, warmup=10, graph=True):
     return start.elapsed_time(end) / iters
 
 
-def time_paged(pa, card, kq):
-    """paged_attention at the paged serve's shapes: llama2-7b, 4 slots with
-    512 keys each, bf16, ``kq`` query tokens per slot."""
+def time_paged(pa, card, kq, max_len=MAX_LEN):
+    """paged_attention at a paged serve's shapes: llama2-7b, 4 slots with
+    ``max_len`` keys each (by default the paged serve's 512), bf16, ``kq``
+    query tokens per slot."""
     import torch.nn.functional as F
 
     from paged_cases import paged_case
-    n_sets = 4                      # 4 x 34 MB of K/V: more than the L2
+    n_sets = 4                      # 4 x 34 MB or more of K/V: past the L2
     sets = [to_device(paged_case(SLOTS, 32, 32, 128, BLOCK_SIZE,
-                                 MAX_LEN // BLOCK_SIZE,
-                                 (MAX_LEN - kq + 1,) * SLOTS, kq,
+                                 max_len // BLOCK_SIZE,
+                                 (max_len - kq + 1,) * SLOTS, kq,
                                  seed=200 + i), torch.bfloat16)
             for i in range(n_sets)]
     lib = []
@@ -559,12 +586,148 @@ def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2):
                 **bound(n_bytes, 4 * h * d * n_pairs, card))
 
 
+def int8_inputs(i8, m, k, n, dtype, seed, lead=()):
+    """Seeded x [*lead, m, k] in ``dtype`` and a quantized w [k, n] (N(0, 1)
+    before quantization) on the card."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    x = torch.randn((*lead, m, k), generator=gen, device=DEVICE).to(dtype)
+    w_q, scale = i8.quantize_int8(
+        torch.randn((k, n), generator=gen, device=DEVICE))
+    return dict(x=x, w_q=w_q, scale=scale)
+
+
+def check_int8(i8):
+    """The int8 kernel against its plain version in float32 and bfloat16:
+    the JAX test's shapes, leading dimensions, and llama2-7b's projections
+    at M = 4 and 8192; returns the largest error."""
+    worst = 0.0
+    cases = [(f"{m}x{k}x{n}", (m, k, n), ()) for m, k, n in INT8_CASES]
+    cases.append(("leading dims [2, 3, 64] x 64x32", (3, 64, 32), (2,)))
+    cases += [(f"llama2-7b M={m} {k}x{n}", (m, k, n), ())
+              for m in INT8_M for k, n in INT8_PROJ]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = INT8_TOL[str(dtype)[6:]]
+        for i, (name, shape, lead) in enumerate(cases):
+            x = int8_inputs(i8, *shape, dtype, seed=900 + i, lead=lead)
+            got, err, _ = compare(name, i8.int8_matmul, i8.int8_matmul_plain,
+                                  x, {}, dtype, tol=tol)
+            if got.shape != (*lead, shape[0], shape[2]):
+                raise AssertionError(f"int8_matmul {name}: shape "
+                                     f"{tuple(got.shape)}")
+            worst = max(worst, err)
+            print(f"kernels: int8_matmul {name} {str(dtype)[6:]}: max abs "
+                  f"err {err:.3g} (rtol/atol {tol['rtol']:.3g})")
+        del x, got
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_int8(i8, card, m, k, n, dtype):
+    """int8_matmul at one of llama2-7b's projections, x [m, k] in
+    ``dtype``; the library call is one ``torch.matmul`` on the weight
+    dequantized once to x's dtype (TF32 off)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    set_bytes = k * n + m * k * item
+    n_sets = max(1, -(-100_000_000 // set_bytes))             # past the L2
+    sets = [int8_inputs(i8, m, k, n, dtype, seed=950 + i)
+            for i in range(n_sets)]
+    tol = INT8_TOL[str(dtype)[6:]]
+    err = max(compare(f"int8_matmul timing set {i} M={m} {k}x{n}",
+                      i8.int8_matmul, i8.int8_matmul_plain, x, {}, dtype,
+                      tol=tol)[1] for i, x in enumerate(sets))
+    deq = [(x["w_q"].float() * x["scale"]).to(dtype) for x in sets]
+    f32_outside = None
+    if dtype == torch.float32:
+        # why float32 x sums in float64: the float32 product summed in
+        # float32 by cuBLAS, against the plain version's exact sum
+        x = sets[0]
+        want = i8.int8_matmul_plain(**x)
+        f32 = (x["x"] @ x["w_q"].float()) * x["scale"]
+        f32_outside = int(((f32 - want).abs() > tol["atol"]
+                           + tol["rtol"] * want.abs()).sum())
+        del want, f32
+    big = m * k * n > 1e11
+    iters = (3 if dtype == torch.float32 else 10) if big else 200
+    ms = time_ms(lambda i: i8.int8_matmul(**sets[i]), n_sets, iters=iters,
+                 warmup=2 if big else 10)
+    plain_ms = time_ms(lambda i: i8.int8_matmul_plain(**sets[i]), n_sets,
+                       iters=3 if big else 20, warmup=1, graph=False)
+    library_ms = time_ms(lambda i: torch.matmul(sets[i]["x"], deq[i]),
+                         n_sets, iters=iters, warmup=2 if big else 10)
+    # the least work: read x, w_q and scale once and write y; 2 M K N
+    # operations of x's type
+    n_bytes = m * k * item + k * n + n * 4 + m * n * item
+    peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+    del sets, deq
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, f32_outside=f32_outside,
+                **bound(n_bytes, 2 * m * k * n, card, peak))
+
+
+def int8_path(i8, wrappers, card):
+    """The op's entry point as its users call it: one llama2-7b layer's
+    seven projections quantized (weights N(0, 1/K) from SEED), applied in
+    bf16 to a decode step of 4 slots ([4, 1, 4096]) and to a prefill of
+    2 x 4096 tokens ([2, 4096, 4096]): q, k and v from x, o from q, and the
+    SwiGLU MLP down(silu(gate(x)) * up(x)).  Each run starts with the count
+    at 0 and must launch the kernel once per projection; its output equals
+    the same chain through the plain version.  Returns the launches of each
+    run."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    names = (("wq", 4096, 4096), ("wk", 4096, 4096), ("wv", 4096, 4096),
+             ("wo", 4096, 4096), ("w_gate", 4096, 11008),
+             ("w_up", 4096, 11008), ("w_down", 11008, 4096))
+    w = {n: i8.quantize_int8(torch.randn((k, c), generator=gen,
+                                         device=DEVICE) / k ** 0.5)
+         for n, k, c in names}
+
+    def layer(mm, x):
+        q, k, v = (mm(x, *w[n]) for n in ("wq", "wk", "wv"))
+        o = mm(q, *w["wo"])
+        mlp = mm(torch.nn.functional.silu(mm(x, *w["w_gate"]))
+                 * mm(x, *w["w_up"]), *w["w_down"])
+        return torch.stack([k.float(), v.float(), o.float(), mlp.float()])
+
+    launches = {}
+    for what, shape in (("decode", (SLOTS, 1, 4096)),
+                        ("prefill", (SCORE_BATCH, SCORE_LEN, 4096))):
+        x = torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+        for fn in wrappers.values():
+            fn.launches = 0
+        got = layer(i8.int8_matmul, x)
+        torch.cuda.synchronize()
+        counts = {n: fn.launches for n, fn in wrappers.items()}
+        launches[what] = counts.pop("int8_matmul")
+        want = layer(i8.int8_matmul_plain, x)
+        if launches[what] != len(names) or any(counts.values()) \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"int8 path {what}: {launches[what]} "
+                                 f"launches for {len(names)} projections, "
+                                 f"others {counts}")
+        torch.testing.assert_close(got, want, **INT8_TOL["bfloat16"],
+                                   msg=lambda m: f"int8 path {what}: {m}")
+        err = (got - want).abs().max().item()
+        print(f"int8 path {what}: llama2-7b layer projections on x "
+              f"{list(shape)} bf16 through the op: int8_matmul launches "
+              f"{launches[what]} = {len(names)} projections; q/k/v/o and "
+              f"MLP outputs against the plain chain max abs diff {err:.3g} "
+              f"(rtol/atol {INT8_TOL['bfloat16']['rtol']}) [{card}]")
+    return launches
+
+
 def timing_line(name, shape, t, card):
     lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
     print(f"kernels: {name} at {shape}: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, library {lib}, bound "
           f"{t['bound_ms']:.4f} ms ({t['n_bytes'] / 1e6:.2f} MB by "
           f"{t['bound_by']}), max abs err {t['max_abs_err']:.3g} [{card}]")
+    if t.get("f32_outside") is not None:
+        print(f"kernels: {name} at {shape}: a float32-summed cuBLAS product "
+              f"has {t['f32_outside']} outputs outside rtol/atol 3e-5 of the "
+              f"exact sum")
 
 
 # --------------------------------------------------------------------------- #
@@ -572,22 +735,27 @@ def timing_line(name, shape, t, card):
 # --------------------------------------------------------------------------- #
 
 class StepClock:
-    """Host-clock times of a backend's prefill, decode and verify calls.
-    Each call ends in the logits readback, which waits for the card.
+    """Host-clock times of a backend's prefill, prefill_chunk, decode and
+    verify calls that have work (the scheduler may pass no feeds).  Each
+    call ends in the logits readback, which waits for the card.
     ``verify_kq`` records the query tokens per slot of each verify call and
     ``verify_slots`` the slots it verified."""
 
     def __init__(self, backend):
         self.prefill_ms, self.decode_ms, self.verify_ms = [], [], []
+        self.chunk_ms = []
         self.verify_kq, self.verify_slots = [], []
         for name, log in (("prefill", self.prefill_ms),
                           ("decode_step", self.decode_ms),
-                          ("verify_step", self.verify_ms)):
+                          ("verify_step", self.verify_ms),
+                          ("prefill_chunk", self.chunk_ms)):
             setattr(backend, name, self._timed(getattr(backend, name), log,
                                                name == "verify_step"))
 
     def _timed(self, fn, log, verify):
         def call(*args, **kw):
+            if not len(args[0]):        # an empty quantum runs nothing
+                return fn(*args, **kw)
             if verify:
                 self.verify_kq.append(max(len(f) for f in args[0].values()))
                 self.verify_slots.append(len(args[0]))
@@ -599,7 +767,7 @@ class StepClock:
 
     def reset(self):
         for log in (self.prefill_ms, self.decode_ms, self.verify_ms,
-                    self.verify_kq, self.verify_slots):
+                    self.chunk_ms, self.verify_kq, self.verify_slots):
             log.clear()
 
     def summary(self, what="decode"):
@@ -704,12 +872,13 @@ class Model:
         self.prompts = [rng.integers(0, self.cfg.vocab_size, n)
                         .astype(np.int32) for n in prompt_lens]
 
-    def backend(self, impl, layout="paged", max_len=MAX_LEN):
-        from repro_torch.runtime import TorchTensorBackend
-        be = TorchTensorBackend(self.cfg, self.params, n_slots=SLOTS,
-                                max_len=max_len, impl=impl,
-                                cache_layout=layout, block_size=BLOCK_SIZE,
-                                device=DEVICE)
+    def backend(self, impl, layout="paged", max_len=MAX_LEN,
+                prefix_cache=False):
+        from repro_torch.runtime import TensorBackend
+        be = TensorBackend(self.cfg, self.params, n_slots=SLOTS,
+                           max_len=max_len, impl=impl, cache_layout=layout,
+                           block_size=BLOCK_SIZE, device=DEVICE,
+                           prefix_cache=prefix_cache)
         if be.info.attn_impl != impl:
             raise AssertionError(f"backend reports attn_impl="
                                  f"{be.info.attn_impl}, asked for {impl}")
@@ -893,6 +1062,174 @@ def serve_spec(model, pa, da, card, paged_tokens):
     return dict(launches=launches)
 
 
+class FirstLogits:
+    """The first-token logits of each request, keyed by its prompt's
+    tokens, from a backend's monolithic prefill or its streamed admission
+    (``start_stream`` says whether the prompt hit the prefix cache)."""
+
+    def __init__(self, backend):
+        self.logits, self.hit, self._slot = {}, {}, {}
+        prefill, start = backend.prefill, backend.start_stream
+        chunk = backend.prefill_chunk
+
+        def prefill_(slots, prompts, prompt_lens=None):
+            evs = prefill(slots, prompts, prompt_lens)
+            w = prompts.shape[1]
+            for i, ev in enumerate(evs):
+                n = w if prompt_lens is None else int(prompt_lens[i])
+                self.logits[self.key(prompts[i, w - n:])] = ev.logits
+            return evs
+
+        def start_(slot, prompt):
+            got = start(slot, prompt)
+            self._slot[slot] = self.key(prompt)
+            self.hit[self._slot[slot]] = got > 0
+            return got
+
+        def chunk_(slots, chunks, chunk_lens, starts, last):
+            evs = chunk(slots, chunks, chunk_lens, starts, last)
+            for ev in evs:
+                self.logits[self._slot[ev.slot]] = ev.logits
+            return evs
+        backend.prefill, backend.start_stream = prefill_, start_
+        backend.prefill_chunk = chunk_
+
+    @staticmethod
+    def key(prompt):
+        return np.asarray(prompt, np.int32).tobytes()
+
+
+def stream_prompts(cfg):
+    """``STREAM_REQUESTS`` prompts from SEED + 1: one shared
+    ``STREAM_SHARED``-token prefix, then 16-200 seeded tokens of each
+    request's own."""
+    rng = np.random.default_rng(SEED + 1)
+    shared = rng.integers(0, cfg.vocab_size, STREAM_SHARED)
+    tails = rng.integers(STREAM_TAIL[0], STREAM_TAIL[1] + 1, STREAM_REQUESTS)
+    return [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+            .astype(np.int32) for n in tails]
+
+
+def serve_streamed(model, wrappers, card):
+    """Streamed admission on the paged layout: the prefix cache on and
+    ``STREAM_CHUNK``-token chunks.  The first four requests miss and
+    register the shared prefix, the next four adopt it; decode steps read
+    the pool with the paged kernel, chunks by gather.  The first-token
+    logits of every request agree with the monolithic paged serve's."""
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = model.cfg
+    prompts = stream_prompts(cfg)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    firsts, outs = {}, {}
+    for mode in ("monolithic", "streamed"):
+        streamed = mode == "streamed"
+        be = model.backend("cuda", "paged", STREAM_MAX_LEN,
+                           prefix_cache=streamed)
+        if streamed and not (be.info.prefix_caching
+                             and be.info.supports_extend):
+            raise AssertionError(f"the paged backend reports {be.info}")
+        llm = LLM.from_backend(be, seed=SEED,
+                               prefill_chunk=STREAM_CHUNK if streamed
+                               else None)
+        # warm up on a prompt that shares no block with the measured ones
+        warm = np.random.default_rng(SEED + 2).integers(
+            0, cfg.vocab_size, 40).astype(np.int32)
+        llm.generate([warm], SamplingParams(max_tokens=4))
+        clock = StepClock(be)
+        first = FirstLogits(be)
+        before = llm.stats.prefix_hits, llm.stats.prefix_hit_tokens
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs[mode] = llm.generate(prompts, sp)
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        firsts[mode] = dict(first.logits)
+        hits = llm.stats.prefix_hits - before[0]
+        hit_tokens = llm.stats.prefix_hit_tokens - before[1]
+        steps = len(clock.decode_ms)
+        for o in outs[mode]:
+            if o.n_generated != MAX_TOKENS or o.finish_reason != "length":
+                raise AssertionError(f"{mode} request {o.uid}: "
+                                     f"{o.n_generated} tokens, "
+                                     f"{o.finish_reason}")
+        paged = launches.pop("paged_attention")
+        if paged != cfg.n_layers * steps or not steps \
+                or any(launches.values()):
+            raise AssertionError(f"serve {mode}: paged_attention {paged} "
+                                 f"launches over {steps} decode steps of "
+                                 f"{cfg.n_layers} layers, other kernels "
+                                 f"{launches}")
+        total = sum(o.n_generated for o in outs[mode])
+        if streamed:
+            if hits < STREAM_REQUESTS - SLOTS or not clock.chunk_ms \
+                    or clock.prefill_ms:
+                raise AssertionError(f"serve streamed: {hits} prefix hits, "
+                                     f"{len(clock.chunk_ms)} chunk calls, "
+                                     f"{len(clock.prefill_ms)} prefills")
+            ttft = {True: [], False: []}
+            admit = {True: [], False: []}
+            for o in outs[mode]:
+                hit = first.hit[first.key(o.prompt)]
+                ttft[hit].append(o.timing.ttft_s * 1e3)
+                admit[hit].append((o.timing.first_token_s
+                                   - o.timing.admitted_s) * 1e3)
+            chunk = clock.chunk_ms
+            print(f"serve streamed: {STREAM_REQUESTS} requests, a shared "
+                  f"{STREAM_SHARED}-token prefix + {STREAM_TAIL[0]}-"
+                  f"{STREAM_TAIL[1]} own tokens ({[o.n_prompt for o in outs[mode]]}"
+                  f") x {MAX_TOKENS} greedy tokens over {SLOTS} slots, "
+                  f"prefix cache on, chunks of {STREAM_CHUNK}: prefix hits "
+                  f"{hits} (>= {STREAM_REQUESTS - SLOTS}), prefix_hit_tokens "
+                  f"{hit_tokens}; {len(chunk)} prefill_chunk calls, "
+                  f"{llm.stats.prefill_chunks} chunk passes, {steps} decode "
+                  f"steps, paged_attention launches {paged} = "
+                  f"{cfg.n_layers} layers x {steps} steps")
+            print(f"serve streamed: prefill_chunk ms per call median "
+                  f"{statistics.median(chunk):.3f} (min {min(chunk):.3f}, "
+                  f"max {max(chunk):.3f}); decode ms per step median "
+                  f"{statistics.median(clock.decode_ms):.3f}; time to first "
+                  f"token, miss requests ({len(ttft[False])}) median "
+                  f"{statistics.median(ttft[False]):.1f} ms (admission to "
+                  f"first token {statistics.median(admit[False]):.1f}), hit "
+                  f"requests ({len(ttft[True])}) median "
+                  f"{statistics.median(ttft[True]):.1f} ms (admission to "
+                  f"first token {statistics.median(admit[True]):.1f}); "
+                  f"{total / wall:.1f} tokens/s over {wall:.2f} s [{card}]")
+            # four more requests that hit: one chunk and 8 decode steps each
+            device_share("serve streamed", f"{SLOTS} hit requests x 8 tokens",
+                         lambda: llm.generate(prompts[:SLOTS],
+                                              SamplingParams(max_tokens=8)),
+                         card)
+        else:
+            print(f"serve streamed: the monolithic paged serve of the same "
+                  f"prompts: {len(clock.prefill_ms)} prefills, prefill ms "
+                  f"per wave {[round(t, 3) for t in clock.prefill_ms]}, "
+                  f"{steps} decode steps, median decode ms "
+                  f"{statistics.median(clock.decode_ms):.3f}, "
+                  f"{total / wall:.1f} tokens/s over {wall:.2f} s [{card}]")
+        del llm, be, clock
+        torch.cuda.empty_cache()
+    keys = [FirstLogits.key(p) for p in prompts]
+    got = np.stack([firsts["streamed"][k] for k in keys])
+    want = np.stack([firsts["monolithic"][k] for k in keys])
+    diff = np.abs(got - want)
+    if not np.isfinite(got).all() or diff.max() > LOGITS_ATOL:
+        raise AssertionError(f"serve streamed: first-token logits against "
+                             f"the monolithic serve's: max abs diff "
+                             f"{diff.max():.4g} > {LOGITS_ATOL}")
+    same = sum(int(a == b) for o, u in zip(outs["streamed"],
+                                           outs["monolithic"])
+               for a, b in zip(o.tokens, u.tokens))
+    print(f"serve streamed: first-token logits of the {len(keys)} requests, "
+          f"streamed vs monolithic, max abs diff {diff.max():.4g} (mean "
+          f"{diff.mean():.3g}; atol {LOGITS_ATOL}), argmax agreement "
+          f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/{len(keys)}; "
+          f"greedy tokens equal {same}/{STREAM_REQUESTS * MAX_TOKENS} (bf16: "
+          f"the two paths sum in other orders) [{card}]")
+    return dict(launches=paged, hits=hits)
+
+
 def serve_hybrid(model, pa, da, rs, card):
     """recurrentgemma-2b on the contiguous layout: RG-LRU state per slot
     beside windowed rings of 2048 keys."""
@@ -978,7 +1315,7 @@ def score(model, kernels, card):
         0, cfg.vocab_size, (SCORE_BATCH, SCORE_LEN))).to(DEVICE)
     n_scan = sum(spec.kind == "rglru" for spec in cfg.layer_specs())
     want = dict(flash_attention=cfg.n_layers - n_scan, rglru_scan=n_scan,
-                decode_attention=0, paged_attention=0)
+                decode_attention=0, paged_attention=0, int8_matmul=0)
     logits, secs = {}, {}
     with torch.no_grad():
         for impl in ("cuda", "ref"):
@@ -1166,12 +1503,14 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rglru_scan as rs
     wrappers = dict(flash_attention=fa.flash_attention,
                     rglru_scan=rs.rglru_scan,
                     decode_attention=da.decode_attention,
-                    paged_attention=pa.paged_attention)
+                    paged_attention=pa.paged_attention,
+                    int8_matmul=i8.int8_matmul)
 
     # float32 products in full float32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1196,11 +1535,14 @@ def main():
     worst = check_kernels(pa, da)
     worst["rglru_scan"] = check_rglru(rs)
     worst["flash_attention"] = check_flash(fa)
+    worst["int8_matmul"] = check_int8(i8)
     print("kernels: worst case error " + ", ".join(
         f"{k} {v:.3g}" for k, v in worst.items()))
     timing = {
         "paged_attention": time_paged(pa, card, 1),
         "paged_verify_attention": time_paged(pa, card, SPEC_K),
+        # the streamed serve's decode: contexts of up to 1256 keys
+        "paged_attention streamed": time_paged(pa, card, 1, STREAM_MAX_LEN),
         "decode_attention full": time_decode(da, card, CONTIGUOUS_MAX_LEN),
         "decode_attention": time_decode(da, card, CONTIGUOUS_MAX_LEN // 4),
         # 4 x 8.4 MB of K/V per set: 8 sets exceed the L2
@@ -1216,6 +1558,8 @@ def main():
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
+        "paged_attention streamed": f"llama2-7b x {SLOTS} slots x "
+                                    f"{STREAM_MAX_LEN} keys bf16",
         "paged_verify_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} "
                                   f"keys x KQ={SPEC_K} bf16",
         "decode_attention full": f"llama2-7b x {SLOTS} slots x "
@@ -1234,13 +1578,22 @@ def main():
                                   f"{SCORE_LEN}, window {HYBRID_WINDOW}, "
                                   f"bf16",
     }
+    for m in INT8_M:
+        for k, n in INT8_PROJ:
+            for dtype in (torch.bfloat16, torch.float32):
+                key = f"int8_matmul M={m} {k}x{n} {str(dtype)[6:]}"
+                timing[key] = time_int8(i8, card, m, k, n, dtype)
+                shapes[key] = (f"llama2-7b projection x [{m}, {k}] "
+                               f"{str(dtype)[6:]} @ w_q [{k}, {n}] int8")
     for key, t in timing.items():
         timing_line(key.split()[0], shapes[key], t, card)
 
+    int8_launches = int8_path(i8, wrappers, card)
     model = Model()
     paged = serve_paged(model, pa, card)
     contiguous = serve_contiguous(model, pa, da, card, paged["tokens"])
     spec = serve_spec(model, pa, da, card, paged["tokens"])
+    streamed = serve_streamed(model, wrappers, card)
     scored = score(model, wrappers, card)
     del model                       # 13.48 GB of llama2-7b weights
     gc.collect()
@@ -1283,6 +1636,15 @@ def main():
         entry("flash_attention hybrid", f"flash_attention@{HYBRID}",
               "flash_attention.cu", "flash_attention.py:86",
               hybrid_scored["flash_attention"]),
+        entry("paged_attention streamed", "paged_attention@streamed",
+              "paged_attention.cu", "decode_attention.py:201",
+              streamed["launches"]),
+        # the op's entry point: one llama2-7b layer's projections in bf16
+        entry("int8_matmul M=4 4096x4096 bfloat16", "int8_matmul",
+              "int8_matmul.cu", "int8_matmul.py:41", int8_launches["decode"]),
+        entry(f"int8_matmul M={INT8_M[1]} 4096x4096 bfloat16",
+              "int8_matmul@prefill", "int8_matmul.cu", "int8_matmul.py:41",
+              int8_launches["prefill"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

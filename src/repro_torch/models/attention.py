@@ -8,7 +8,9 @@ of the train-mode and cache-writing entry points of
 - :func:`attend_decode`       -- one token per slot against its ring cache,
 - :func:`attend_decode_paged` -- one token per slot against a paged cache,
 - :func:`attend_verify_paged` -- K tokens per slot (speculative verify)
-  against a paged cache.
+  against a paged cache,
+- :func:`extend_cache`        -- a prompt chunk per slot at its absolute
+  positions against a paged cache (streamed admission).
 
 Prefill supports *masked* left-padded batches: per-row positions [B, S]
 hold negative values at pad slots, which are masked out of the softmax and
@@ -30,7 +32,8 @@ in the reference):
   :func:`repro_torch.kernels.paged_attention.paged_attention`; on CPU
   tensors the wrappers run the kernels' plain versions.
 
-Prefill runs :func:`_sdpa` under both impls, as the reference's does.
+Prefill and extend run :func:`_sdpa` under both impls, as the reference's
+do.
 Caches update in place (``index_put_``) where the reference rebuilt them.
 """
 from __future__ import annotations
@@ -183,6 +186,63 @@ def prefill_cache(params: Dict, cfg: ModelConfig, spec: BlockSpec,
     cache["k"][rows, slots] = k_tail.to(cache["k"].dtype)
     cache["v"][rows, slots] = v_tail.to(cache["v"].dtype)
     return y, cache
+
+
+def extend_cache(params: Dict, cfg: ModelConfig, spec: BlockSpec,
+                 x: torch.Tensor, positions: torch.Tensor,
+                 seq_valid: torch.Tensor, cache: Dict, impl: str = "ref",
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Prefill a *continuation* against a **paged** ``cache`` that already
+    holds keys for positions below ``positions`` (an adopted shared prefix
+    and/or earlier chunks), writing the new k/v into the slot's blocks (in
+    place).
+
+    x [B, S, d]; positions [B, S] absolute, right-aligned payload (pads on
+    the left, ``seq_valid`` False there).  Only valid where ring slot ==
+    position (``kvcache.prefix_sharing_supported``), so a shared block is
+    never rewritten.  Pad rows' writes go to the scratch block and their
+    ``key_pos`` entries stay untouched, so a padded chunk is bit-for-bit the
+    unpadded continuation.
+
+    The chunk's k/v are scattered into the pool first, then attended
+    through the block table with the chunk's own causal mask, so token i of
+    the chunk sees the adopted prefix, all earlier chunks, and chunk tokens
+    0..i.  Both impls read by the same gather, as the reference does under
+    ``"pallas"`` (the paged kernel is decode-shaped).
+    """
+    _check_decode_impl(impl)
+    b = x.shape[0]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    bt, key_pos = cache["bt"], cache["key_pos"]
+    k_pool, v_pool = cache["k_pool"], cache["v_pool"]
+    c_pad = key_pos.shape[-1]
+    bsz = k_pool.shape[1]
+    nbs = c_pad // bsz
+    scratch = k_pool.shape[0] - 1
+
+    # scatter the chunk into the slot's blocks (scratch for pads/unmapped)
+    blk = (positions // bsz).clamp(0, nbs - 1).long()             # [B, S]
+    off = (positions % bsz).long()
+    phys = bt.gather(1, blk)                                      # [B, S]
+    tgt = torch.where(seq_valid & (phys >= 0), phys, scratch).long()
+    k_pool[tgt, off] = k.to(k_pool.dtype)
+    v_pool[tgt, off] = v.to(v_pool.dtype)
+
+    # ring slot == position: mark exactly this chunk's position range valid
+    end = positions[:, -1]                                        # [B]
+    lo = end + 1 - seq_valid.sum(dim=-1).to(end.dtype)            # chunk start
+    iota = torch.arange(c_pad, dtype=key_pos.dtype, device=x.device)[None]
+    in_chunk = (iota >= lo[:, None]) & (iota <= end[:, None])
+    key_pos.copy_(torch.where(in_chunk, iota, key_pos))
+    cache["pos"].copy_(end + 1)
+
+    # attend through the table over the dense gather (prefix + chunk)
+    read = bt[:, :nbs].clamp(min=0)
+    ck = k_pool[read].reshape(b, c_pad, cfg.n_kv_heads, -1)
+    cv = v_pool[read].reshape(b, c_pad, cfg.n_kv_heads, -1)
+    out = _sdpa(cfg, spec, q, ck, cv, positions, key_pos,
+                k_valid=key_pos >= 0)
+    return out @ params["wo"], cache
 
 
 def attend_decode(params: Dict, cfg: ModelConfig, spec: BlockSpec,

@@ -10,6 +10,8 @@ Port of the entry points of ``repro.models.transformer``:
   and :func:`train_loss` -- the training objective,
 - :func:`decode_step` -- one token in, one logits row out, over ring or
   paged caches,
+- :func:`extend_step` -- a prompt chunk in at its absolute positions, over
+  paged caches that already hold the keys before it (streamed admission),
 - :func:`verify_step` -- K tokens in, K logits rows out, over paged caches.
 
 Parameters are the reference's tree with the layer stack unrolled (see
@@ -86,10 +88,11 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
     (``k_pool``), a ring cache ``k``.  Verify needs attention caches, as in
     the reference."""
     _check_block(spec)
-    if mode == "verify" and spec.kind != "attn":
+    if mode in ("extend", "verify") and spec.kind != "attn":
         raise ValueError(
-            f"verify (speculative decoding) requires attention caches; got "
-            f"{spec.kind!r} -- gate via kvcache.prefix_sharing_supported")
+            f"{mode} (chunked/offset prefill or speculative verify) requires "
+            f"attention caches; got {spec.kind!r} -- gate via "
+            f"kvcache.prefix_sharing_supported")
     h = apply_norm(params["norm1"], x, cfg.norm)
     if spec.kind == "rglru" and mode in ("train", "prefill"):
         mix, _ = rglru.apply_rglru_seq(params["mixer"], cfg, h, cache, impl,
@@ -103,6 +106,9 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
     elif mode == "prefill":
         mix, _ = attn.prefill_cache(params["mixer"], cfg, spec, h, positions,
                                     cache, impl)
+    elif mode == "extend":
+        mix, _ = attn.extend_cache(params["mixer"], cfg, spec, h, positions,
+                                   seq_valid, cache, impl)
     elif mode == "verify":
         mix, _ = attn.attend_verify_paged(params["mixer"], cfg, spec, h,
                                           verify_lens, cache, impl)
@@ -266,6 +272,37 @@ def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
                          write_mask=write_mask)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x)[:, 0], caches
+
+
+def extend_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                caches: Caches, starts: torch.Tensor, lens: torch.Tensor,
+                impl: str = "ref") -> Tuple[torch.Tensor, Caches]:
+    """Chunked/offset prefill over paged caches: run ``tokens`` [B, S]
+    (right-aligned payload, left-padded to S, true lengths ``lens`` [B]) at
+    absolute positions ``starts[b] .. starts[b] + lens[b] - 1`` with every
+    earlier cache key visible -- the continuation twin of
+    ``forward(mode="prefill")`` for prompts whose head is already cached (an
+    adopted shared prefix and/or earlier chunks).
+
+    Returns (logits [B, S, vocab], caches).  Row ``b``'s last-token logits
+    sit at ``logits[b, -1]``; a row with ``lens[b] == 0`` and ``starts[b]``
+    at its position is a no-op.  Only valid for paged all-attention
+    deployments with no effective sliding window
+    (``kvcache.prefix_sharing_supported``); recurrent kinds raise.
+    """
+    s = tokens.shape[1]
+    starts = starts.to(device=tokens.device, dtype=torch.int32)
+    lens = lens.to(device=tokens.device, dtype=torch.int32)
+    cols = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
+    positions = starts[:, None] + cols - (s - lens)[:, None]      # [B, S]
+    seq_valid = cols >= (s - lens)[:, None]
+    x = embed_tokens(params, cfg, tokens)
+    x = torch.where(seq_valid[..., None], x, 0)
+    for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
+        x = _apply_block(cfg, spec, p, x, positions, "extend", cache, impl,
+                         seq_valid=seq_valid)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return lm_logits(params, cfg, x), caches
 
 
 def verify_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,

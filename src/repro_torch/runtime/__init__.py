@@ -1,13 +1,16 @@
-"""Serving runtime of the port: the backend protocol (a copy of
-``repro.runtime.base``) and the torch tensor backend."""
+"""Serving runtime of the port: the backend protocol and the prefix index
+(copies of ``repro.runtime.base`` and ``repro.runtime.prefix_cache``) and the
+torch tensor backend."""
 from repro_torch.runtime.base import (BackendDead, BackendError, BackendInfo,
                                       BackendTimeout, BlockAllocator,
                                       InferenceBackend, PoolExhausted,
                                       SlotEvent, SlotPager)
-from repro_torch.runtime.tensor import TorchTensorBackend
+from repro_torch.runtime.prefix_cache import PrefixCache
+from repro_torch.runtime.tensor import TensorBackend, TorchTensorBackend
 
 __all__ = [
     "BackendDead", "BackendError", "BackendInfo", "BackendTimeout",
     "BlockAllocator", "InferenceBackend", "PoolExhausted",
-    "SlotEvent", "SlotPager", "TorchTensorBackend",
+    "PrefixCache", "SlotEvent", "SlotPager", "TensorBackend",
+    "TorchTensorBackend",
 ]

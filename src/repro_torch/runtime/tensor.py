@@ -1,7 +1,8 @@
-"""TorchTensorBackend: the single-device torch execution path behind the
+"""TensorBackend: the single-device torch execution path behind the
 :class:`~repro_torch.runtime.base.InferenceBackend` protocol.
 
-Port of ``repro.runtime.tensor.TensorBackend``.  Two cache layouts,
+Port of ``repro.runtime.tensor.TensorBackend`` (``TorchTensorBackend`` is
+kept as an alias of the same class).  Two cache layouts,
 selected by ``cache_layout``:
 
 - ``"contiguous"`` (default, as in the reference) -- one worst-case
@@ -40,8 +41,15 @@ scatter as the rings.  The paged layout refuses them until the slice that
 keeps dense state beside the block pools; speculative verify needs
 all-attention layers, as in the reference.
 
-Not in this slice: the prefix cache and ``extend`` (streamed admission);
-:class:`BackendInfo` reports both off.
+Streamed admission (``start_stream`` + ``prefill_chunk``): where ring slot
+== position -- the paged layout with no effective window
+(``kvcache.prefix_sharing_supported``) -- a prompt can be prefilled in
+chunks through ``transformer.extend_step``, and with ``prefix_cache=True``
+admission first adopts the blocks a content-addressed index
+(:class:`~repro_torch.runtime.prefix_cache.PrefixCache`) already holds for
+the prompt's head, copy-on-write, and prefills only the rest.  Any other
+deployment silently keeps monolithic prefill (``BackendInfo`` reports
+``supports_extend``/``prefix_caching`` off), as in the reference.
 """
 from __future__ import annotations
 
@@ -57,22 +65,25 @@ from repro_torch.models.attention import effective_decode_impl
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.base import (BackendInfo, InferenceBackend,
                                       PoolExhausted, SlotEvent, SlotPager)
+from repro_torch.runtime.prefix_cache import PrefixCache
 
 
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-class TorchTensorBackend(InferenceBackend):
+class TensorBackend(InferenceBackend):
     """Masked wave prefill + batched (contiguous | paged) decode, and
-    speculative verify on the paged layout, on one device."""
+    speculative verify and streamed admission on the paged layout, on one
+    device."""
 
     def __init__(self, cfg: ModelConfig, params: Dict, n_slots: int,
                  max_len: int, impl: str = "ref",
                  cache_dtype: Optional[torch.dtype] = None,
                  cache_layout: str = "contiguous",
                  block_size: int = KV.DEFAULT_BLOCK_SIZE,
-                 num_blocks: Optional[int] = None, device: Device = None):
+                 num_blocks: Optional[int] = None, device: Device = None,
+                 prefix_cache: bool = False):
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout={cache_layout!r}: expected "
                              f"'contiguous' or 'paged'")
@@ -110,9 +121,20 @@ class TorchTensorBackend(InferenceBackend):
         else:
             self.caches = T.init_caches(cfg, n_slots, max_len,
                                         self.cache_dtype, self.device)
-        # speculative verify needs ring slot == position, so rejected drafts
-        # roll back exactly: the paged layout with no effective window
-        self._spec_ok = paged and KV.prefix_sharing_supported(cfg, max_len)
+        # streamed admission (prefix reuse + chunked prefill) and speculative
+        # verify need ring slot == absolute position (a rejected draft rolls
+        # back exactly, a shared block is never rewritten): the paged layout
+        # with no effective window.  Other deployments silently keep
+        # monolithic prefill (the --prefix-cache "contiguous ignore" rule).
+        self._extend_ok = paged and KV.prefix_sharing_supported(cfg, max_len)
+        self._spec_ok = self._extend_ok
+        self._prefix_on = bool(prefix_cache) and self._extend_ok
+        self.prefix: Optional[PrefixCache] = None
+        if self._prefix_on:
+            self.prefix = PrefixCache(self.pager.allocator, block_size)
+        self._prefix_hits = 0
+        self._prefix_hit_tokens = 0
+        self._stream_tokens: Dict[int, np.ndarray] = {}
         self._pending: Dict[int, int] = {}     # slot -> fed len, last verify
         # host mirrors: decode position and occupancy per slot
         self._pos = np.zeros(n_slots, np.int64)
@@ -132,8 +154,8 @@ class TorchTensorBackend(InferenceBackend):
             bytes_per_block=KV.block_pool_bytes_per_block(
                 cfg, self.cache_dtype) if paged else 0,
             max_ctx_blocks=nbs if paged else 0,
-            prefix_caching=False,
-            supports_extend=False,
+            prefix_caching=self._prefix_on,
+            supports_extend=self._extend_ok,
             attn_impl=effective_decode_impl(impl, self.device),
             spec_decode=self._spec_ok)
 
@@ -287,6 +309,107 @@ class TorchTensorBackend(InferenceBackend):
             self._pos[s] = int(new_pos[s])
 
     # ------------------------------------------------------------------ #
+    # streamed admission: prefix adoption + chunked/offset prefill
+    # ------------------------------------------------------------------ #
+    def cached_prefix_len(self, prompt: np.ndarray) -> int:
+        if not self._prefix_on:
+            return 0
+        p = np.asarray(prompt).ravel()
+        cap = ((len(p) - 1) // self.block_size) * self.block_size
+        return self.prefix.matched_tokens(p[:cap])
+
+    def start_stream(self, slot: int, prompt: np.ndarray) -> int:
+        assert self._extend_ok, "backend does not advertise supports_extend"
+        prompt = np.asarray(prompt, np.int32).ravel()
+        plen = len(prompt)
+        assert plen >= 1
+        self.pager.release(slot)
+        start = 0
+        if self._prefix_on:
+            # cap so at least one suffix token remains to produce logits
+            cap = ((plen - 1) // self.block_size) * self.block_size
+            blocks = self.prefix.lookup(prompt[:cap])
+            start = len(blocks) * self.block_size
+            if start:
+                self.pager.adopt(slot, blocks)
+                self._prefix_hits += 1
+                self._prefix_hit_tokens += start
+        self._reset_stream(slot, start)
+        self._stream_tokens[slot] = prompt
+        self._pos[slot] = start
+        self._active[slot] = True
+        return start
+
+    def _reset_stream(self, slot: int, start: int) -> None:
+        """Wipe one slot's paged ring view for a streamed admission, in
+        place: positions below ``start`` (the adopted prefix, whose blocks
+        the host just wired into the table) become valid keys, everything
+        above empty -- stale keys of the slot's previous occupant must never
+        be attended."""
+        for cache in self.caches:
+            iota = torch.arange(cache["key_pos"].shape[-1], dtype=torch.int32,
+                                device=self.device)
+            cache["key_pos"][slot] = torch.where(iota < start, iota, -1)
+            cache["pos"][slot] = start
+
+    def prefill_chunk(self, slots: Sequence[int], chunks: np.ndarray,
+                      chunk_lens: Sequence[int], starts: Sequence[int],
+                      last: Sequence[bool]) -> List[SlotEvent]:
+        chunks = np.atleast_2d(np.asarray(chunks, np.int64))
+        k, w = chunks.shape
+        lens = np.asarray(chunk_lens, np.int32)
+        sts = np.asarray(starts, np.int64)
+        assert len(slots) == k and lens.shape == (k,) and sts.shape == (k,)
+        assert np.all(lens >= 1) and np.all(lens <= w)
+        # atomic growth check: raise before any table mutates so the
+        # scheduler can preempt and retry the whole chunk wave
+        need = sum(
+            max(self.pager.blocks_for_len(int(st + ln))
+                - int(self.pager.n_alloc[s]), 0)
+            for s, st, ln in zip(slots, sts, lens))
+        if need > self.pager.free_blocks:
+            raise PoolExhausted(needed=need, free=self.pager.free_blocks)
+        self._grow_atomic([(s, int(st + ln) - 1)
+                           for s, st, ln in zip(slots, sts, lens)])
+        self._push_tables()
+        # extend_step works in slot space [n_slots, w]: the wave's rows go to
+        # their slots and every other row is a no-op (len 0: writes to the
+        # scratch block; start = pos: pos unchanged)
+        full_chunks = np.zeros((self.n_slots, w), np.int64)
+        full_lens = np.zeros(self.n_slots, np.int32)
+        full_starts = self._pos.astype(np.int32)
+        for i, s in enumerate(slots):
+            full_chunks[s] = chunks[i]
+            full_lens[s] = lens[i]
+            full_starts[s] = sts[i]
+        dev = self.device
+        with torch.no_grad():
+            logits, self.caches = T.extend_step(
+                self.cfg, self.params, torch.from_numpy(full_chunks).to(dev),
+                self.caches, torch.from_numpy(full_starts).to(dev),
+                torch.from_numpy(full_lens).to(dev), impl=self.impl)
+            last_logits = logits[:, -1].float().cpu().numpy()
+        events = []
+        for i, s in enumerate(slots):
+            self._pos[s] = int(sts[i] + lens[i])
+            if last[i]:
+                if self._prefix_on:
+                    self._register_stream(s)
+                self._stream_tokens.pop(s, None)
+                events.append(SlotEvent(slot=s, logits=last_logits[s]))
+        return events
+
+    def _register_stream(self, slot: int) -> None:
+        """Index the finished stream's full token blocks for future reuse."""
+        toks = self._stream_tokens.get(slot)
+        if toks is None:
+            return
+        nfull = min(len(toks) // self.block_size,
+                    int(self.pager.n_alloc[slot]))
+        if nfull:
+            self.prefix.register(toks, self.pager.table[slot, :nfull].tolist())
+
+    # ------------------------------------------------------------------ #
     def prefill(self, slots: Sequence[int], prompts: np.ndarray,
                 prompt_lens: Optional[Sequence[int]] = None,
                 ) -> List[SlotEvent]:
@@ -371,7 +494,9 @@ class TorchTensorBackend(InferenceBackend):
     def free_slot(self, slot: int) -> None:
         # contiguous rows are overwritten whole by the slot's next prefill;
         # the pool returns the slot's blocks to the free list immediately
+        # (prefix-indexed blocks park in the cached-free LRU instead)
         self._active[slot] = False
+        self._stream_tokens.pop(slot, None)
         if self.pager is not None:
             self.pager.release(slot)
 
@@ -382,3 +507,7 @@ def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in _leaves(v)]
     return [tree]
+
+
+#: the class's earlier name, kept for existing callers
+TorchTensorBackend = TensorBackend

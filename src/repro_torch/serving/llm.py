@@ -3,8 +3,8 @@
 Port of ``repro.serving.llm``.  This is the public serving surface — the
 backend and batcher below it are plumbing it wires together:
 
-    llm = LLM.from_backend(TorchTensorBackend(cfg, params, n_slots=4,
-                                              max_len=512, impl="cuda"))
+    llm = LLM.from_backend(TensorBackend(cfg, params, n_slots=4,
+                                         max_len=512, impl="cuda"))
     outs = llm.generate(prompts, SamplingParams(max_tokens=32))
 
 ``from_plan`` (planner + backend factory) arrives with the planner slice.

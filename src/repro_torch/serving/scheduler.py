@@ -344,7 +344,7 @@ class ContinuousBatcher:
             raise ValueError(
                 f"request {req.uid}: backend samples in-SPMD (greedy); "
                 f"temperature/top_k sampling needs a logits-producing "
-                f"backend (TorchTensorBackend is)")
+                f"backend (TensorBackend is)")
         self._uids.add(req.uid)
         self._n_submitted += 1
         self._sub_seq[req.uid] = self._n_submitted

@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: the paged, contiguous-ring and flash attention
-kernels and the RG-LRU scan kernel against their plain versions, the
-wrappers' checks, the served models through the kernels against the ref
-paths, with and without speculative decoding and for the hybrid
+kernels, the RG-LRU scan kernel and the int8 matmul against their plain
+versions, the wrappers' checks, the served models through the kernels
+against the ref paths, with and without speculative decoding, with
+streamed admission (prefix cache and chunked prefill) and for the hybrid
 recurrentgemma, and the train mode (the forward through the flash kernel,
 gradients on the ref path).
 Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
@@ -20,10 +21,11 @@ from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import int8_matmul as I8  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.runtime import TorchTensorBackend  # noqa: E402
+from repro_torch.runtime import TensorBackend, TorchTensorBackend  # noqa: E402
 from repro_torch.serving import LLM, SamplingParams  # noqa: E402
 from repro_torch.serving.spec import OracleDraft  # noqa: E402
 from repro_torch.training import TrainConfig, adamw_init  # noqa: E402
@@ -396,3 +398,75 @@ def test_train_mode_on_gpu(gpu, arch):
     with pytest.raises(RuntimeError, match="no backward"):
         make_train_step(cfg, TrainConfig(impl="cuda"))(params, opt, tokens,
                                                        tokens)
+
+
+# tests/test_kernels.py's int8 shapes, a ragged K x N edge, and llama2-7b's
+# down projection at decode (split K over blocks)
+INT8_SHAPES = [(128, 512, 128), (70, 300, 130), (1, 1024, 256),
+               (256, 64, 64), (5, 7, 3), (4, 11008, 4096)]
+INT8_TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_kernel_matches_plain_on_gpu(gpu, m, k, n, dtype):
+    """The int8 matmul kernel against its plain version at the JAX int8
+    test's tolerance, one launch per call, with leading dimensions kept."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((1, m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    x = x.to(gpu, getattr(torch, dtype))
+    wq, sc = I8.quantize_int8(w.to(gpu))
+    before = I8.int8_matmul.launches
+    got = I8.int8_matmul(x, wq, sc)
+    want = I8.int8_matmul_plain(x, wq, sc)
+    torch.cuda.synchronize()
+    assert I8.int8_matmul.launches == before + 1
+    assert got.shape == (1, m, n) and got.dtype == x.dtype
+    torch.testing.assert_close(got.float(), want.float(), **INT8_TOL[dtype])
+
+
+def test_int8_wrapper_raises_on_what_the_kernel_does_not_take(gpu):
+    x = torch.zeros((4, 64), device=gpu)
+    wq, sc = I8.quantize_int8(torch.ones((64, 32), device=gpu))
+    before = I8.int8_matmul.launches
+    bad = [
+        (x.half(), wq, sc),                                  # float16 x
+        (x, wq.float(), sc),                                 # float w_q
+        (x, wq, sc.double()),                                # float64 scale
+        (x, wq, sc[0]),                                      # scale [N]
+        (x[:, :32], wq, sc),                                 # K mismatch
+        (x.t().contiguous().t(), wq, sc),                    # strides
+        (x, wq, sc.cpu()),                                   # two devices
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            I8.int8_matmul(*call)
+    assert I8.int8_matmul.launches == before
+
+
+def test_streamed_tokens_equal_monolithic_on_gpu(gpu):
+    """Reduced llama2-7b in float32 on the card: shared-prefix prompts served
+    with the prefix cache and chunked prefill give the monolithic paged
+    serve's greedy tokens; the paged kernel reads every decode step."""
+    cfg = get_config("llama2-7b").reduced(n_layers=3)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32)]) for n in (5, 17, 3, 30, 9)]
+    sp = SamplingParams(max_tokens=10)
+    outs, stats = {}, {}
+    for streamed in (False, True):
+        be = TensorBackend(cfg, params, n_slots=2, max_len=96, impl="cuda",
+                           cache_layout="paged", block_size=16,
+                           prefix_cache=streamed)
+        llm = LLM.from_backend(be, prefill_chunk=16 if streamed else None)
+        before = PA.paged_attention.launches
+        outs[streamed] = [o.tokens for o in llm.generate(prompts, sp)]
+        assert PA.paged_attention.launches > before
+        stats[streamed] = llm.stats
+    assert outs[True] == outs[False]
+    assert stats[True].prefix_hits >= 3 and stats[True].prefill_chunks > 5
+    assert stats[False].prefix_hits == 0

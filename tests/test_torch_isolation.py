@@ -44,7 +44,8 @@ def test_import_loads_no_jax_or_triton():
             "repro_torch.runtime, repro_torch.launch.serve, "
             "repro_torch.kernels.paged_attention, "
             "repro_torch.kernels.decode_attention, "
-            "repro_torch.kernels.rglru_scan, repro_torch.bridge, "
+            "repro_torch.kernels.rglru_scan, "
+            "repro_torch.kernels.int8_matmul, repro_torch.bridge, "
             "repro_torch.configs; "
             "print(sorted(m for m in ('jax', 'triton', 'repro') "
             "if m in sys.modules))")

@@ -143,31 +143,42 @@ def test_contiguous_greedy_tokens_bit_identical(model, impl, n_slots, lens,
 
 def test_backend_info_and_unported_layouts(model):
     """BackendInfo matches the JAX backend's field for field on both
-    layouts, but for two: ``attn_impl`` names the port's read path ("plain":
-    the kernel's plain version on the CPU, where the reference says
-    "pallas"), and ``supports_extend`` stays False until streamed admission
-    is ported (the reference's paged backend has it).  An unknown impl
-    still raises, and streamed admission raises until its slice."""
+    layouts, with and without the prefix cache, but for ``attn_impl``,
+    which names the port's read path ("plain": the kernel's plain version on
+    the CPU, where the reference says "pallas").  ``supports_extend`` and
+    ``prefix_caching`` equal the reference's: on the paged layout
+    ``start_stream`` and ``prefill_chunk`` serve (the prompt's first token
+    logits equal a monolithic prefill's), on the contiguous one they are not
+    advertised.  An unknown impl or layout still raises."""
     jcfg, tcfg, jparams, tparams = model
+    prompt = _prompts(tcfg, [11])[0]
     for layout in ("contiguous", "paged"):
-        want = TensorBackend(jcfg, jparams, n_slots=2, max_len=32,
-                             impl="pallas", cache_layout=layout).info
-        be = TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
-                                impl="cuda", cache_layout=layout,
-                                cache_dtype=torch.float32, device="cpu")
-        got = dataclasses.asdict(be.info)
-        assert got.pop("attn_impl") == "plain"
-        assert got.pop("supports_extend") is False
-        want = dataclasses.asdict(want)
-        assert want.pop("attn_impl") == "pallas"
-        assert want.pop("supports_extend") == (layout == "paged")
-        assert got == want, layout
-        assert be.info.spec_decode == (layout == "paged")
-        with pytest.raises(NotImplementedError):
-            be.start_stream(0, np.arange(4, dtype=np.int32))
-        with pytest.raises(NotImplementedError):
-            be.prefill_chunk([0], np.zeros((1, 4), np.int32), [4], [0],
-                             [True])
+        for prefix in (False, True):
+            want = TensorBackend(jcfg, jparams, n_slots=2, max_len=32,
+                                 impl="pallas", cache_layout=layout,
+                                 prefix_cache=prefix).info
+            be = TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
+                                    impl="cuda", cache_layout=layout,
+                                    cache_dtype=torch.float32, device="cpu",
+                                    prefix_cache=prefix)
+            got = dataclasses.asdict(be.info)
+            assert got.pop("attn_impl") == "plain"
+            want = dataclasses.asdict(want)
+            assert want.pop("attn_impl") == "pallas"
+            assert got == want, (layout, prefix)
+            assert got["supports_extend"] == (layout == "paged")
+            assert got["prefix_caching"] == (layout == "paged" and prefix)
+            assert be.info.spec_decode == (layout == "paged")
+        if layout == "paged":
+            mono = be.prefill([0], prompt[None])[0].logits
+            assert be.start_stream(1, prompt) == 0
+            evs = be.prefill_chunk([1], prompt[None, :6], [6], [0], [False])
+            assert evs == []
+            evs = be.prefill_chunk([1], prompt[None, 6:], [5], [6], [True])
+            assert [ev.slot for ev in evs] == [1]
+            np.testing.assert_allclose(evs[0].logits, mono, rtol=1e-5,
+                                       atol=1e-5)
+            assert np.array_equal(evs[0].logits.argmax(), mono.argmax())
     with pytest.raises(ValueError, match="unknown decode impl"):
         TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
                            impl="pallas", device="cpu")
