@@ -21,15 +21,21 @@ exits non-zero and prints no result line; no phase catches its own failure.
    keys, the contiguous serve's 4096-key ring, recurrentgemma-2b's MQA
    group of 10 at D=256 over its 2048-key window (one row wrapped), shared
    and per-row positions, the wrapped ring with a window of 50, softcap and
-   a fully masked row.  The RG-LRU scan in float32 at R = 2560 and 200
-   (ragged), S = 1, 7 and 4096, with and without h0, and left-pad identity
-   steps that must leave h bit for bit.  The flash-attention kernel in
-   float32 and bfloat16 over the cases of the JAX kernel tests (MHA, GQA
-   with a ragged S, MQA at D=128, S below one tile; windows 16, 64 and 128
-   with and without softcap), and every shape a main path gives it: the
-   score phases' 2 x 4096 at llama2-7b's heads and at recurrentgemma-2b's
-   (H=10, KH=1, D=256, window 2048; also at a ragged S=2500), and the train
-   phase's qwen3-0.6b 4 x 512 (H=16, KH=8, D=128).  The int8 matmul in
+   a fully masked row, and rings split across blocks: splits whose keys
+   are all masked, C not a multiple of the split length, a wrapped window
+   ring whose valid keys sit in one split, a fully masked row through the
+   merge, llama2-70b's g=8 at B=1 over 4096 keys; each case also called
+   twice (bit-identical) and with its masked ring rows poisoned (never
+   read), and its split count printed.  The RG-LRU scan in float32 at
+   R = 2560 and 200 (ragged), S = 1, 7 and 4096, with and without h0, and
+   left-pad identity steps that must leave h bit for bit.  The
+   flash-attention kernel in float32 and bfloat16 over the cases of the
+   JAX kernel tests (MHA, GQA with a ragged S, MQA at D=128, S below one
+   tile; windows 16, 64 and 128 with and without softcap), and every
+   shape a main path gives it: the score phases' 2 x 4096 at llama2-7b's
+   heads and at recurrentgemma-2b's (H=10, KH=1, D=256, window 2048; also
+   at a ragged S=2500), and the train phase's qwen3-0.6b 4 x 512 (H=16,
+   KH=8, D=128).  The int8 matmul in
    float32 and bfloat16 at the JAX int8 test's shapes (one ragged in M, K
    and N), with leading dimensions, and at llama2-7b's projections (K x N
    4096 x 4096, 4096 x 11008, 11008 x 4096) at M = 4 and 8192.  Then
@@ -215,7 +221,22 @@ RING_CASES = [
      dict(window=HYBRID_WINDOW)),
     ("wrapped ring + window 50", (1, 2, 1, 32, 128, 0), dict(window=50)),
     ("fully masked row", (2, 16, 8, 128, 64, (20, 5)), {}),
+    # the ring split across blocks (S > 1 on an H100's 132 SMs): splits
+    # whose keys are all masked, C not a multiple of the split length, a
+    # wrapped window ring whose valid keys sit in one split, a fully masked
+    # row through the merge, llama2-70b's g=8 at B=1 (8 blocks unsplit)
+    ("split: 300 of 1024 keys valid, 11 of 16 splits masked",
+     (1, 8, 1, 128, 1024, 300), {}),
+    ("split: llama2-7b g=1 C=3000 per-row (12 splits, last 184 keys)",
+     (4, 32, 32, 128, 3000, (3000, 2000, 1000, 5)), {}),
+    ("split: wrapped ring + window 40, valid keys in one of 8 splits",
+     (1, 10, 1, 256, 512, 0), dict(window=40)),
+    ("fully masked row through the merge", (2, 16, 8, 128, 1024, (600, 5)),
+     {}),
+    ("split: llama2-70b g=8 B=1 C=4096", (1, 64, 8, 128, 4096, 3001), {}),
 ]
+# the ring position a case with this window has wrapped to
+RING_WRAP = {50: 200, 40: 1000, HYBRID_WINDOW: 2130}
 
 
 FLASH_CASES = [
@@ -268,8 +289,8 @@ def compare(name, kernel, plain, x, opts, dtype, dead=(), tol=None):
 def check_kernels(pa, da):
     """Every case of both kernels in float32 and bfloat16; returns the
     largest error of each."""
-    from paged_cases import paged_case, ring_case
-    worst = {"paged_attention": 0.0, "decode_attention": 0.0}
+    from paged_cases import paged_case
+    worst = {"paged_attention": 0.0, "decode_attention": check_ring(da)}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
         for i, (name, shape, opts) in enumerate(PAGED_CASES):
@@ -292,15 +313,38 @@ def check_kernels(pa, da):
                 extra += ", scratch block never read"
             print(f"kernels: paged_attention {name} {str(dtype)[6:]}: max abs "
                   f"err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
+    return worst
+
+
+def ring_splits(da, x):
+    """The kernel's (S, L) for ring inputs ``x`` on this card."""
+    b, h, _ = x["q"].shape
+    _, c, kh, _ = x["k_cache"].shape
+    return da.split_plan(b, kh, h // kh, c, torch.cuda.get_device_properties(
+        DEVICE).multi_processor_count)
+
+
+def check_ring(da):
+    """The contiguous-ring kernel over RING_CASES in float32 and bfloat16:
+    against its plain version, bit-identical on a second call, masked ring
+    rows never read; returns the largest error."""
+    from paged_cases import ring_case
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
         for i, (name, shape, opts) in enumerate(RING_CASES):
             dead = (1,) if name.startswith("fully masked") else ()
-            wrap = {50: 200, HYBRID_WINDOW: 2130}.get(opts.get("window"))
             x = to_device(ring_case(*shape, seed=300 + i, dead=dead,
-                                    wrap_pos=wrap), dtype)
+                                    wrap_pos=RING_WRAP.get(
+                                        opts.get("window"))), dtype)
             got, err, extra = compare(name, da.decode_attention,
                                       da.decode_attention_plain, x, opts,
                                       dtype, dead)
-            worst["decode_attention"] = max(worst["decode_attention"], err)
+            worst = max(worst, err)
+            if not torch.equal(da.decode_attention(**x, **opts), got):
+                raise AssertionError(f"{name}: two calls on the same inputs "
+                                     f"differ")
+            extra += ", repeat bit-identical"
             kp = x["key_pos"].expand(x["k_cache"].shape[:2])
             qpos = x["pos"].expand(kp.shape[:1])[:, None]
             masked = (kp < 0) | (kp > qpos)
@@ -315,8 +359,10 @@ def check_kernels(pa, da):
                     raise AssertionError(f"{name}: output depends on a "
                                          f"masked ring row")
                 extra += ", masked rows never read"
+            splits, split_len = ring_splits(da, x)
             print(f"kernels: decode_attention {name} {str(dtype)[6:]}: max "
-                  f"abs err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
+                  f"abs err {err:.3g} (rtol/atol {tol['rtol']:.3g}), "
+                  f"S={splits} x L={split_len}{extra}")
     return worst
 
 
@@ -482,19 +528,26 @@ def time_paged(pa, card, kq, max_len=MAX_LEN):
                 library_ms=library_ms, **bound(n_bytes, n_ops, card))
 
 
-def time_decode(da, card, n_valid, heads=(32, 32, 128),
-                c=CONTIGUOUS_MAX_LEN, n_sets=3):
-    """decode_attention at a contiguous serve's shapes, 4 slots with a
-    ``c``-key bf16 ring each, ``n_valid`` keys filled: by default
-    llama2-7b's (``heads`` = H, KH, D) and its 4096-key ring.  ``n_sets``
-    input sets together exceed the L2."""
-    import torch.nn.functional as F
-
+def decode_sets(n_valid, heads=(32, 32, 128), c=CONTIGUOUS_MAX_LEN,
+                n_sets=3):
+    """``n_sets`` seeded bf16 inputs of decode_attention at a contiguous
+    serve's shapes: 4 slots with a ``c``-key ring each, ``n_valid`` keys
+    filled; by default llama2-7b's heads (H, KH, D) and 4096-key ring."""
     from paged_cases import ring_case
     h, kh, d = heads
-    sets = [to_device(ring_case(SLOTS, h, kh, d, c, (n_valid,) * SLOTS,
+    return [to_device(ring_case(SLOTS, h, kh, d, c, (n_valid,) * SLOTS,
                                 seed=400 + i), torch.bfloat16)
             for i in range(n_sets)]
+
+
+def time_decode(da, card, n_valid, heads=(32, 32, 128),
+                c=CONTIGUOUS_MAX_LEN, n_sets=3):
+    """decode_attention on :func:`decode_sets`; ``n_sets`` input sets
+    together exceed the L2."""
+    import torch.nn.functional as F
+
+    h, kh, d = heads
+    sets = decode_sets(n_valid, heads, c, n_sets)
     lib = []
     for x in sets:
         kp = x["key_pos"]
@@ -523,7 +576,8 @@ def time_decode(da, card, n_valid, heads=(32, 32, 128),
                + x["key_pos"].numel() * 4 + b * 4)
     n_ops = n_keys * h * 4 * d
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bound(n_bytes, n_ops, card))
+                library_ms=library_ms, splits=ring_splits(da, x),
+                **bound(n_bytes, n_ops, card))
 
 
 def time_rglru(rs, card, s):
@@ -724,6 +778,9 @@ def timing_line(name, shape, t, card):
           f"{t['plain_ms']:.4f} ms, library {lib}, bound "
           f"{t['bound_ms']:.4f} ms ({t['n_bytes'] / 1e6:.2f} MB by "
           f"{t['bound_by']}), max abs err {t['max_abs_err']:.3g} [{card}]")
+    if "splits" in t:
+        print(f"kernels: {name} at {shape}: the ring split S={t['splits'][0]}"
+              f" ways of L={t['splits'][1]} keys")
     if t.get("f32_outside") is not None:
         print(f"kernels: {name} at {shape}: a float32-summed cuBLAS product "
               f"has {t['f32_outside']} outputs outside rtol/atol 3e-5 of the "
@@ -1478,7 +1535,8 @@ def device_share(label, what, run, card):
           f"{wall_us / 1e3:.2f} ms wall ({busy / wall_us:.1%}) [{card}]")
     kinds = {"matrix products": ("gemm", "nvjet", "cutlass", "xmma"),
              "paged attention": ("paged_attention_kernel",),
-             "decode attention": ("decode_attention_kernel",),
+             "decode attention": ("decode_attention_kernel",
+                                  "decode_attention_merge_kernel"),
              "flash attention": ("flash_attention_kernel",),
              "rglru scan": ("rglru_scan_kernel",)}
     shares = {kind: sum(us for n, us in by_name.items()

@@ -18,7 +18,10 @@ shape and dtype.
 - :func:`decode_attention` -- the wrapper.  On CUDA tensors it launches the
   kernel in ``csrc/decode_attention.cu`` (or raises); it takes the plain
   version only for tensors on the CPU.  ``decode_attention.launches``
-  counts kernel launches.
+  counts wrapper calls that launched the kernel, one per call whether the
+  ring was split (a split pass and a merge pass) or not.
+- :func:`split_plan` -- how many blocks share one slot's ring, from shapes
+  and the SM count only.
 - :func:`decode_attention_plain` -- the plain version: mask, softmax in
   float32 over the whole ring.
 
@@ -27,15 +30,44 @@ The kernel is built with the port's other kernels by
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._launch import (DTYPE_CODES, Entry, check_dtypes,
                                          check_layout, on_cpu)
 
-_launch = Entry("decode_attention_launch", n_tensors=6, n_ints=7)
+_launch = Entry("decode_attention_launch", n_tensors=8, n_ints=9)
+
+#: keys per tile, query rows per block and most splits of the kernel
+#: (kTileKeys, kRowsPerBlock and kMaxSplits in csrc/decode_attention.cu)
+TILE_KEYS, ROWS_PER_BLOCK, MAX_SPLITS = 64, 16, 64
+#: the longest split the plan aims at, and the blocks per SM it aims at
+SPLIT_KEYS, BLOCKS_PER_SM = 256, 4
+
+
+def split_plan(b: int, kh: int, g: int, c: int, n_sm: int) -> Tuple[int, int]:
+    """``(S, L)``: the kernel walks each slot's ``c``-key ring in ``S``
+    splits of ``L`` keys, a whole number of tiles, each split on a block of
+    its own (``b * kh * ceil(g / 16)`` blocks before the split, ``n_sm``
+    SMs).  S aims at ``BLOCKS_PER_SM`` blocks per SM and at splits of at
+    most ``SPLIT_KEYS`` keys, at most one split per tile and
+    ``MAX_SPLITS`` in all; so S is 1 when the blocks already fill the card
+    and the ring is short.  It depends on shapes only -- never on ``pos``
+    or ``key_pos``, which would need a host sync and would break a CUDA
+    graph's capture."""
+    tiles = -(-c // TILE_KEYS)
+    blocks = b * kh * -(-g // ROWS_PER_BLOCK)
+    want = max(-(-BLOCKS_PER_SM * n_sm // blocks), -(-c // SPLIT_KEYS))
+    per = -(-tiles // max(1, min(want, tiles, MAX_SPLITS)))   # tiles a split
+    return -(-tiles // per), per * TILE_KEYS
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -106,15 +138,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if b == 0:
         return torch.empty_like(q)
     out = torch.empty_like(q3)
+    splits, split_len = split_plan(b, kh, h // kh, c, _sm_count(q.device))
+    # the splits' (m, l) and acc, held here until the launch is queued
+    part = [torch.empty((b, h, splits, n), dtype=torch.float32,
+                        device=q.device) for n in (2, d)] if splits > 1 else []
+    part_ptrs = [t.data_ptr() for t in part] or [None, None]
     _launch(q.device,
             q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            key_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            key_pos.data_ptr(), pos.data_ptr(), out.data_ptr(), *part_ptrs,
             b, h, kh, d, c, c if key_pos.dim() == 2 else 0, pos.dim(),
+            splits, split_len,
             1.0 / math.sqrt(d), float(softcap or 0.0), int(window or 0),
             DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype])
     decode_attention.launches += 1
     return out[:, None] if q.dim() == 4 else out
 
 
-#: kernel launches so far (the plain version on CPU tensors counts none)
+#: wrapper calls that launched the kernel so far (the plain version on CPU
+#: tensors counts none)
 decode_attention.launches = 0

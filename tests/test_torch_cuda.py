@@ -131,19 +131,37 @@ RING_CASES = [
     # recurrentgemma-2b: MQA g=10, D=256, window 2048, row 0 wrapped
     ((4, 10, 1, 256, 2048, (2048, 2048, 700, 17), 55), dict(window=2048)),
 ]
+# the ring split across blocks (S > 1 on the card; rows 1 of b > 1 are fully
+# masked and go through the merge)
+SPLIT_CASES = [
+    ((1, 8, 1, 128, 1024, 300, 56), {}),       # 11 of 16 splits all masked
+    ((4, 32, 32, 128, 3000, (3000, 2000, 1000, 5), 57), {}),   # C % L != 0
+    ((1, 10, 1, 256, 512, 0, 58), dict(window=40)),  # wrapped, in one split
+    ((2, 16, 8, 128, 1024, (600, 5), 59), {}),   # masked row through merge
+    ((1, 64, 8, 128, 4096, 3001, 60), {}),       # llama2-70b g=8, B=1
+]
+RING_CASES += SPLIT_CASES
+# the ring position a case with this window has wrapped to
+RING_WRAP = {50: 200, 40: 1000, 2048: 2130}
+
+
+def _ring(case, dev, dtype):
+    (b, h, kh, d, c, valid, seed), opts = case
+    x = ring_case(b, h, kh, d, c, valid, seed, dead=(1,) if b > 1 else (),
+                  wrap_pos=RING_WRAP.get(opts.get("window")))
+    return _on(x, dev, getattr(torch, dtype)), opts
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_kernel_matches_plain_on_gpu(gpu, dtype):
     """The contiguous-ring kernel against its plain version on the card:
     GQA groups 8, 2 and 1, C=700, per-row positions, softcap, a wrapped
-    ring under a window, a fully masked row (exact zeros), and the
-    hybrid's MQA group of 10 at D=256 over a wrapped 2048-key window."""
-    for (b, h, kh, d, c, valid, seed), opts in RING_CASES:
-        wrap = {50: 200, 2048: 2130}.get(opts.get("window"))
-        x = ring_case(b, h, kh, d, c, valid, seed, dead=(1,) if b > 1 else (),
-                      wrap_pos=wrap)
-        t = _on(x, gpu, getattr(torch, dtype))
+    ring under a window, a fully masked row (exact zeros), the hybrid's MQA
+    group of 10 at D=256 over a wrapped 2048-key window, and the rings
+    split across blocks (``SPLIT_CASES``).  One launch counted per call."""
+    for case in RING_CASES:
+        t, opts = _ring(case, gpu, dtype)
+        b = t["q"].shape[0]
         before = DA.decode_attention.launches
         got = DA.decode_attention(**t, **opts)
         want = DA.decode_attention_plain(**t, **opts)
@@ -156,6 +174,29 @@ def test_decode_kernel_matches_plain_on_gpu(gpu, dtype):
                                    t["v_cache"], t["key_pos"], t["pos"],
                                    **opts)
         assert torch.equal(four[:, 0], got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_is_deterministic_and_reads_no_masked_row(gpu, dtype):
+    """With the ring split across blocks (S > 1) and merged: two calls on
+    the same inputs give the same bits, and ring rows that no query may see,
+    poisoned with +-1e6, change nothing (they are never read)."""
+    n_sm = torch.cuda.get_device_properties(gpu).multi_processor_count
+    for case in SPLIT_CASES:
+        t, opts = _ring(case, gpu, dtype)
+        (b, h, kh, d, c, _, _), _ = case
+        assert DA.split_plan(b, kh, h // kh, c, n_sm)[0] > 1
+        got = DA.decode_attention(**t, **opts)
+        assert torch.equal(DA.decode_attention(**t, **opts), got)
+        kp = t["key_pos"].expand(b, c)
+        qpos = t["pos"].expand(b)[:, None]
+        masked = (kp < 0) | (kp > qpos)
+        if "window" in opts:
+            masked |= kp <= qpos - opts["window"]
+        assert masked.any()
+        t["k_cache"][masked] = 1e6
+        t["v_cache"][masked] = -1e6
+        assert torch.equal(DA.decode_attention(**t, **opts), got)
 
 
 def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(gpu):

@@ -6,8 +6,11 @@ The cases mirror ``tests/test_kernels.py``: GQA/MQA/MHA, C=700 with 650
 valid keys (the JAX wrapper pads it to its block), a wrapped ring under a
 window of 50, plus per-row ``key_pos [B, C]``/``pos [B]``, softcap and a
 fully masked row (exact zeros).  Tolerances are that file's ``_tol``.  The
-kernel itself runs only on a GPU: ``tests/test_torch_cuda.py``.
+kernel itself runs only on a GPU: ``tests/test_torch_cuda.py``; here also
+the host rule that splits its ring across blocks (``split_plan``).
 """
+import inspect
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -120,3 +123,39 @@ def test_cpu_wrapper_counts_no_launch():
     t["q"] = t["q"].to("meta")
     with pytest.raises(ValueError, match="CUDA"):
         DA.decode_attention(**t)
+
+
+# B, KH, g, C: the timing shapes (llama2-7b's 4096-key ring, the hybrid's
+# 2048-key window ring), llama2-70b at B=1, short and ragged rings, a card
+# already full
+PLAN_SHAPES = [(4, 32, 1, 4096), (4, 1, 10, 2048), (1, 8, 8, 4096),
+               (4, 32, 1, 3000), (2, 8, 2, 64), (1, 1, 10, 1),
+               (3, 8, 2, 700), (32, 32, 1, 256), (1, 1, 40, 100_000)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+@pytest.mark.parametrize("b,kh,g,c", PLAN_SHAPES)
+def test_split_plan_covers_the_ring(b, kh, g, c, n_sm):
+    """S splits of L keys cover the ring, none of them empty by length; L is
+    a whole number of tiles; S is within the kernel's limit."""
+    s, L = DA.split_plan(b, kh, g, c, n_sm)
+    assert 1 <= s <= DA.MAX_SPLITS and L % DA.TILE_KEYS == 0
+    assert s * L >= c > (s - 1) * L
+    assert s <= -(-c // DA.TILE_KEYS)          # at most one split per tile
+
+
+def test_split_plan_fills_the_card_from_shapes_only():
+    """The hybrid's 4 blocks become 128 on an H100's 132 SMs; a card that
+    B*KH already fills over a short ring is not split (the output is
+    written directly, no merge); the plan takes shapes and the SM count,
+    nothing of pos or key_pos, and gives the same answer every time."""
+    assert DA.split_plan(4, 1, 10, 2048, 132) == (32, 64)
+    assert DA.split_plan(4, 32, 1, 4096, 132) == (16, 256)
+    assert DA.split_plan(1, 8, 8, 4096, 132) == (64, 64)
+    for b, kh, c in ((32, 32, 256), (64, 32, 128), (8, 128, 64)):
+        assert b * kh >= DA.BLOCKS_PER_SM * 132
+        assert DA.split_plan(b, kh, 1, c, 132)[0] == 1
+    assert list(inspect.signature(DA.split_plan).parameters) == \
+        ["b", "kh", "g", "c", "n_sm"]
+    assert {DA.split_plan(*s, 132) for s in [PLAN_SHAPES[1]] * 3} == \
+        {(32, 64)}
