@@ -35,7 +35,11 @@ exits non-zero and prints no result line; no phase catches its own failure.
    shape a main path gives it: the score phases' 2 x 4096 at llama2-7b's
    heads and at recurrentgemma-2b's (H=10, KH=1, D=256, window 2048; also
    at a ragged S=2500), and the train phase's qwen3-0.6b 4 x 512 (H=16,
-   KH=8, D=128).  The int8 matmul in
+   KH=8, D=128); and the edges of its tiles: S = 1, 63 and 65 (window 16
+   at D=256), q scaled by 16; each case called twice, bit-identical, and
+   in bfloat16 within one bf16 step of the plain version's arithmetic in
+   float64 (``tests/flash_reference.py``); the timing
+   shapes print how many key tiles the walk masks.  The int8 matmul in
    float32 and bfloat16 at the JAX int8 test's shapes (one ragged in M, K
    and N), with leading dimensions, and at llama2-7b's projections (K x N
    4096 x 4096, 4096 x 11008, 11008 x 4096) at M = 4 and 8192.  Then
@@ -255,6 +259,13 @@ FLASH_CASES = [
     (f"{HYBRID} S=2500 window {HYBRID_WINDOW}",
      (SCORE_BATCH, 2500, 10, 1, 256), dict(window=HYBRID_WINDOW)),
     (f"{TRAIN_ARCH} train", (TRAIN_BATCH, TRAIN_LEN, 16, 8, 128), {}),
+    # the edges of the bf16 kernel's tiles: one row, a block's last rows
+    # missing, a key tile of one key, a window that ends inside a tile at
+    # D=256, and q scaled by 16 so that the running max rescales often
+    ("S = 1", (2, 1, 4, 2, 128), {}),
+    ("S = 63", (1, 63, 8, 8, 64), {}),
+    ("S = 65 D=256 window 16", (1, 65, 4, 1, 256), dict(window=16)),
+    ("q x 16 window 64", (1, 300, 4, 2, 128), dict(window=64, q_scale=16.0)),
 ]
 
 
@@ -268,9 +279,12 @@ def to_device(case, dtype):
     return out
 
 
-def compare(name, kernel, plain, x, opts, dtype, dead=(), tol=None):
+def compare(name, kernel, plain, x, opts, dtype, dead=(), tol=None,
+            exact=None):
     """One kernel call against its plain version; returns the largest
-    error and a note of the extra checks."""
+    error and a note of the extra checks.  ``exact``, the plain version's
+    arithmetic in float64: a bfloat16 result must also lie within one bf16
+    step of it."""
     tol = tol or TOL[str(dtype).split(".")[1]]
     got = kernel(**x, **opts)
     want = plain(**x, **opts)
@@ -278,6 +292,13 @@ def compare(name, kernel, plain, x, opts, dtype, dead=(), tol=None):
     torch.testing.assert_close(got.float(), want.float(), **tol,
                                msg=lambda m: f"{name} {dtype}: {m}")
     extra = ""
+    if exact is not None and dtype == torch.bfloat16:
+        from flash_reference import bf16_steps_apart
+        n = bf16_steps_apart(got, exact(**x, **opts))
+        if n:
+            raise AssertionError(f"{name}: {n} outputs more than one bf16 "
+                                 f"step from the float64 result")
+        extra = ", within one bf16 step of float64"
     for row in dead:
         if not bool((got[row] == 0).all()):
             raise AssertionError(f"{name}: masked row {row} is not exact "
@@ -366,29 +387,50 @@ def check_ring(da):
     return worst
 
 
-def flash_inputs(b, s, h, kh, d, seed, dtype):
-    """Seeded q [B, S, H, D] and k, v [B, S, KH, D] on the card."""
+def flash_inputs(b, s, h, kh, d, seed, dtype, q_scale=1.0):
+    """Seeded q [B, S, H, D] (times ``q_scale``) and k, v [B, S, KH, D] on
+    the card."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    return {n: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-            for n, shape in (("q", (b, s, h, d)), ("k", (b, s, kh, d)),
-                             ("v", (b, s, kh, d)))}
+    x = {n: torch.randn(shape, generator=gen, device=DEVICE)
+         for n, shape in (("q", (b, s, h, d)), ("k", (b, s, kh, d)),
+                          ("v", (b, s, kh, d)))}
+    x["q"] *= q_scale
+    return {n: t.to(dtype) for n, t in x.items()}
 
 
 def check_flash(fa):
     """The flash kernel against its plain version over FLASH_CASES in float32
-    and bfloat16; returns the largest error."""
+    and bfloat16 (there also within one bf16 step of the plain version's
+    arithmetic in float64, but for a scaled q, whose float32 logits put a
+    few outputs of the plain version itself beyond that step: both counts
+    are printed), each case called twice, bit-identical; returns the
+    largest error."""
+    from flash_reference import bf16_steps_apart, flash_attention_f64
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
         for i, (name, shape, opts) in enumerate(FLASH_CASES):
-            x = flash_inputs(*shape, seed=700 + i, dtype=dtype)
-            _, err, _ = compare(name, fa.flash_attention,
-                                fa.flash_attention_plain, x, opts, dtype)
+            opts = dict(opts)
+            q_scale = opts.pop("q_scale", 1.0)
+            x = flash_inputs(*shape, seed=700 + i, dtype=dtype,
+                             q_scale=q_scale)
+            got, err, extra = compare(
+                name, fa.flash_attention, fa.flash_attention_plain, x, opts,
+                dtype, exact=flash_attention_f64 if q_scale == 1.0 else None)
+            if q_scale != 1.0 and dtype == torch.bfloat16:
+                exact = flash_attention_f64(**x, **opts)
+                plain = fa.flash_attention_plain(**x, **opts)
+                extra = (f", beyond one bf16 step of float64: "
+                         f"{bf16_steps_apart(got, exact)} outputs (the "
+                         f"plain version {bf16_steps_apart(plain, exact)})")
+            if not torch.equal(got, fa.flash_attention(**x, **opts)):
+                raise AssertionError(f"flash_attention {name} {dtype}: a "
+                                     f"second call is not bit-identical")
             worst = max(worst, err)
             print(f"kernels: flash_attention {name} {list(shape)} "
                   f"{str(dtype)[6:]}: max abs err {err:.3g} (rtol/atol "
-                  f"{tol['rtol']:.3g})")
+                  f"{tol['rtol']:.3g}){extra}, a second call bit-identical")
     return worst
 
 
@@ -600,18 +642,27 @@ def time_rglru(rs, card, s):
                 **bound(n_bytes, 3 * b * s * r, card, PEAK_F32))
 
 
-def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2):
-    """flash_attention at a score phase's shape per sequence: 1 x 4096
-    tokens, bf16; by default llama2-7b's heads (H, KH, D), causal.
+def flash_sets(b, s, heads, n_sets):
+    """``n_sets`` seeded bf16 input sets of flash_attention at [B, S] and
+    heads (H, KH, D)."""
+    h, kh, d = heads
+    return [flash_inputs(b, s, h, kh, d, seed=800 + i, dtype=torch.bfloat16)
+            for i in range(n_sets)]
+
+
+def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2, b=1,
+               s=SCORE_LEN):
+    """flash_attention in bf16 at [B, S] tokens, by default a score phase's
+    shape per sequence (1 x 4096) and llama2-7b's heads (H, KH, D), causal.
     ``n_sets`` input sets together exceed the L2."""
     import torch.nn.functional as F
+    from flash_reference import flash_attention_f64
     h, kh, d = heads
-    s = SCORE_LEN
-    sets = [flash_inputs(1, s, h, kh, d, seed=800 + i, dtype=torch.bfloat16)
-            for i in range(n_sets)]
+    sets = flash_sets(b, s, heads, n_sets)
     err = max(compare(f"flash_attention timing set {i} H={h} KH={kh} D={d}",
                       fa.flash_attention, fa.flash_attention_plain, x,
-                      dict(window=window), torch.bfloat16)[1]
+                      dict(window=window), torch.bfloat16,
+                      exact=flash_attention_f64)[1]
               for i, x in enumerate(sets))
     lib = [{n: t.transpose(1, 2).contiguous() for n, t in x.items()}
            for x in sets]
@@ -635,9 +686,13 @@ def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2):
     n_bytes = sum(t.numel() * t.element_size() for t in x.values()) \
         + x["q"].numel() * x["q"].element_size()
     n_pairs = int(mask.sum())
+    plan = fa.tile_plan(s, window, d)
+    masked = sum(len(t.masked) for t in plan.tiles)
+    walked = sum(t.last - t.first + 1 for t in plan.tiles)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms,
-                **bound(n_bytes, 4 * h * d * n_pairs, card))
+                library_ms=library_ms, tiles=(masked, walked - masked),
+                tile_shape=(plan.rows, plan.keys),
+                **bound(n_bytes, 4 * b * h * d * n_pairs, card))
 
 
 def int8_inputs(i8, m, k, n, dtype, seed, lead=()):
@@ -778,6 +833,10 @@ def timing_line(name, shape, t, card):
           f"{t['plain_ms']:.4f} ms, library {lib}, bound "
           f"{t['bound_ms']:.4f} ms ({t['n_bytes'] / 1e6:.2f} MB by "
           f"{t['bound_by']}), max abs err {t['max_abs_err']:.3g} [{card}]")
+    if "tiles" in t:
+        print(f"kernels: {name} at {shape}: blocks of {t['tile_shape'][0]} "
+              f"rows walk {t['tiles'][0]} masked and {t['tiles'][1]} "
+              f"unmasked key tiles of {t['tile_shape'][1]}")
     if "splits" in t:
         print(f"kernels: {name} at {shape}: the ring split S={t['splits'][0]}"
               f" ways of L={t['splits'][1]} keys")

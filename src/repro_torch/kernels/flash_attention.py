@@ -21,6 +21,18 @@ sees no key gives zeros.
 - :func:`flash_attention_plain` -- the plain version: the masked softmax
   over the whole [S, S] logits, the semantics of
   ``repro.kernels.ref.flash_attention_ref`` and of the TPU kernel's body.
+- :func:`tile_plan` -- the kernel's walk, mirrored on the host from shapes
+  alone: each block's query rows, the key tiles it visits and which of them
+  take a per-element mask.
+
+The bfloat16 kernel runs both products on the tensor cores (bf16 in,
+float32 sums).  It splits each probability into three bf16 terms, ``p_0 =
+bf16(p)`` and each next one bf16 of what the terms before it missed, and
+adds the three products, so P V stays a float32 product to about 2**-27 of
+p, as in the plain version and the TPU body: with one term (2**-9) or two
+(2**-18) outputs near zero, where a row's few keys cancel, land more than a
+bf16 step from the exact result.  The float32 kernel runs on the CUDA
+cores.
 
 The JAX wrapper pads S to a multiple of 128 and masks the padded keys
 (``kv_len``); the kernel masks keys past S in its ragged last tile instead,
@@ -29,7 +41,7 @@ which is the same function, so this wrapper pads nothing.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,8 +52,53 @@ _launch = Entry("flash_attention_launch", n_tensors=4, n_ints=5)
 
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
-#: query rows per thread block (the kernel's kRows)
-BLOCK_ROWS = 64
+#: (query rows per block, keys per tile) of the kernel's instances (its
+#: Shape<T, D>): the bfloat16 one gives each warp 16 rows, 8 warps and
+#: tiles of 64 keys at D <= 128, 4 warps and 32 keys at D = 256; the float32
+#: one 64 rows and 64 keys at every D
+BLOCK_SHAPE = {torch.bfloat16: {32: (128, 64), 64: (128, 64),
+                                128: (128, 64), 256: (64, 32)},
+               torch.float32: {d: (64, 64) for d in HEAD_DIMS}}
+
+
+class QueryTile(NamedTuple):
+    """One block's query rows ``[q0, q0 + rows)`` and its walk: key tiles
+    ``first`` to ``last``, of which ``masked`` take a per-element mask."""
+    q0: int
+    first: int
+    last: int
+    masked: Tuple[int, ...]
+
+
+class TilePlan(NamedTuple):
+    rows: int                      # query rows per block
+    keys: int                      # keys per tile
+    tiles: Tuple[QueryTile, ...]   # one per block row of the grid
+
+
+def tile_plan(s: int, window: Optional[int], d: int,
+              dtype: torch.dtype = torch.bfloat16) -> TilePlan:
+    """The kernel's walk for sequence length ``s``, from shapes alone, with
+    the formulas of ``csrc/flash_attention.cu``: the block of query rows
+    ``[q0, q0 + rows)`` (real rows up to ``q_hi = min(q0 + rows, s) - 1``)
+    visits key tiles from ``max(0, q0 - window + 1) // keys`` (0 without a
+    window) to ``q_hi // keys``; tile ``t`` (keys from ``k0 = t * keys``)
+    is fully visible to every real row when ``k0 + keys - 1 <= q0`` and,
+    with a window, ``k0 >= q_hi - window + 1``; every other tile of the walk
+    is masked per element.  The float32 kernel masks every tile."""
+    rows, keys = BLOCK_SHAPE[dtype][d]
+    tiles = []
+    for q0 in range(0, s, rows):
+        q_hi = min(q0 + rows, s) - 1
+        first = max(0, q0 - window + 1) // keys if window else 0
+        last = q_hi // keys
+        # the fully visible tiles form one range: [lo, hi]
+        hi = (q0 - keys + 1) // keys if dtype == torch.bfloat16 else -1
+        lo = -(-(q_hi - window + 1) // keys) if window else 0
+        masked = tuple(t for t in range(first, min(last, lo - 1) + 1)) + \
+            tuple(t for t in range(max(first, lo, hi + 1), last + 1))
+        tiles.append(QueryTile(q0, first, last, masked))
+    return TilePlan(rows, keys, tuple(tiles))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,9 +167,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window {window} and softcap "
                          f"{softcap} must be positive when given")
     check_layout("flash_attention", tensors, tensors)
-    if -(-s // BLOCK_ROWS) > 65535:
+    plan = tile_plan(s, window, d, q.dtype)
+    if len(plan.tiles) > 65535:
         raise ValueError(f"flash_attention: S={s} needs more than 65535 "
-                         f"tiles of {BLOCK_ROWS} query rows")
+                         f"tiles of {plan.rows} query rows")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

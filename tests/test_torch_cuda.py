@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from flash_reference import bf16_steps_apart, flash_attention_f64  # noqa: E402
 from paged_cases import paged_case, ring_case  # noqa: E402
 from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -353,23 +354,39 @@ def test_served_hybrid_tokens_kernel_equals_ref(gpu):
 
 
 FLASH_CASES = [
-    # b, s, h, kh, d, options
-    (2, 200, 4, 2, 32, {}),
-    (1, 300, 4, 4, 64, dict(window=70, softcap=20.0)),
-    (1, 130, 8, 1, 128, dict(softcap=30.0)),
-    (2, 257, 10, 1, 256, dict(window=64)),
+    # b, s, h, kh, d, options, q scale
+    (2, 200, 4, 2, 32, {}, 1.0),
+    (1, 300, 4, 4, 64, dict(window=70, softcap=20.0), 1.0),
+    (1, 130, 8, 1, 128, dict(softcap=30.0), 1.0),
+    (2, 257, 10, 1, 256, dict(window=64), 1.0),
+    # the edges of the bf16 kernel's tiles: one row; a block's last rows
+    # missing; a key tile of one key and a window ending inside a tile at
+    # D=256; the hybrid's window over a ragged S; a window of 16 inside a
+    # tile at D=128; q scaled by 16, so the running max rescales often
+    (2, 1, 4, 2, 128, {}, 1.0),
+    (1, 63, 8, 8, 64, {}, 1.0),
+    (1, 65, 4, 1, 256, dict(window=16), 1.0),
+    (1, 2500, 10, 1, 256, dict(window=2048), 1.0),
+    (2, 300, 8, 2, 128, dict(window=16), 1.0),
+    (1, 300, 4, 2, 128, dict(window=64), 16.0),
 ]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,h,kh,d,opts", FLASH_CASES)
-def test_flash_kernel_matches_plain_on_gpu(gpu, b, s, h, kh, d, opts, dtype):
+@pytest.mark.parametrize("b,s,h,kh,d,opts,q_scale", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_gpu(gpu, b, s, h, kh, d, opts,
+                                           q_scale, dtype):
     """The flash kernel against its plain version at D = 32, 64, 128 and
-    256: GQA and MQA, ragged S, window and softcap."""
+    256: GQA and MQA, ragged S, window and softcap, the edges of the bf16
+    kernel's tiles and a scaled q; a second call is bit-identical, and in
+    bfloat16 every output lies within one bf16 step (2**-7 of its binade,
+    plus 1e-6 near zero) of the plain version's arithmetic in float64 --
+    but for the scaled q, whose float32 logits (the plain version's too)
+    put a few outputs near zero beyond that step."""
     g = torch.Generator(device=gpu).manual_seed(70 + d)
     q, k, v = (torch.randn(shape, generator=g, device=gpu)
-               .to(getattr(torch, dtype))
                for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q * q_scale, k, v))
     before = FA.flash_attention.launches
     got = FA.flash_attention(q, k, v, **opts)
     want = FA.flash_attention_plain(q, k, v, **opts)
@@ -377,6 +394,10 @@ def test_flash_kernel_matches_plain_on_gpu(gpu, b, s, h, kh, d, opts, dtype):
     assert FA.flash_attention.launches == before + 1
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(FA.flash_attention(q, k, v, **opts), got)
+    if dtype == "bfloat16" and q_scale == 1.0:
+        assert bf16_steps_apart(got, flash_attention_f64(q, k, v,
+                                                         **opts)) == 0
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(gpu):

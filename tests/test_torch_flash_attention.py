@@ -102,3 +102,66 @@ def test_cpu_wrapper_takes_what_the_plain_version_takes():
     got.float().sum().backward()
     assert cases[-1][0].grad is not None
     assert FA.flash_attention.launches == before
+
+
+def _tiles(mask, rows, keys):
+    """Per (query tile, key tile): any and all of the pairs of the real rows
+    and the tile's keys visible (a key past S is never visible)."""
+    s = mask.shape[0]
+    n_kt = -(-s // keys)
+    cols = np.zeros((s, n_kt * keys), bool)
+    cols[:, :s] = mask
+    out = []
+    for q0 in range(0, s, rows):
+        sub = cols[q0:q0 + rows].reshape(-1, n_kt, keys)
+        out.append((sub.any(axis=(0, 2)), sub.all(axis=(0, 2))))
+    return out
+
+
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (256, torch.bfloat16),
+                                     (64, torch.float32)])
+@pytest.mark.parametrize("window", [None, 16, 64, 2048])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 2500, 4096])
+def test_tile_plan_matches_the_dense_mask(s, window, d, dtype):
+    """The kernel's walk against the dense [S, S] mask: one query tile per
+    block row; no visible pair lies outside its walk; every tile the plan
+    leaves unmasked is fully visible to every real row of its query tile;
+    the walk visits no key tile wholly invisible to its query tile; the
+    float32 kernel masks every tile."""
+    plan = FA.tile_plan(s, window, d, dtype)
+    assert (plan.rows, plan.keys) == FA.BLOCK_SHAPE[dtype][d]
+    assert [t.q0 for t in plan.tiles] == list(range(0, s, plan.rows))
+    pos = np.arange(s)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    for t, (seen, whole) in zip(plan.tiles, _tiles(mask, plan.rows,
+                                                   plan.keys)):
+        walk = np.zeros_like(seen)
+        walk[t.first:t.last + 1] = True
+        assert not (seen & ~walk).any()          # nothing visible outside
+        assert seen[walk].all()                  # no wholly invisible tile
+        assert set(t.masked) <= set(range(t.first, t.last + 1))
+        unmasked = [k for k in range(t.first, t.last + 1)
+                    if k not in t.masked]
+        assert whole[unmasked].all()
+        if dtype == torch.float32:
+            assert not unmasked
+        else:                                    # masked only where needed
+            assert not whole[list(t.masked)].any()
+
+
+def test_tile_plan_at_the_score_shapes():
+    """llama2-7b's causal 4096 at D = 128 walks 32 blocks of 128 rows in
+    tiles of 64 keys, the diagonal's two tiles masked in each; the hybrid's
+    window of 2048 at D = 256 walks 64 blocks of 64 rows in tiles of 32
+    keys, no more than the window and the block's rows span, with the
+    diagonal's two tiles and at most three at the window's edge masked."""
+    plan = FA.tile_plan(4096, None, 128)
+    assert (len(plan.tiles), plan.rows, plan.keys) == (32, 128, 64)
+    assert all(len(t.masked) == 2 and t.first == 0 for t in plan.tiles)
+    hybrid = FA.tile_plan(4096, 2048, 256)
+    assert (len(hybrid.tiles), hybrid.rows, hybrid.keys) == (64, 64, 32)
+    assert all(2 <= len(t.masked) <= 5 and
+               (t.last - t.first) * 32 <= 2048 + 64 for t in hybrid.tiles)
