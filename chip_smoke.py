@@ -12,45 +12,53 @@ exits non-zero and prints no result line; no phase catches its own failure.
    in this checkout (five: paged, contiguous-ring and flash attention, the
    RG-LRU scan, the int8 matmul), one process per source, all started
    together; each source's compile time and register and spill report;
-3. kernels -- each kernel against its plain PyTorch version on the card.
-   The attention kernels in float32 and bfloat16: the paged kernel over the
+3. kernels -- each kernel against its plain PyTorch version on the card. The
+   attention kernels in float32 and bfloat16: the paged kernel over the
    cases of the JAX kernel tests (GQA group sizes of llama2-7b, qwen3-0.6b
    and llama2-70b, unmapped table entries, a wrapped ring with a window,
-   softcap, a fully masked row, 1 and 4 query tokens per slot); the
+   softcap, a fully masked row, 1 and 4 query tokens per slot) and tables
+   split across blocks (a 4096-key table with 300 valid keys, unmapped
+   entries inside splits, llama2-70b's g=8 at KQ=4 in two row chunks, a
+   wrapped window ring whose valid keys sit in one split, a fully masked row
+   through the merge, block sizes 8 and 32, recurrentgemma-2b's g=10 at
+   D=256 over a 2048-key window); each case also called twice
+   (bit-identical) and with the pool rows it must not read poisoned with NaN
+   (the scratch block, unmapped blocks, masked keys: never read), and its
+   split count printed; then row i of a KQ=4 call against the KQ=1 call at
+   pos + i, bit for bit (llama2-7b g=1, qwen3-0.6b g=2 with softcap); the
    contiguous-ring kernel over GQA groups 1, 2 and 8, C=700 with 650 valid
-   keys, the contiguous serve's 4096-key ring, recurrentgemma-2b's MQA
-   group of 10 at D=256 over its 2048-key window (one row wrapped), shared
-   and per-row positions, the wrapped ring with a window of 50, softcap and
-   a fully masked row, and rings split across blocks: splits whose keys
-   are all masked, C not a multiple of the split length, a wrapped window
-   ring whose valid keys sit in one split, a fully masked row through the
-   merge, llama2-70b's g=8 at B=1 over 4096 keys; each case also called
-   twice (bit-identical) and with its masked ring rows poisoned (never
-   read), and its split count printed.  The RG-LRU scan in float32 at
-   R = 2560 and 200 (ragged), S = 1, 7 and 4096, with and without h0, and
-   left-pad identity steps that must leave h bit for bit.  The
-   flash-attention kernel in float32 and bfloat16 over the cases of the
-   JAX kernel tests (MHA, GQA with a ragged S, MQA at D=128, S below one
-   tile; windows 16, 64 and 128 with and without softcap), and every
-   shape a main path gives it: the score phases' 2 x 4096 at llama2-7b's
-   heads and at recurrentgemma-2b's (H=10, KH=1, D=256, window 2048; also
-   at a ragged S=2500), and the train phase's qwen3-0.6b 4 x 512 (H=16,
-   KH=8, D=128); and the edges of its tiles: S = 1, 63 and 65 (window 16
-   at D=256), q scaled by 16; each case called twice, bit-identical, and
-   in bfloat16 within one bf16 step of the plain version's arithmetic in
-   float64 (``tests/flash_reference.py``); the timing
-   shapes print how many key tiles the walk masks.  The int8 matmul in
-   float32 and bfloat16 at the JAX int8 test's shapes (one ragged in M, K
+   keys, the contiguous serve's 4096-key ring, recurrentgemma-2b's MQA group
+   of 10 at D=256 over its 2048-key window (one row wrapped), shared and
+   per-row positions, the wrapped ring with a window of 50, softcap and a
+   fully masked row, and rings split across blocks: splits whose keys are
+   all masked, C not a multiple of the split length, a wrapped window ring
+   whose valid keys sit in one split, a fully masked row through the merge,
+   llama2-70b's g=8 at B=1 over 4096 keys; each case also called twice
+   (bit-identical) and with its masked ring rows poisoned (never read), and
+   its split count printed.  The RG-LRU scan in float32 at R = 2560 and 200
+   (ragged), S = 1, 7 and 4096, with and without h0, and left-pad identity
+   steps that must leave h bit for bit.  The flash-attention kernel in
+   float32 and bfloat16 over the cases of the JAX kernel tests (MHA, GQA
+   with a ragged S, MQA at D=128, S below one tile; windows 16, 64 and 128
+   with and without softcap), and every shape a main path gives it: the
+   score phases' 2 x 4096 at llama2-7b's heads and at recurrentgemma-2b's
+   (H=10, KH=1, D=256, window 2048; also at a ragged S=2500), and the train
+   phase's qwen3-0.6b 4 x 512 (H=16, KH=8, D=128); and the edges of its
+   tiles: S = 1, 63 and 65 (window 16 at D=256), q scaled by 16; each case
+   called twice, bit-identical, and in bfloat16 within one bf16 step of the
+   plain version's arithmetic in float64 (``tests/flash_reference.py``); the
+   timing shapes print how many key tiles the walk masks.  The int8 matmul
+   in float32 and bfloat16 at the JAX int8 test's shapes (one ragged in M, K
    and N), with leading dimensions, and at llama2-7b's projections (K x N
-   4096 x 4096, 4096 x 11008, 11008 x 4096) at M = 4 and 8192.  Then
-   each is timed at the main path's shapes beside the plain version, one
-   library call where there is one and the card's bound, and every timing
-   input set is held against the plain version too.  Kernel and library
-   calls are timed as a CUDA graph's replay, so a short kernel's time is
-   the card's and not the host's launch rate.  Last, the int8 op's entry
-   point as its users call it: one llama2-7b layer's seven projections,
-   quantized, on a decode step and a 2 x 4096-token prefill in bf16 (one
-   launch per projection, the output equal to the plain chain's);
+   4096 x 4096, 4096 x 11008, 11008 x 4096) at M = 4 and 8192.  Then each is
+   timed at the main path's shapes beside the plain version, one library
+   call where there is one and the card's bound, and every timing input set
+   is held against the plain version too.  Kernel and library calls are
+   timed as a CUDA graph's replay, so a short kernel's time is the card's
+   and not the host's launch rate.  Last, the int8 op's entry point as its
+   users call it: one llama2-7b layer's seven projections, quantized, on a
+   decode step and a 2 x 4096-token prefill in bf16 (one launch per
+   projection, the output equal to the plain chain's);
 4. serve   -- llama2-7b at full width and depth, random weights from a seed,
    six greedy requests over four slots, so slots recycle, through the
    ``LLM`` API over ``TorchTensorBackend(impl="cuda")``, three times:
@@ -208,7 +216,33 @@ PAGED_CASES = [
      dict(window=40)),
     ("fully masked row", (2, 16, 8, 128, 16, 2, (20, 5), 1), {}),
     ("fully masked row KQ=4", (2, 64, 8, 128, 16, 2, (20, 5), 4), {}),
+    # the table split across blocks (S > 1 on an H100's 132 SMs): splits
+    # whose keys are all masked, unmapped entries inside splits (their keys'
+    # positions left valid), two row chunks, a wrapped window ring whose
+    # valid keys sit in one split, a fully masked row through the merge,
+    # block sizes 8 and 32, the hybrid's group of 10 at D=256.  "last" and
+    # "holes" are paged_case's arguments.
+    ("split: 300 of 4096 keys valid, 59 of 64 splits masked",
+     (1, 8, 1, 128, 16, 256, (300,), 1), {}),
+    ("split: llama2-7b g=1 1024-key tables, unmapped blocks inside splits",
+     (4, 32, 32, 128, 16, 64, (1000, 700, 300, 17), 1),
+     dict(holes=((0, 3), (0, 21), (1, 5), (2, 9)))),
+    ("split: llama2-70b g=8 KQ=4 2048-key tables, two row chunks",
+     (2, 64, 8, 128, 16, 128, (2000, 900), 4), {}),
+    ("split: wrapped ring + window 40, valid keys in one of 8 splits",
+     (1, 10, 1, 256, 16, 32, (1,), 1), dict(window=40, last=1000)),
+    ("fully masked row through the merge",
+     (2, 16, 8, 128, 16, 64, (600, 5), 1), {}),
+    ("split: block size 8, llama2-7b g=1",
+     (4, 32, 32, 128, 8, 64, (512, 300, 17, 129), 1), {}),
+    ("split: block size 32, qwen3-0.6b g=2 KQ=4 softcap",
+     (3, 16, 8, 128, 32, 32, (1000, 25, 600), 4), dict(softcap=30.0)),
+    (f"split: {HYBRID} g=10 D=256 window {HYBRID_WINDOW}, slot 0 wrapped",
+     (4, 10, 1, 256, 16, HYBRID_WINDOW // 16, (2048, 2048, 700, 17), 1),
+     dict(window=HYBRID_WINDOW, last=2130)),
 ]
+# row i of a KQ=4 call must equal the KQ=1 call at pos + i, bit for bit
+VERIFY_DECODE_CASES = ("llama2-7b g=1 KQ=4", "qwen3-0.6b g=2 KQ=4 softcap")
 
 RING_CASES = [
     # name, ring_case(b, h, kh, d, c, valid), options
@@ -307,33 +341,75 @@ def compare(name, kernel, plain, x, opts, dtype, dead=(), tol=None,
     return got, (got.float() - want.float()).abs().max().item(), extra
 
 
-def check_kernels(pa, da):
-    """Every case of both kernels in float32 and bfloat16; returns the
-    largest error of each."""
-    from paged_cases import paged_case
-    worst = {"paged_attention": 0.0, "decode_attention": check_ring(da)}
+def paged_inputs(i, dtype, poisoned=False):
+    """PAGED_CASES[i] on the card, and its kernel options; ``poisoned``: the
+    pool rows the kernel must not read set to NaN."""
+    from paged_cases import paged_case, poison_unread
+    name, shape, opts = PAGED_CASES[i]
+    opts = dict(opts)
+    case_kw = {k: opts.pop(k) for k in ("last", "holes") if k in opts}
+    case_kw.setdefault("last", 150 if "window" in opts else None)
+    dead = (1,) if name.startswith("fully masked") else ()
+    case = paged_case(*shape, seed=100 + i, dead=dead, **case_kw)
+    if poisoned:
+        case = poison_unread(case, opts.get("window"))
+    return to_device(case, dtype), opts, dead
+
+
+def table_splits(pa, x):
+    """The paged kernel's (S, L) for inputs ``x`` on this card."""
+    return pa.table_split_plan(
+        x["q"].shape, x["k_pool"].shape, x["key_pos"].shape[1],
+        torch.cuda.get_device_properties(DEVICE).multi_processor_count)
+
+
+def check_paged(pa):
+    """The paged kernel over PAGED_CASES in float32 and bfloat16: against
+    its plain version, bit-identical on a second call, the pool rows it
+    must not read poisoned with NaN without effect (a loaded row would
+    give NaN even where its key is masked); then row i of a KQ=4 call
+    against the KQ=1 call at pos + i, bit for bit.  Returns the largest
+    error."""
+    worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
-        for i, (name, shape, opts) in enumerate(PAGED_CASES):
-            dead = (1,) if name.startswith("fully masked") else ()
-            x = to_device(paged_case(*shape, seed=100 + i, dead=dead,
-                                     last=150 if "window" in opts else None),
-                          dtype)
+        for i, (name, _, _) in enumerate(PAGED_CASES):
+            x, opts, dead = paged_inputs(i, dtype)
             got, err, extra = compare(name, pa.paged_attention,
                                       pa.paged_attention_plain, x, opts,
                                       dtype, dead)
-            worst["paged_attention"] = max(worst["paged_attention"], err)
-            if (x["bt"] < 0).any():
-                # the scratch block and unmapped entries are never read
-                x["k_pool"][-1] = 1e6
-                x["v_pool"][-1] = -1e6
-                again = pa.paged_attention(**x, **opts)
-                if not torch.equal(again, got):
-                    raise AssertionError(f"{name}: output depends on the "
-                                         f"scratch block")
-                extra += ", scratch block never read"
+            worst = max(worst, err)
+            if not torch.equal(pa.paged_attention(**x, **opts), got):
+                raise AssertionError(f"{name}: two calls on the same inputs "
+                                     f"differ")
+            bad, _, _ = paged_inputs(i, dtype, poisoned=True)
+            if not torch.equal(pa.paged_attention(**bad, **opts), got):
+                raise AssertionError(f"{name}: output depends on a pool row "
+                                     f"that no query row may see")
+            splits, split_len = table_splits(pa, x)
             print(f"kernels: paged_attention {name} {str(dtype)[6:]}: max abs "
-                  f"err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
+                  f"err {err:.3g} (rtol/atol {tol['rtol']:.3g}), "
+                  f"S={splits} x L={split_len}{extra}, repeat bit-identical, "
+                  f"unread pool rows (scratch, unmapped, masked keys) "
+                  f"poisoned with NaN without effect: never read")
+        for name in VERIFY_DECODE_CASES:
+            x, opts, _ = paged_inputs([n for n, _, _ in PAGED_CASES]
+                                      .index(name), dtype)
+            four = pa.paged_attention(**x, **opts)
+            kq = x["q"].shape[1]
+            for i in range(kq):
+                one = pa.paged_attention(
+                    x["q"][:, i].contiguous(), x["k_pool"], x["v_pool"],
+                    x["bt"], x["key_pos"], x["pos"] + i, **opts)
+                if not torch.equal(four[:, i], one):
+                    n = int((four[:, i] != one).sum())
+                    raise AssertionError(
+                        f"{name} {dtype}: row {i} of the KQ={kq} call differs "
+                        f"from the KQ=1 call at pos + {i} in {n} outputs")
+            splits, split_len = table_splits(pa, x)
+            print(f"kernels: paged_attention {name} {str(dtype)[6:]}: each "
+                  f"row i of the KQ={kq} call equals the KQ=1 call at pos + "
+                  f"i bit for bit (S={splits} x L={split_len} for both)")
     return worst
 
 
@@ -522,19 +598,25 @@ def time_ms(fn, n_sets, iters=200, warmup=10, graph=True):
     return start.elapsed_time(end) / iters
 
 
-def time_paged(pa, card, kq, max_len=MAX_LEN):
-    """paged_attention at a paged serve's shapes: llama2-7b, 4 slots with
-    ``max_len`` keys each (by default the paged serve's 512), bf16, ``kq``
-    query tokens per slot."""
-    import torch.nn.functional as F
-
+def paged_sets(kq, max_len=MAX_LEN, n_sets=4):
+    """``n_sets`` seeded bf16 inputs of paged_attention at a paged serve's
+    shapes: llama2-7b, 4 slots with ``max_len`` keys each, ``kq`` query
+    tokens per slot; 4 x 34 MB or more of K/V, past the L2."""
     from paged_cases import paged_case
-    n_sets = 4                      # 4 x 34 MB or more of K/V: past the L2
-    sets = [to_device(paged_case(SLOTS, 32, 32, 128, BLOCK_SIZE,
+    return [to_device(paged_case(SLOTS, 32, 32, 128, BLOCK_SIZE,
                                  max_len // BLOCK_SIZE,
                                  (max_len - kq + 1,) * SLOTS, kq,
                                  seed=200 + i), torch.bfloat16)
             for i in range(n_sets)]
+
+
+def time_paged(pa, card, kq, max_len=MAX_LEN):
+    """paged_attention on :func:`paged_sets`: by default the paged serve's
+    512 keys."""
+    import torch.nn.functional as F
+
+    sets = paged_sets(kq, max_len)
+    n_sets = len(sets)
     lib = []
     for x in sets:
         q4 = x["q"] if x["q"].dim() == 4 else x["q"][:, None]
@@ -567,7 +649,8 @@ def time_paged(pa, card, kq, max_len=MAX_LEN):
                + x["key_pos"].numel() * 4 + x["bt"].numel() * 4 + SLOTS * 4)
     n_ops = n_keys * kq * h * 4 * d
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bound(n_bytes, n_ops, card))
+                library_ms=library_ms, splits=table_splits(pa, x),
+                **bound(n_bytes, n_ops, card))
 
 
 def decode_sets(n_valid, heads=(32, 32, 128), c=CONTIGUOUS_MAX_LEN,
@@ -838,8 +921,8 @@ def timing_line(name, shape, t, card):
               f"rows walk {t['tiles'][0]} masked and {t['tiles'][1]} "
               f"unmasked key tiles of {t['tile_shape'][1]}")
     if "splits" in t:
-        print(f"kernels: {name} at {shape}: the ring split S={t['splits'][0]}"
-              f" ways of L={t['splits'][1]} keys")
+        print(f"kernels: {name} at {shape}: each slot's keys split "
+              f"S={t['splits'][0]} ways of L={t['splits'][1]} keys")
     if t.get("f32_outside") is not None:
         print(f"kernels: {name} at {shape}: a float32-summed cuBLAS product "
               f"has {t['f32_outside']} outputs outside rtol/atol 3e-5 of the "
@@ -1593,7 +1676,8 @@ def device_share(label, what, run, card):
     print(f"{label}: profiled {what}: device busy {busy / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({busy / wall_us:.1%}) [{card}]")
     kinds = {"matrix products": ("gemm", "nvjet", "cutlass", "xmma"),
-             "paged attention": ("paged_attention_kernel",),
+             "paged attention": ("paged_attention_kernel",
+                                 "paged_attention_merge_kernel"),
              "decode attention": ("decode_attention_kernel",
                                   "decode_attention_merge_kernel"),
              "flash attention": ("flash_attention_kernel",),
@@ -1649,7 +1733,8 @@ def main():
                     or "spill" in line:
                 print(f"build:   {line.strip()[:140]}")
 
-    worst = check_kernels(pa, da)
+    worst = {"paged_attention": check_paged(pa),
+             "decode_attention": check_ring(da)}
     worst["rglru_scan"] = check_rglru(rs)
     worst["flash_attention"] = check_flash(fa)
     worst["int8_matmul"] = check_int8(i8)

@@ -4,6 +4,7 @@ CUDA error.  Each wrapper keeps its own shape checks and argument list."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -44,6 +45,13 @@ def check_layout(name: str, dense: Sequence[torch.Tensor],
         raise ValueError(f"{name}: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in aligned):
         raise ValueError(f"{name}: K/V storage must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, which the attention kernels' split plans
+    fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 #: what every attention entry takes after its shapes and strides: scale,

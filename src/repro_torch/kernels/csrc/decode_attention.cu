@@ -76,27 +76,26 @@
 
 namespace {
 
+using attn_tile::block_threads;
+using attn_tile::cp_async16;
+using attn_tile::cp_async_commit;
+using attn_tile::cp_async_wait_all;
 using attn_tile::from_f32;
 using attn_tile::kBFloat16;
 using attn_tile::kFloat32;
+using attn_tile::kMaxSplits;
 using attn_tile::kNegInit;
+using attn_tile::kPairs;
+using attn_tile::kRowsPerBlock;
 using attn_tile::kThreads;
+using attn_tile::kTileKeys;
 using attn_tile::launch_with_smem;
+using attn_tile::load_pair;
+using attn_tile::row_stride;
 using attn_tile::to_f32;
+using attn_tile::unpack;
 using attn_tile::warp_max;
 using attn_tile::warp_sum;
-
-constexpr int kTileKeys = 64;          // keys per tile; split_plan's TILE_KEYS
-constexpr int kRowsPerBlock = 16;      // split_plan's ROWS_PER_BLOCK
-constexpr int kMaxSplits = 64;         // split_plan's MAX_SPLITS
-constexpr int kPairs = 128;            // head-element pairs, D <= 256
-
-// threads of a block serving at most kRows query rows: the more rows, the
-// more arithmetic per tile, and the more warps share it
-template <int kRows>
-__host__ __device__ constexpr int block_threads() {
-  return kRows > 8 ? 4 * kThreads : kRows > 2 ? 2 * kThreads : kThreads;
-}
 
 struct Params {
   const void* q;          // [B, H, D]
@@ -116,41 +115,6 @@ struct Params {
   int window;             // <= 0: none
 };
 
-// elements of a 16-byte vector as float32
-__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[4],
-                                       const float*) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8],
-                                       const __nv_bfloat16*) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    f[2 * u] = __uint_as_float(w[u] << 16);
-    f[2 * u + 1] = __uint_as_float(w[u] & 0xffff0000u);
-  }
-}
-
-// two neighbouring head elements of a V row as float32
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  const unsigned w = *reinterpret_cast<const unsigned*>(p);
-  return make_float2(__uint_as_float(w << 16),
-                     __uint_as_float(w & 0xffff0000u));
-}
-
-template <typename TKV>
-__host__ __device__ constexpr int row_stride(int D) {
-  return D + 16 / (int)sizeof(TKV);      // padded by 16 bytes
-}
-
 // shared memory of a block: `stages` K/V tile pairs, then q, the scores,
 // m, l, alpha, two tiles' key positions and two tiles' any-valid flags
 template <typename TKV>
@@ -159,23 +123,6 @@ size_t smem_bytes(int stages, int rows, int D) {
                     sizeof(TKV);
   return kv + ((size_t)rows * D + (size_t)rows * kTileKeys + 3 * rows) * 4 +
          (2 * kTileKeys + 4) * 4;
-}
-
-// 16 bytes from device to shared memory, asynchronously; src_bytes = 0
-// reads nothing and fills zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // kRows: the most query rows a block serves, a compile-time bound, so that
@@ -425,67 +372,19 @@ decode_attention_kernel(const Params p) {
   }
 }
 
-// The S partials of query head blockIdx.x of slot blockIdx.y, in index
-// order: out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30), w_s =
-// exp(m_s - max_s m_s).  Thread t < D/2 owns head elements 2t, 2t+1 and
-// has kMergeBatch splits' loads in flight at a time.
-constexpr int kMergeBatch = 16;
-
+// The S partials of query head blockIdx.x of slot blockIdx.y, merged in
+// index order (attention_tile.cuh, merge_splits).
 template <typename TQ>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_merge_kernel(const Params p) {
-  __shared__ float ml[2 * kMaxSplits];      // m_s, l_s
-  __shared__ float w[kMaxSplits];
-  const int tid = threadIdx.x;
-  const size_t row = (size_t)blockIdx.y * p.H + blockIdx.x;
-  for (int i = tid; i < 2 * p.S; i += kThreads)
-    ml[i] = p.part_ml[row * p.S * 2 + i];
-  __syncthreads();
-  if (tid < 32) {           // the max is exact in any order
-    float mx = kNegInit;
-    for (int s = tid; s < p.S; s += 32) mx = fmaxf(mx, ml[2 * s]);
-    mx = warp_max(mx);
-    for (int s = tid; s < p.S; s += 32) w[s] = expf(ml[2 * s] - mx);
-  }
-  __syncthreads();
-  float l = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < p.S; ++s) l += w[s] * ml[2 * s + 1];
-  const float den = fmaxf(l, 1e-30f);
-  if (2 * tid >= p.D) return;
-  const float* acc = p.part_acc + row * p.S * p.D + 2 * tid;
-  float2 a = make_float2(0.f, 0.f);
-  for (int s0 = 0; s0 < p.S; s0 += kMergeBatch) {
-    float2 v[kMergeBatch];
-#pragma unroll
-    for (int u = 0; u < kMergeBatch; ++u)
-      if (s0 + u < p.S)
-        v[u] = *reinterpret_cast<const float2*>(acc + (size_t)(s0 + u) * p.D);
-#pragma unroll
-    for (int u = 0; u < kMergeBatch; ++u) {
-      if (s0 + u < p.S) {
-        a.x += w[s0 + u] * v[u].x;
-        a.y += w[s0 + u] * v[u].y;
-      }
-    }
-  }
-  TQ* out = static_cast<TQ*>(p.out) + row * p.D + 2 * tid;
-  out[0] = from_f32<TQ>(a.x / den);
-  out[1] = from_f32<TQ>(a.y / den);
+decode_attention_merge_kernel(const attn_tile::MergeParams p) {
+  attn_tile::merge_splits<TQ>(p);
 }
 
 template <typename TQ, typename TKV, int kRows>
 cudaError_t launch_rows(const Params& p, dim3 grid, cudaStream_t stream) {
-  const auto kernel = decode_attention_kernel<TQ, TKV, kRows>;
-  const size_t smem = smem_bytes<TKV>(p.stages, p.rows, p.D);
-  if (smem > attn_tile::kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, block_threads<kRows>(), smem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_with_smem(decode_attention_kernel<TQ, TKV, kRows>, grid,
+                          block_threads<kRows>(),
+                          smem_bytes<TKV>(p.stages, p.rows, p.D), stream, p);
 }
 
 template <typename TQ, typename TKV>
@@ -509,8 +408,9 @@ cudaError_t launch(Params p, cudaStream_t stream) {
       : p.rows <= 10 ? launch_rows<TQ, TKV, 10>(p, grid, stream)
                      : launch_rows<TQ, TKV, 16>(p, grid, stream);
   if (e != cudaSuccess || p.S == 1) return e;
-  return launch_with_smem(decode_attention_merge_kernel<TQ>, dim3(p.H, p.B),
-                          0, stream, p);
+  return launch_with_smem(
+      decode_attention_merge_kernel<TQ>, dim3(p.H, p.B), kThreads, 0, stream,
+      attn_tile::MergeParams{p.part_ml, p.part_acc, p.out, p.H, p.D, p.S});
 }
 
 }  // namespace

@@ -30,14 +30,13 @@ The kernel is built with the port's other kernels by
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._launch import (DTYPE_CODES, Entry, check_dtypes,
-                                         check_layout, on_cpu)
+                                         check_layout, on_cpu, sm_count)
 
 _launch = Entry("decode_attention_launch", n_tensors=8, n_ints=9)
 
@@ -63,11 +62,6 @@ def split_plan(b: int, kh: int, g: int, c: int, n_sm: int) -> Tuple[int, int]:
     want = max(-(-BLOCKS_PER_SM * n_sm // blocks), -(-c // SPLIT_KEYS))
     per = -(-tiles // max(1, min(want, tiles, MAX_SPLITS)))   # tiles a split
     return -(-tiles // per), per * TILE_KEYS
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -138,7 +132,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if b == 0:
         return torch.empty_like(q)
     out = torch.empty_like(q3)
-    splits, split_len = split_plan(b, kh, h // kh, c, _sm_count(q.device))
+    splits, split_len = split_plan(b, kh, h // kh, c, sm_count(q.device))
     # the splits' (m, l) and acc, held here until the launch is queued
     part = [torch.empty((b, h, splits, n), dtype=torch.float32,
                         device=q.device) for n in (2, d)] if splits > 1 else []

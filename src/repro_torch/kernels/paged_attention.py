@@ -19,8 +19,11 @@ row gives exact zeros.  The output has q's shape and dtype.
 
 - :func:`paged_attention` -- the wrapper.  On CUDA tensors it launches the
   kernel in ``csrc/paged_attention.cu`` (or raises); it takes the plain
-  version only for tensors on the CPU.  ``paged_attention.launches`` counts
-  kernel launches.
+  version only for tensors on the CPU.  ``paged_attention.launches``
+  counts wrapper calls that launched the kernel, one per call whether the
+  table was split (a split pass and a merge pass) or not.
+- :func:`table_split_plan` -- how many blocks share one slot's table, from
+  the call's shapes and the SM count only.
 - :func:`paged_attention_plain` -- the plain version: gather the slot's
   blocks in ring order, mask, softmax in float32.
 
@@ -30,14 +33,31 @@ The kernel is built with the port's other kernels by
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels._launch import (DTYPE_CODES, Entry, check_dtypes,
-                                         check_layout, on_cpu)
+                                         check_layout, on_cpu, sm_count)
+from repro_torch.kernels.decode_attention import split_plan
 
-_launch = Entry("paged_attention_launch", n_tensors=7, n_ints=9)
+_launch = Entry("paged_attention_launch", n_tensors=9, n_ints=11)
+
+
+def table_split_plan(q_shape: Sequence[int], pool_shape: Sequence[int],
+                     n_keys: int, n_sm: int) -> Tuple[int, int]:
+    """``(S, L)``: the kernel walks each slot's table of ``n_keys`` logical
+    keys in ``S`` splits of ``L`` keys, each on a block of its own.  It is
+    :func:`~repro_torch.kernels.decode_attention.split_plan` at the GQA
+    group ``g = H // KH`` -- not ``KQ * g`` -- so a verify call (q
+    ``[B, KQ, H, D]``) splits exactly as a decode call (q ``[B, H, D]``)
+    does, and its row ``i`` repeats the decode call's arithmetic at
+    ``pos + i``.  Shapes and the SM count only: never ``pos``, ``key_pos``
+    or ``bt``, so a call needs no host sync and can be captured in a CUDA
+    graph."""
+    b, h = q_shape[0], q_shape[-2]
+    kh = pool_shape[2]
+    return split_plan(b, kh, h // kh, n_keys, n_sm)
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -120,15 +140,24 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if b == 0:
         return torch.empty_like(q)
     out = torch.empty_like(q4)
+    splits, split_len = table_split_plan(q4.shape, k_pool.shape, c,
+                                         sm_count(q.device))
+    # the splits' (m, l) and acc, held here until the launch is queued
+    part = [torch.empty((b, kq, h, splits, n), dtype=torch.float32,
+                        device=q.device) for n in (2, d)] \
+        if splits > 1 else []
+    part_ptrs = [t.data_ptr() for t in part] or [None, None]
     _launch(q.device,
             q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
-            key_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, kq, h, kh, d, bs, c // bs, bt.stride(0), n_pool,
-            1.0 / math.sqrt(d), float(softcap or 0.0), int(window or 0),
-            DTYPE_CODES[q.dtype], DTYPE_CODES[k_pool.dtype])
+            key_pos.data_ptr(), pos.data_ptr(), out.data_ptr(), *part_ptrs,
+            b, kq, h, kh, d, bs, c // bs, bt.stride(0), n_pool, splits,
+            split_len, 1.0 / math.sqrt(d), float(softcap or 0.0),
+            int(window or 0), DTYPE_CODES[q.dtype],
+            DTYPE_CODES[k_pool.dtype])
     paged_attention.launches += 1
     return out[:, 0] if q.dim() == 3 else out
 
 
-#: kernel launches so far (the plain version on CPU tensors counts none)
+#: wrapper calls that launched the kernel so far (the plain version on CPU
+#: tensors counts none)
 paged_attention.launches = 0

@@ -4,11 +4,13 @@ import numpy as np
 
 
 def paged_case(b, h, kh, d, bs, nbs, lens, kq, seed, *, unmapped=True,
-               dead=(), last=None):
+               dead=(), last=None, holes=()):
     """Pools and a permuted block table; slot i holds keys
     0..lens[i]+kq-2 and decodes from pos = lens[i]-1, table entries past its
     keys unmapped (-1).  ``dead`` slots hold nothing; ``last`` wraps slot
-    0's ring so its keys are the ``c`` positions up to ``last``."""
+    0's ring so its keys are the ``c`` positions up to ``last``; ``holes``
+    are (slot, table index) entries unmapped among mapped ones, their keys'
+    positions left in ``key_pos``."""
     r = np.random.default_rng(seed)
     c = nbs * bs
     n_blocks = b * nbs + 2
@@ -28,8 +30,36 @@ def paged_case(b, h, kh, d, bs, nbs, lens, kq, seed, *, unmapped=True,
         bt[np.arange(nbs)[None] >= np.minimum(used, nbs)[:, None]] = -1
     for i in dead:
         bt[i], key_pos[i] = -1, -1
+    for i, ib in holes:
+        bt[i, ib] = -1
     return dict(q=q, k_pool=k_pool, v_pool=v_pool, bt=bt, key_pos=key_pos,
                 pos=pos)
+
+
+def poison_unread(case, window=None, value=np.nan):
+    """``case`` with the pool rows that a paged kernel must not read -- the
+    scratch block, blocks that no table entry maps, and keys of mapped
+    blocks that no query row may see -- set to ``value``.  NaN by default:
+    a key scored -inf still adds 0 x NaN = NaN to P V, so a kernel's output
+    is unchanged only if it never loads those rows; a finite value shows
+    only that they carry no weight."""
+    kp, pos = case["key_pos"], case["pos"]
+    n_pool, bs = case["k_pool"].shape[:2]
+    kq, c = case["q"].shape[1], kp.shape[1]
+    table = case["bt"][:, :c // bs]
+    mapped = np.repeat((table >= 0) & (table < n_pool), bs, axis=1)
+    seen = mapped & (kp >= 0) & (kp <= pos[:, None] + kq - 1)
+    if window is not None:
+        seen &= kp > pos[:, None] - window
+    rows = np.repeat(np.maximum(table, 0), bs, axis=1) * bs \
+        + np.arange(c) % bs
+    read = np.zeros(n_pool * bs, bool)
+    read[rows[seen]] = True
+    out = dict(case)
+    for key in ("k_pool", "v_pool"):
+        out[key] = case[key].copy()
+        out[key].reshape(n_pool * bs, -1)[~read] = value
+    return out
 
 
 def ring_case(b, h, kh, d, c, valid, seed, *, dead=(), wrap_pos=None):

@@ -17,7 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from flash_reference import bf16_steps_apart, flash_attention_f64  # noqa: E402
-from paged_cases import paged_case, ring_case  # noqa: E402
+from paged_cases import paged_case, poison_unread, ring_case  # noqa: E402
 from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
@@ -92,6 +92,79 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(gpu):
         with pytest.raises(ValueError):
             PA.paged_attention(*call)
     assert PA.paged_attention.launches == before
+
+
+# each slot's table split across blocks (S > 1 on the card): paged_case
+# arguments, its keywords and the kernel options
+PAGED_SPLIT_CASES = [
+    # 300 of 4096 keys valid: most splits wholly masked
+    ((1, 8, 1, 128, 16, 256, (300,), 1, 42), {}, {}),
+    # unmapped entries inside splits, their keys' positions left valid
+    ((4, 32, 32, 128, 16, 64, (1000, 700, 300, 17), 1, 43),
+     dict(holes=((0, 3), (0, 21), (1, 5), (2, 9))), {}),
+    # llama2-70b g=8 at KQ=4: two chunks of 16 rows
+    ((2, 64, 8, 128, 16, 128, (2000, 900), 4, 44), {}, {}),
+    # a wrapped window ring whose valid keys sit in one split
+    ((1, 10, 1, 256, 16, 32, (1,), 1, 45), dict(last=1000),
+     dict(window=40)),
+    # a fully masked row through the merge
+    ((2, 16, 8, 128, 16, 64, (600, 5), 1, 46), dict(dead=(1,)), {}),
+    # block sizes 8 and 32
+    ((4, 32, 32, 128, 8, 64, (512, 300, 17, 129), 1, 47), {}, {}),
+    ((3, 16, 8, 128, 32, 32, (1000, 25, 600), 4, 48), {},
+     dict(softcap=30.0)),
+    # recurrentgemma-2b's g=10, D=256, window 2048, slot 0 wrapped
+    ((4, 10, 1, 256, 16, 128, (2048, 2048, 700, 17), 1, 49),
+     dict(last=2130), dict(window=2048)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_matches_plain_and_is_deterministic(gpu, dtype):
+    """With each slot's table split across blocks and merged: the kernel
+    against its plain version, a fully masked row exact zeros, two calls
+    bit-identical, and the pool rows it must not read (scratch, unmapped
+    blocks, masked keys), poisoned with NaN, change nothing: they are never
+    read, for a loaded masked key would add 0 x NaN = NaN.  One launch
+    counted per call."""
+    n_sm = torch.cuda.get_device_properties(gpu).multi_processor_count
+    for args, kw, opts in PAGED_SPLIT_CASES:
+        x = paged_case(*args[:-1], seed=args[-1], **kw)
+        t, bad = (_on(c, gpu, getattr(torch, dtype))
+                  for c in (x, poison_unread(x, opts.get("window"))))
+        if args[7] == 1:                       # one token a slot: q [B, H, D]
+            t["q"], bad["q"] = t["q"][:, 0], bad["q"][:, 0]
+        assert PA.table_split_plan(t["q"].shape, t["k_pool"].shape,
+                                   t["key_pos"].shape[1], n_sm)[0] > 1
+        before = PA.paged_attention.launches
+        got = PA.paged_attention(**t, **opts)
+        want = PA.paged_attention_plain(**t, **opts)
+        torch.cuda.synchronize()
+        assert PA.paged_attention.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        for row in kw.get("dead", ()):
+            assert bool((got[row] == 0).all())
+        assert torch.equal(PA.paged_attention(**t, **opts), got)
+        assert torch.equal(PA.paged_attention(**bad, **opts), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,opts", [
+    ((4, 32, 32, 128, 16, 32, (509, 300, 17, 129)), {}),        # g=1
+    ((3, 16, 8, 128, 16, 16, (40, 25, 200)), dict(softcap=30.0)),  # g=2
+])
+def test_paged_verify_row_equals_decode_at_its_position(gpu, dtype, case,
+                                                        opts):
+    """Row i of a KQ=4 call gives the bits of the KQ=1 call at pos + i on
+    the same pool: both take one split plan, and a row's arithmetic does
+    not depend on the rows beside it."""
+    t = _on(paged_case(*case, 4, seed=61), gpu, getattr(torch, dtype))
+    four = PA.paged_attention(**t, **opts)
+    for i in range(4):
+        one = PA.paged_attention(t["q"][:, i].contiguous(), t["k_pool"],
+                                 t["v_pool"], t["bt"], t["key_pos"],
+                                 t["pos"] + i, **opts)
+        assert torch.equal(four[:, i], one), i
 
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "qwen3-0.6b"])
