@@ -49,8 +49,11 @@ exits non-zero and prints no result line; no phase catches its own failure.
    plain version's arithmetic in float64 (``tests/flash_reference.py``); the
    timing shapes print how many key tiles the walk masks.  The int8 matmul
    in float32 and bfloat16 at the JAX int8 test's shapes (one ragged in M, K
-   and N), with leading dimensions, and at llama2-7b's projections (K x N
-   4096 x 4096, 4096 x 11008, 11008 x 4096) at M = 4 and 8192.  Then each is
+   and N), with leading dimensions, at llama2-7b's projections (K x N
+   4096 x 4096, 4096 x 11008, 11008 x 4096) at M = 4 and 8192, and at the
+   bfloat16 kernel's edges (M = 1, 16, 17 and 130, K = 4104, N = 4100 and
+   4096); in bfloat16 each call repeated (bit-identical) and its outputs
+   beyond one bf16 step of the plain version counted.  Then each is
    timed at the main path's shapes beside the plain version, one library
    call where there is one and the card's bound, and every timing input set
    is held against the plain version too.  Kernel and library calls are
@@ -159,6 +162,11 @@ STREAM_MAX_LEN = 1280               # 1024 + 200 + 32 = 1256, in whole blocks
 INT8_CASES = ((128, 512, 128), (70, 300, 130), (1, 1024, 256), (256, 64, 64))
 INT8_PROJ = ((4096, 4096), (4096, 11008), (11008, 4096))
 INT8_M = (4, 8192)
+# the bfloat16 kernel's edges: 16 rows a block up to M = 16, 128 above; K
+# not a multiple of its 32-deep stage; N not a multiple of 16 (element
+# loads into the tiles), or a multiple (16-byte copies with a ragged K)
+INT8_EDGE = tuple((m, 4104, 4100) for m in (1, 16, 17, 130)) + (
+    (1, 4104, 4096), (130, 4104, 4096))
 # the JAX kernel test's _tol; float32 x sums in float64 in both the kernel and
 # the plain version, bfloat16 x in float32 in the kernel
 INT8_TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
@@ -789,15 +797,34 @@ def int8_inputs(i8, m, k, n, dtype, seed, lead=()):
     return dict(x=x, w_q=w_q, scale=scale)
 
 
+def int8_repeat(i8, name, x, got):
+    """bfloat16 only: a second call on the same inputs must give ``got``'s
+    bits; returns how many outputs lie more than one bf16 step from the
+    plain version's (reported, not gated beyond the 2e-2 tolerance: sums of
+    thousands of terms in another order may land a near-zero output further
+    off)."""
+    from flash_reference import bf16_steps_apart
+    again = i8.int8_matmul(**x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"int8_matmul {name}: a second call on the same "
+                             f"inputs gave other bits")
+    return bf16_steps_apart(got, i8.int8_matmul_plain(**x))
+
+
 def check_int8(i8):
     """The int8 kernel against its plain version in float32 and bfloat16:
-    the JAX test's shapes, leading dimensions, and llama2-7b's projections
-    at M = 4 and 8192; returns the largest error."""
+    the JAX test's shapes, leading dimensions, llama2-7b's projections at
+    M = 4 and 8192, and the bfloat16 kernel's edges (``INT8_EDGE``); in
+    bfloat16 each call is repeated (bit-identical) and its outputs beyond
+    one bf16 step of the plain version counted.  Returns the largest
+    error."""
     worst = 0.0
     cases = [(f"{m}x{k}x{n}", (m, k, n), ()) for m, k, n in INT8_CASES]
     cases.append(("leading dims [2, 3, 64] x 64x32", (3, 64, 32), (2,)))
     cases += [(f"llama2-7b M={m} {k}x{n}", (m, k, n), ())
               for m in INT8_M for k, n in INT8_PROJ]
+    cases += [(f"edge {m}x{k}x{n}", (m, k, n), ()) for m, k, n in INT8_EDGE]
     for dtype in (torch.float32, torch.bfloat16):
         tol = INT8_TOL[str(dtype)[6:]]
         for i, (name, shape, lead) in enumerate(cases):
@@ -808,8 +835,13 @@ def check_int8(i8):
                 raise AssertionError(f"int8_matmul {name}: shape "
                                      f"{tuple(got.shape)}")
             worst = max(worst, err)
+            extra = ""
+            if dtype == torch.bfloat16:
+                beyond = int8_repeat(i8, name, x, got)
+                extra = (f"; repeat bit-identical; {beyond} of {got.numel()} "
+                         f"outputs beyond one bf16 step of the plain version")
             print(f"kernels: int8_matmul {name} {str(dtype)[6:]}: max abs "
-                  f"err {err:.3g} (rtol/atol {tol['rtol']:.3g})")
+                  f"err {err:.3g} (rtol/atol {tol['rtol']:.3g}){extra}")
         del x, got
         torch.cuda.empty_cache()
     return worst
@@ -839,6 +871,10 @@ def time_int8(i8, card, m, k, n, dtype):
         f32_outside = int(((f32 - want).abs() > tol["atol"]
                            + tol["rtol"] * want.abs()).sum())
         del want, f32
+    bf16_beyond = None
+    if dtype == torch.bfloat16:
+        bf16_beyond = int8_repeat(i8, f"timing M={m} {k}x{n}", sets[0],
+                                  i8.int8_matmul(**sets[0]))
     big = m * k * n > 1e11
     iters = (3 if dtype == torch.float32 else 10) if big else 200
     ms = time_ms(lambda i: i8.int8_matmul(**sets[i]), n_sets, iters=iters,
@@ -855,6 +891,7 @@ def time_int8(i8, card, m, k, n, dtype):
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, f32_outside=f32_outside,
+                bf16_beyond=bf16_beyond,
                 **bound(n_bytes, 2 * m * k * n, card, peak))
 
 
@@ -923,6 +960,10 @@ def timing_line(name, shape, t, card):
     if "splits" in t:
         print(f"kernels: {name} at {shape}: each slot's keys split "
               f"S={t['splits'][0]} ways of L={t['splits'][1]} keys")
+    if t.get("bf16_beyond") is not None:
+        print(f"kernels: {name} at {shape}: repeat bit-identical; "
+              f"{t['bf16_beyond']} outputs beyond one bf16 step of the plain "
+              f"version")
     if t.get("f32_outside") is not None:
         print(f"kernels: {name} at {shape}: a float32-summed cuBLAS product "
               f"has {t['f32_outside']} outputs outside rtol/atol 3e-5 of the "

@@ -535,10 +535,15 @@ def test_train_mode_on_gpu(gpu, arch):
                                                        tokens)
 
 
-# tests/test_kernels.py's int8 shapes, a ragged K x N edge, and llama2-7b's
-# down projection at decode (split K over blocks)
+# tests/test_kernels.py's int8 shapes, a ragged K x N edge, llama2-7b's
+# down projection at decode (split K over blocks), and the edges of the
+# bfloat16 kernel's plan: 16 rows a block up to M = 16 and 128 above, K not
+# a multiple of the 32-deep stage, and N not a multiple of 16 (element
+# loads, not 16-byte copies)
 INT8_SHAPES = [(128, 512, 128), (70, 300, 130), (1, 1024, 256),
-               (256, 64, 64), (5, 7, 3), (4, 11008, 4096)]
+               (256, 64, 64), (5, 7, 3), (4, 11008, 4096),
+               (16, 4104, 4100), (17, 4104, 4100), (17, 4104, 4096),
+               (130, 4104, 4096)]
 INT8_TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -560,6 +565,23 @@ def test_int8_kernel_matches_plain_on_gpu(gpu, m, k, n, dtype):
     assert I8.int8_matmul.launches == before + 1
     assert got.shape == (1, m, n) and got.dtype == x.dtype
     torch.testing.assert_close(got.float(), want.float(), **INT8_TOL[dtype])
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 4096), (17, 4104, 4100),
+                                   (300, 4096, 4096)])
+def test_int8_bf16_repeat_is_bit_identical(gpu, m, k, n):
+    """The bfloat16 kernel sums in a fixed order (split-K reduced in index
+    order, no atomics): a second call on the same inputs gives the same
+    bits, at a split-K decode shape, a masked one and a 128-row one."""
+    rng = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    x = x.to(gpu, torch.bfloat16)
+    wq, sc = I8.quantize_int8(w.to(gpu))
+    first = I8.int8_matmul(x, wq, sc)
+    second = I8.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_int8_wrapper_raises_on_what_the_kernel_does_not_take(gpu):
