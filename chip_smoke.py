@@ -54,7 +54,8 @@ exits non-zero and prints no result line; no phase catches its own failure.
    bfloat16 kernel's edges (M = 1, 16, 17 and 130, K = 4104, N = 4100 and
    4096); in bfloat16 each call repeated (bit-identical) and its outputs
    beyond one bf16 step of the plain version counted.  Then each is
-   timed at the main path's shapes beside the plain version, one library
+   timed at the main path's shapes (the pipeline's decode at one slot a
+   call over 64 keys too) beside the plain version, one library
    call where there is one and the card's bound, and every timing input set
    is held against the plain version too.  Kernel and library calls are
    timed as a CUDA graph's replay, so a short kernel's time is the card's
@@ -81,6 +82,18 @@ exits non-zero and prints no result line; no phase catches its own failure.
    then the score phase: ``forward(mode="train")`` over 2 x 4096 seeded
    tokens under ``torch.no_grad``, ``impl="cuda"`` (one flash launch per
    layer, no decode kernel) against ``impl="ref"``;
+   then the pipeline phase, the paper's path: ``LLM.from_plan`` plans
+   llama2-7b over the paper's testbed (the throughput DP: 13 uneven
+   stages) and serves the plan as the no-bubbles stage pipeline on this
+   card, one request of 16-48 prompt tokens per slot x 16 greedy tokens,
+   ``max_len`` 64, on the contiguous layout (the contiguous-ring kernel
+   once per layer and fed token) and then the paged one (the paged
+   kernel likewise); each serve's logits, which chose its greedy tokens,
+   within 0.25 of the contiguous ``TensorBackend``'s fed the same tokens;
+   tick ms, tokens/s, the phase's wall and a profiled window; then the
+   planned stages' ``pipeline_forward`` over 2 x 4096 tokens in 2
+   micro-batches (the flash kernel once per layer and micro-batch)
+   against ``forward(mode="train", impl="ref")``;
 5. hybrid  -- the llama2 weights freed, recurrentgemma-2b at full width and
    depth (18 RG-LRU and 8 local-attention layers, window 2048), random
    weights from a seed, ``max_len`` 4096, six greedy requests over four
@@ -156,6 +169,12 @@ TRAIN_DATA_VOCAB = 64               # the launcher's synthetic token support
 STREAM_REQUESTS, STREAM_SHARED, STREAM_TAIL = 8, 1024, (16, 200)
 STREAM_CHUNK = 256
 STREAM_MAX_LEN = 1280               # 1024 + 200 + 32 = 1256, in whole blocks
+# the pipeline phase: LLM.from_plan over the paper's testbed (13 planned
+# stages for llama2-7b), one request per slot so the ring is full, prompts
+# of 16-48 tokens, 16 greedy tokens each; its microbatched forward over the
+# score phase's 2 x 4096 tokens in 2 micro-batches
+PIPE_PROMPT_LENS, PIPE_TOKENS, PIPE_MAX_LEN = (16, 48), 16, 64
+PIPE_MICROBATCHES = 2
 # the int8 matmul: the JAX kernel test's shapes (M, K, N), and llama2-7b's
 # projections (K x N: q/k/v/o, gate/up, down) at a decode step of 4 slots
 # and a prefill of 2 x 4096 tokens
@@ -606,24 +625,25 @@ def time_ms(fn, n_sets, iters=200, warmup=10, graph=True):
     return start.elapsed_time(end) / iters
 
 
-def paged_sets(kq, max_len=MAX_LEN, n_sets=4):
+def paged_sets(kq, max_len=MAX_LEN, n_sets=4, slots=SLOTS):
     """``n_sets`` seeded bf16 inputs of paged_attention at a paged serve's
-    shapes: llama2-7b, 4 slots with ``max_len`` keys each, ``kq`` query
-    tokens per slot; 4 x 34 MB or more of K/V, past the L2."""
+    shapes: llama2-7b, ``slots`` slots with ``max_len`` keys each, ``kq``
+    query tokens per slot; by default 4 x 34 MB or more of K/V, past the
+    L2."""
     from paged_cases import paged_case
-    return [to_device(paged_case(SLOTS, 32, 32, 128, BLOCK_SIZE,
+    return [to_device(paged_case(slots, 32, 32, 128, BLOCK_SIZE,
                                  max_len // BLOCK_SIZE,
-                                 (max_len - kq + 1,) * SLOTS, kq,
+                                 (max_len - kq + 1,) * slots, kq,
                                  seed=200 + i), torch.bfloat16)
             for i in range(n_sets)]
 
 
-def time_paged(pa, card, kq, max_len=MAX_LEN):
+def time_paged(pa, card, kq, max_len=MAX_LEN, slots=SLOTS, n_sets=4):
     """paged_attention on :func:`paged_sets`: by default the paged serve's
-    512 keys."""
+    4 slots x 512 keys."""
     import torch.nn.functional as F
 
-    sets = paged_sets(kq, max_len)
+    sets = paged_sets(kq, max_len, n_sets, slots)
     n_sets = len(sets)
     lib = []
     for x in sets:
@@ -654,7 +674,7 @@ def time_paged(pa, card, kq, max_len=MAX_LEN):
     kh, item = x["k_pool"].shape[2], x["k_pool"].element_size()
     n_keys = int((x["key_pos"] >= 0).sum())
     n_bytes = (2 * x["q"].numel() * item + n_keys * kh * d * 2 * item
-               + x["key_pos"].numel() * 4 + x["bt"].numel() * 4 + SLOTS * 4)
+               + x["key_pos"].numel() * 4 + x["bt"].numel() * 4 + slots * 4)
     n_ops = n_keys * kq * h * 4 * d
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, splits=table_splits(pa, x),
@@ -662,25 +682,26 @@ def time_paged(pa, card, kq, max_len=MAX_LEN):
 
 
 def decode_sets(n_valid, heads=(32, 32, 128), c=CONTIGUOUS_MAX_LEN,
-                n_sets=3):
+                n_sets=3, slots=SLOTS):
     """``n_sets`` seeded bf16 inputs of decode_attention at a contiguous
-    serve's shapes: 4 slots with a ``c``-key ring each, ``n_valid`` keys
-    filled; by default llama2-7b's heads (H, KH, D) and 4096-key ring."""
+    serve's shapes: ``slots`` slots with a ``c``-key ring each, ``n_valid``
+    keys filled; by default 4 slots, llama2-7b's heads (H, KH, D) and
+    4096-key ring."""
     from paged_cases import ring_case
     h, kh, d = heads
-    return [to_device(ring_case(SLOTS, h, kh, d, c, (n_valid,) * SLOTS,
+    return [to_device(ring_case(slots, h, kh, d, c, (n_valid,) * slots,
                                 seed=400 + i), torch.bfloat16)
             for i in range(n_sets)]
 
 
 def time_decode(da, card, n_valid, heads=(32, 32, 128),
-                c=CONTIGUOUS_MAX_LEN, n_sets=3):
+                c=CONTIGUOUS_MAX_LEN, n_sets=3, slots=SLOTS):
     """decode_attention on :func:`decode_sets`; ``n_sets`` input sets
     together exceed the L2."""
     import torch.nn.functional as F
 
     h, kh, d = heads
-    sets = decode_sets(n_valid, heads, c, n_sets)
+    sets = decode_sets(n_valid, heads, c, n_sets, slots)
     lib = []
     for x in sets:
         kp = x["key_pos"]
@@ -1017,10 +1038,10 @@ class StepClock:
                 f"(min {min(ms):.3f}, max {max(ms):.3f})")
 
 
-def waves(prompts):
-    """The requests in waves of ``SLOTS``, left-padded per wave."""
-    for w in range(0, len(prompts), SLOTS):
-        wave = list(range(w, min(w + SLOTS, len(prompts))))
+def waves(prompts, slots=SLOTS):
+    """The requests in waves of ``slots``, left-padded per wave."""
+    for w in range(0, len(prompts), slots):
+        wave = list(range(w, min(w + slots, len(prompts))))
         width = max(len(prompts[i]) for i in wave)
         padded = np.zeros((len(wave), width), np.int32)
         for j, i in enumerate(wave):
@@ -1028,15 +1049,19 @@ def waves(prompts):
         yield wave, padded, [len(prompts[i]) for i in wave]
 
 
-def teacher_forced(backend, prompts, tokens):
-    """Decode logits [n_req, MAX_TOKENS - 1, V] with each request's own
-    generated tokens fed back."""
+def teacher_forced(backend, prompts, tokens, n_slots=SLOTS,
+                   n_tokens=MAX_TOKENS, first=False):
+    """Decode logits [n_req, n_tokens - 1, V] with each request's own
+    generated tokens fed back, in waves of ``n_slots``; with ``first``,
+    [n_req, n_tokens, V]: the prefill's logits (those that chose each
+    request's first token) ahead of them."""
     rows = []
-    for wave, padded, lens in waves(prompts):
+    for wave, padded, lens in waves(prompts, n_slots):
         slots = list(range(len(wave)))
-        backend.prefill(slots, padded, lens)
-        steps = []
-        for t in range(MAX_TOKENS - 1):
+        evs = {ev.slot: ev.logits
+               for ev in backend.prefill(slots, padded, lens)}
+        steps = [np.stack([evs[s] for s in slots])] if first else []
+        for t in range(n_tokens - 1):
             evs = backend.decode_step({s: tokens[i][t]
                                        for s, i in zip(slots, wave)})
             steps.append(np.stack([ev.logits for ev in evs]))
@@ -1066,15 +1091,18 @@ def teacher_forced_verify(backend, prompts, tokens):
     return np.concatenate(rows)
 
 
-def compare_logits(what, got, card):
-    diff = np.abs(got["cuda"] - got["ref"])
-    if not np.isfinite(got["cuda"]).all() or diff.max() > LOGITS_ATOL:
-        raise AssertionError(f"{what} logits cuda vs ref: max abs diff "
-                             f"{diff.max():.4g} > {LOGITS_ATOL}")
-    agree = int((got["cuda"].argmax(-1) == got["ref"].argmax(-1)).sum())
-    print(f"serve: teacher-forced {what} logits {list(got['cuda'].shape)}, "
-          f"impl cuda vs ref max abs diff {diff.max():.4g} (mean "
-          f"{diff.mean():.3g}, |logits| max {np.abs(got['ref']).max():.3g}; "
+def compare_logits(what, got, card, sides=("cuda", "ref")):
+    """``got`` maps each of the two ``sides`` to logits of one shape; the
+    first must be finite and within ``LOGITS_ATOL`` of the second."""
+    (name_a, name_b), (a, b) = sides, (got[k] for k in sides)
+    diff = np.abs(a - b)
+    if not np.isfinite(a).all() or diff.max() > LOGITS_ATOL:
+        raise AssertionError(f"{what} logits {name_a} vs {name_b}: max abs "
+                             f"diff {diff.max():.4g} > {LOGITS_ATOL}")
+    agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    print(f"serve: teacher-forced {what} logits {list(a.shape)}, "
+          f"{name_a} vs {name_b} max abs diff {diff.max():.4g} (mean "
+          f"{diff.mean():.3g}, |logits| max {np.abs(b).max():.3g}; "
           f"atol {LOGITS_ATOL}), argmax agreement "
           f"{agree}/{diff.shape[0] * diff.shape[1]} [{card}]")
 
@@ -1113,9 +1141,9 @@ class Model:
                         .astype(np.int32) for n in prompt_lens]
 
     def backend(self, impl, layout="paged", max_len=MAX_LEN,
-                prefix_cache=False):
+                prefix_cache=False, n_slots=SLOTS):
         from repro_torch.runtime import TensorBackend
-        be = TensorBackend(self.cfg, self.params, n_slots=SLOTS,
+        be = TensorBackend(self.cfg, self.params, n_slots=n_slots,
                            max_len=max_len, impl=impl, cache_layout=layout,
                            block_size=BLOCK_SIZE, device=DEVICE,
                            prefix_cache=prefix_cache)
@@ -1593,6 +1621,222 @@ def score(model, kernels, card):
     return launches
 
 
+def pipeline_prompts(cfg, n):
+    """``n`` prompts of 16-48 tokens from SEED."""
+    rng = np.random.default_rng(SEED)
+    lo, hi = PIPE_PROMPT_LENS
+    return [rng.integers(0, cfg.vocab_size, k).astype(np.int32)
+            for k in rng.integers(lo, hi + 1, n)]
+
+
+def profile_ring(label, llm, prompts, sp, card):
+    """The card's busy share over two turns of the ring in mid-serve: the
+    pipeline serve's own requests again, profiled from the turn at which
+    the shortest prompts generate and the longest are still
+    teacher-forced.  Every slot is live there (the shortest request feeds
+    its prompt and ``max_tokens - 1`` tokens), so every stage runs each
+    tick.  The serve is dropped after the window."""
+    be = llm.backend
+    m = be.spec.n_stages
+    shortest = min(len(p) for p in prompts)
+    turn = shortest + sp.max_tokens // 2 - 2
+    if turn + 2 > shortest + sp.max_tokens - 1:
+        raise AssertionError(f"{label}: no full ring to profile")
+    for uid, prompt in enumerate(prompts):
+        llm.submit(prompt, sp, uid=len(prompts) + uid)
+    t0 = be.state.tick
+    while be.state.tick < t0 + turn * m:
+        llm.step()
+    # after a tick, buf_valid[1:] holds the validity of its stages
+    # 0 .. m - 2; its last stage ran what stage m - 2 held a tick before
+    live = [sum(be.state.buf_valid[1:])]
+
+    def window():
+        while be.state.tick < t0 + (turn + 2) * m:
+            llm.step()
+            live.append(sum(be.state.buf_valid[1:]))
+
+    device_share(label, f"ticks {turn * m}-{(turn + 2) * m - 1} of the "
+                 f"serve (prompts {shortest}+ tokens: turns {turn}, "
+                 f"{turn + 1})", window, card)
+    if min(live) < m - 1:
+        raise AssertionError(f"{label}: a profiled tick ran {min(live) + 1} "
+                             f"of {m} stages")
+    print(f"{label}: profiled window {len(live) - 1} ticks, every stage "
+          f"live in each")
+
+
+def serve_pipeline(model, kernels, card):
+    """The paper's path: ``LLM.from_plan`` plans llama2-7b over the paper's
+    testbed with the port's DP (throughput objective) and serves the
+    planned stages as the no-bubbles pipeline on this card, one request
+    per slot, on the contiguous layout and then the paged one.  Each
+    serve's decode kernel launches once per layer and fed token, the other
+    never; the logits that chose each greedy token agree with the
+    contiguous TensorBackend's, fed the same tokens.  Then the planned
+    stages' microbatched train-mode forward (the flash kernel once per
+    layer and micro-batch) against the unstaged ref path.  ``kernels`` maps
+    each kernel's name to its wrapper; returns each layout's launches and
+    the forward's."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.devices import paper_testbed
+    from repro_torch.core.profile import Workload
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = model.cfg
+    sp = SamplingParams(max_tokens=PIPE_TOKENS)
+
+    def plan(layout):
+        return LLM.from_plan(cfg, paper_testbed(), Workload(dtype_bytes=2),
+                             objective="throughput", kind="pipeline",
+                             params=model.params, max_len=PIPE_MAX_LEN,
+                             cache_layout=layout, block_size=BLOCK_SIZE,
+                             impl="cuda", device=DEVICE, seed=SEED)
+
+    llm = plan("contiguous")
+    spec = llm.backend.spec
+    periods = spec.periods_per_stage
+    if spec.n_stages < 2 or max(periods) == min(periods):
+        raise AssertionError(f"pipeline: planned stages {periods}: expected "
+                             f"two or more, uneven")
+    prompts = pipeline_prompts(cfg, spec.n_stages)
+    print(f"pipeline: LLM.from_plan({cfg.name}, paper_testbed(), "
+          f"objective='throughput'): {spec.n_stages} stages, periods per "
+          f"stage {periods}; {spec.n_stages} requests of "
+          f"{[len(p) for p in prompts]} prompt tokens x {PIPE_TOKENS} greedy "
+          f"tokens, one a slot, max_len {PIPE_MAX_LEN}")
+    be = model.backend("cuda", "contiguous", PIPE_MAX_LEN,
+                       n_slots=spec.n_stages)
+    tensor_tokens = [o.tokens for o in LLM.from_backend(be, seed=SEED)
+                     .generate(prompts, sp)]
+    del be
+    fed = sum(len(p) + PIPE_TOKENS - 1 for p in prompts)
+    out = {}
+    for layout in ("contiguous", "paged"):
+        t_phase = time.perf_counter()
+        llm = llm or plan(layout)
+        be = llm.backend
+        if be.spec != spec or be.info.attn_impl != "cuda" \
+                or be.n_slots != spec.n_stages:
+            raise AssertionError(f"pipeline {layout}: spec {be.spec}, "
+                                 f"attn_impl {be.info.attn_impl}, "
+                                 f"{be.n_slots} slots")
+        starts, logits = [], {}
+        tick = be.decode_step
+
+        def timed(feeds, tick=tick, llm=llm):
+            """One tick, its start stamped on the host clock (no sync
+            added); the logits of each completed micro-batch under its
+            request."""
+            starts.append(time.perf_counter())
+            events = tick(feeds)
+            for ev in events:
+                uid = llm.batcher._slot_req[ev.slot].uid
+                logits.setdefault(uid, []).append(ev.logits)
+            return events
+
+        be.decode_step = timed
+        llm.generate([prompts[0][:2]], SamplingParams(max_tokens=1))
+        starts.clear()
+        logits.clear()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs = run_requests(llm, prompts, sp)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        wall = t_end - t0
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        # a tick's time: from its start to the next tick's (the scheduler's
+        # work between them included), the last one's to the serve's end
+        ticks = np.diff(starts + [t_end]) * 1e3
+        kernel = "decode_attention" if layout == "contiguous" \
+            else "paged_attention"
+        want = {n: cfg.n_layers * fed if n == kernel else 0 for n in kernels}
+        if launches != want:
+            raise AssertionError(f"pipeline {layout}: launches {launches}, "
+                                 f"expected {want} ({fed} fed tokens)")
+        tokens = [o.tokens for o in outs]
+        same = sum(int(a == b) for t, u in zip(tokens, tensor_tokens)
+                   for a, b in zip(t, u))
+        total = sum(o.n_generated for o in outs)
+        print(f"pipeline {layout}: {len(ticks)} ticks, {kernel} launches "
+              f"{launches[kernel]} = {cfg.n_layers} layers x {fed} fed "
+              f"tokens, the other decode kernel 0; greedy tokens equal to "
+              f"the contiguous TensorBackend's: {same}/{total}; "
+              f"{llm.stats.preemptions} preemptions")
+        print(f"pipeline {layout}: tick ms median "
+              f"{statistics.median(ticks):.3f} (min {min(ticks):.3f}, max "
+              f"{max(ticks):.3f}), {total / wall:.1f} tokens/s ({fed / wall:.1f} "
+              f"fed tokens/s) over {wall:.2f} s [{card}]")
+        be.decode_step = tick
+        profile_ring(f"pipeline {layout}", llm, prompts, sp, card)
+        got = np.stack([np.stack(logits[i]) for i in range(len(prompts))])
+        del llm, be, logits
+        torch.cuda.empty_cache()
+        tf = teacher_forced(model.backend("cuda", "contiguous", PIPE_MAX_LEN,
+                                          n_slots=spec.n_stages),
+                            prompts, tokens, spec.n_stages, PIPE_TOKENS,
+                            first=True)
+        # step 0: the logits after the whole teacher-forced prompt against
+        # the TensorBackend's prefill; then each fed-back token's
+        compare_logits(f"pipeline {layout} prompt",
+                       {"pipeline": got[:, :1], "TensorBackend": tf[:, :1]},
+                       card, sides=("pipeline", "TensorBackend"))
+        compare_logits(f"pipeline {layout} decode",
+                       {"pipeline": got[:, 1:], "TensorBackend": tf[:, 1:]},
+                       card, sides=("pipeline", "TensorBackend"))
+        print(f"pipeline {layout}: phase wall "
+              f"{time.perf_counter() - t_phase:.2f} s [{card}]")
+        out[layout] = launches[kernel]
+        llm = None
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SCORE_BATCH, SCORE_LEN))).to(DEVICE)
+    for fn in kernels.values():
+        fn.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = PL.pipeline_forward(cfg, model.params, tokens, spec,
+                                  PIPE_MICROBATCHES, impl="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        ref, _ = T.forward(cfg, model.params, tokens, mode="train",
+                           impl="ref")
+    want = {n: cfg.n_layers * PIPE_MICROBATCHES
+            if n == "flash_attention" else 0 for n in kernels}
+    if launches != want:
+        raise AssertionError(f"pipeline_forward: launches {launches}, "
+                             f"expected {want}")
+    diff = agree = 0
+    for row in range(SCORE_BATCH):
+        a, b = got[row].float(), ref[row].float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("pipeline_forward: non-finite logits")
+        diff = max(diff, (a - b).abs().max().item())
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+    if diff > LOGITS_ATOL:
+        raise AssertionError(f"pipeline_forward: logits against the ref "
+                             f"forward max abs diff {diff:.4g} > "
+                             f"{LOGITS_ATOL}")
+    print(f"pipeline_forward: {SCORE_BATCH} x {SCORE_LEN} tokens in "
+          f"{PIPE_MICROBATCHES} micro-batches over the {spec.n_stages} "
+          f"planned stages, impl cuda: {secs * 1e3:.1f} ms, flash_attention "
+          f"launches {launches['flash_attention']} = {cfg.n_layers} layers x "
+          f"{PIPE_MICROBATCHES} micro-batches; logits against "
+          f"forward(mode='train', impl='ref') max abs diff {diff:.4g} (atol "
+          f"{LOGITS_ATOL}), argmax agreement {agree}/"
+          f"{SCORE_BATCH * SCORE_LEN} [{card}]")
+    del got, ref
+    torch.cuda.empty_cache()
+    out["flash_attention"] = launches["flash_attention"]
+    return out
+
+
 def train_phase(fa, card):
     """qwen3-0.6b at full width and depth: the port's ``train`` (the loss
     must fall), timed train steps, the evaluation loss through the flash
@@ -1792,6 +2036,12 @@ def main():
         "decode_attention hybrid": time_decode(
             da, card, HYBRID_WINDOW, heads=(10, 1, 256), c=HYBRID_WINDOW,
             n_sets=8),
+        # the pipeline's decode: one slot a call, contexts of up to 64 keys;
+        # 64 sets of 1 MB of K/V exceed the L2
+        "decode_attention pipeline": time_decode(
+            da, card, PIPE_MAX_LEN, c=PIPE_MAX_LEN, n_sets=64, slots=1),
+        "paged_attention pipeline": time_paged(pa, card, 1, PIPE_MAX_LEN,
+                                               slots=1, n_sets=64),
         "rglru_scan": time_rglru(rs, card, HYBRID_MAX_LEN),
         "rglru_scan short": time_rglru(rs, card, 256),
         "flash_attention": time_flash(fa, card),
@@ -1813,6 +2063,10 @@ def main():
         "decode_attention hybrid": f"{HYBRID} (H=10, KH=1, D=256) x {SLOTS} "
                                    f"slots x {HYBRID_WINDOW}-key window "
                                    f"ring, full, bf16",
+        "decode_attention pipeline": f"llama2-7b x 1 slot x "
+                                     f"{PIPE_MAX_LEN}-key ring, full, bf16",
+        "paged_attention pipeline": f"llama2-7b x 1 slot x {PIPE_MAX_LEN} "
+                                    f"keys bf16",
         "rglru_scan": f"{HYBRID} {SLOTS} x {HYBRID_MAX_LEN} x 2560 f32",
         "rglru_scan short": f"{HYBRID} {SLOTS} x 256 x 2560 f32",
         "flash_attention": f"llama2-7b (H=KH=32, D=128) 1 x {SCORE_LEN}, "
@@ -1838,6 +2092,7 @@ def main():
     spec = serve_spec(model, pa, da, card, paged["tokens"])
     streamed = serve_streamed(model, wrappers, card)
     scored = score(model, wrappers, card)
+    pipe = serve_pipeline(model, wrappers, card)
     del model                       # 13.48 GB of llama2-7b weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -1882,6 +2137,17 @@ def main():
         entry("paged_attention streamed", "paged_attention@streamed",
               "paged_attention.cu", "decode_attention.py:201",
               streamed["launches"]),
+        # the planned stage pipeline: its decode ticks and its forward (at
+        # the score phase's 1 x 4096 a call, the flash row's shape)
+        entry("decode_attention pipeline", "decode_attention@pipeline",
+              "decode_attention.cu", "decode_attention.py:153",
+              pipe["contiguous"]),
+        entry("paged_attention pipeline", "paged_attention@pipeline",
+              "paged_attention.cu", "decode_attention.py:201",
+              pipe["paged"]),
+        entry("flash_attention", "flash_attention@pipeline",
+              "flash_attention.cu", "flash_attention.py:86",
+              pipe["flash_attention"]),
         # the op's entry point: one llama2-7b layer's projections in bf16
         entry("int8_matmul M=4 4096x4096 bfloat16", "int8_matmul",
               "int8_matmul.cu", "int8_matmul.py:41", int8_launches["decode"]),

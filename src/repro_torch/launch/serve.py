@@ -1,8 +1,15 @@
 """Serving launcher of the port: request-lifecycle generation through the
-``LLM`` facade over :class:`~repro_torch.runtime.TensorBackend`, on the
-contiguous (default) or the paged KV layout, optionally with speculative
-decoding, the prefix cache and chunked prefill on the paged one.  Weights
-are random, made from ``--seed``.
+``LLM`` facade, on the contiguous (default) or the paged KV layout.  Weights
+are random, made from ``--seed``.  Two modes:
+
+- ``--mode tp`` (default) -- :class:`~repro_torch.runtime.TensorBackend`,
+  optionally with speculative decoding, the prefix cache and chunked
+  prefill on the paged layout,
+- ``--mode pipeline`` -- the paper's deployment mode: ``LLM.from_plan``
+  runs the throughput DP over ``tpu_pod_cluster(n_chips=--stages)`` and
+  serves the (possibly uneven) stage plan as a no-bubbles pipeline on one
+  device.  Greedy tokens equal ``--mode tp``'s for the same seed and arch
+  in float32 (the ``--smoke`` variants).
 
     python -m repro_torch.launch.serve --arch llama2-7b --impl cuda \
         --batch 6 --slots 4 --prompt-len 256 --varlen --gen 32 --max-len 4096
@@ -15,14 +22,23 @@ are random, made from ``--seed``.
         --impl cuda --batch 8 --slots 4 --prompt-len 1224 \
         --shared-prefix 1024 --prefix-cache --prefill-chunk 256 --gen 32 \
         --max-len 1280 --expect-prefix-hits
+    python -m repro_torch.launch.serve --arch llama2-7b --mode pipeline \
+        --stages 4 --impl cuda --batch 8 --prompt-len 64 --varlen --gen 32 \
+        --max-len 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --impl ref --batch 4 --gen 8 [--stream]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --smoke --device cpu --mode pipeline --stages 4 --batch 4 --gen 8
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when no GPU
 is present.  The hybrid recurrentgemma-2b serves on the contiguous layout
-only; ``--cache-layout paged`` raises for it.  The pipeline mode, fault
-injection and the SLO policies of ``repro.launch.serve`` arrive with later
-slices of the port; this launcher has no flags for them.
+only; ``--cache-layout paged`` raises for it, and the pipeline mode too
+(its 26 layers are no whole number of 3-layer periods).  In pipeline mode
+``--spec-k``, ``--prefix-cache`` and ``--prefill-chunk`` stop the launcher:
+the pipeline's speculative verify, prefix cache and streamed admission
+arrive with later slices.  Fault injection and the SLO policies of
+``repro.launch.serve`` arrive with later slices too; this launcher has no
+flags for them, nor ``--devices`` (the reference's fake-XLA-device count).
 """
 import argparse
 import time
@@ -33,10 +49,17 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced (tiny, float32) variant of --arch")
+    ap.add_argument("--mode", default="tp", choices=["tp", "pipeline"],
+                    help="the tensor backend, or the planned no-bubbles "
+                         "stage pipeline (LLM.from_plan)")
+    ap.add_argument("--stages", type=int, default=4,
+                    help="pipeline mode: plan over a cluster of this many "
+                         "chips (the DP may use fewer stages)")
     ap.add_argument("--batch", type=int, default=4,
                     help="number of requests to serve")
     ap.add_argument("--slots", type=int, default=0,
-                    help="backend slots (default: --batch)")
+                    help="backend slots (default: --batch for tp, the "
+                         "planned stages for pipeline)")
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--varlen", action="store_true",
                     help="vary prompt lengths in [prompt_len/2, prompt_len] "
@@ -94,12 +117,23 @@ def main(argv=None):
                     help="print tokens as they decode (streaming API)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.mode == "pipeline":
+        for flag, on in (("--spec-k", args.spec_k >= 2),
+                         ("--prefix-cache", args.prefix_cache),
+                         ("--prefill-chunk", args.prefill_chunk)):
+            if on:
+                ap.error(f"{flag} is not available in --mode pipeline: the "
+                         f"pipeline's speculative verify, prefix cache and "
+                         f"streamed admission arrive with later slices of "
+                         f"the port; use --mode tp")
 
     import numpy as np
     import torch
 
     from repro_torch.bridge import init_params
     from repro_torch.configs import get_config
+    from repro_torch.core.devices import tpu_pod_cluster
+    from repro_torch.core.profile import Workload
     from repro_torch.device import resolve_device
     from repro_torch.runtime import TensorBackend
     from repro_torch.serving import LLM, SamplingParams
@@ -127,11 +161,27 @@ def main(argv=None):
         prompts = [np.concatenate([pre, p[args.shared_prefix:]])
                    for p in prompts]
 
-    backend = TensorBackend(
-        cfg, params, n_slots=args.slots or args.batch, max_len=args.max_len,
-        impl=args.impl, cache_layout=args.cache_layout,
-        block_size=args.block_size, num_blocks=args.kv_blocks or None,
-        device=dev, prefix_cache=args.prefix_cache)
+    kv_kw = dict(max_len=args.max_len, impl=args.impl,
+                 cache_layout=args.cache_layout, block_size=args.block_size,
+                 num_blocks=args.kv_blocks or None, device=dev)
+    if args.mode == "pipeline":
+        # planner -> backend -> serving in one call: the DP chooses the
+        # (possibly uneven) stage layout over a homogeneous cluster profile
+        # of --stages chips; every stage runs on this one device
+        llm = LLM.from_plan(
+            cfg, tpu_pod_cluster(n_chips=args.stages),
+            Workload(prompt_len=args.prompt_len, gen_tokens=args.gen,
+                     dtype_bytes=2),
+            objective="throughput", kind="pipeline", params=params,
+            n_slots=args.slots or None, seed=args.seed,
+            min_bucket=args.min_bucket, **kv_kw)
+        print(f"planned stages (periods per stage): "
+              f"{llm.backend.spec.periods_per_stage}")
+        backend = llm.backend
+    else:
+        backend = TensorBackend(cfg, params,
+                                n_slots=args.slots or args.batch,
+                                prefix_cache=args.prefix_cache, **kv_kw)
     info = backend.info
     if args.spec_k >= 2 and not info.spec_decode:
         print(f"note: --spec-k {args.spec_k} ignored: the backend does not "
@@ -144,10 +194,11 @@ def main(argv=None):
               f"backend reports prefix_caching=False over cache_layout="
               f"{info.cache_layout!r} (needs --cache-layout paged and an "
               f"all-attention model)")
-    llm = LLM.from_backend(backend, seed=args.seed,
-                           min_bucket=args.min_bucket,
-                           prefill_chunk=args.prefill_chunk or None,
-                           spec_k=args.spec_k, draft=args.draft)
+    if args.mode == "tp":
+        llm = LLM.from_backend(backend, seed=args.seed,
+                               min_bucket=args.min_bucket,
+                               prefill_chunk=args.prefill_chunk or None,
+                               spec_k=args.spec_k, draft=args.draft)
     sp = SamplingParams(max_tokens=args.gen)
     t0 = time.time()
     if args.stream:

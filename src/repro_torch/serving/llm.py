@@ -3,11 +3,11 @@
 Port of ``repro.serving.llm``.  This is the public serving surface — the
 backend and batcher below it are plumbing it wires together:
 
+    llm = LLM.from_plan(cfg, cluster, workload, kind="pipeline",
+                        params=params, impl="cuda")     # Fig. 3 in one call
     llm = LLM.from_backend(TensorBackend(cfg, params, n_slots=4,
                                          max_len=512, impl="cuda"))
     outs = llm.generate(prompts, SamplingParams(max_tokens=32))
-
-``from_plan`` (planner + backend factory) arrives with the planner slice.
 
 Three ways to drive it, all over the same :class:`ContinuousBatcher`:
 
@@ -77,6 +77,7 @@ class LLM:
                                          spec_k=spec_k, draft=draft,
                                          max_retries=max_retries)
         self.backend = self.batcher.backend
+        self.deployment = None          # set by from_plan
 
     # ------------------------------------------------------------------ #
     # constructors
@@ -85,6 +86,57 @@ class LLM:
     def from_backend(cls, backend, **kw) -> "LLM":
         """Wrap an already-built backend."""
         return cls(backend, **kw)
+
+    @classmethod
+    def from_plan(cls, cfg, cluster, workload=None, *,
+                  objective: str = "throughput", kind: str = "pipeline",
+                  params=None, n_slots: Optional[int] = None,
+                  max_len: int = 256, cache_dtype=None,
+                  schedule: str = "nobubbles", impl: str = "ref",
+                  seed: int = 0, min_bucket: int = 1, pad_id: int = 0,
+                  cache_layout: str = "contiguous", block_size: int = 16,
+                  num_blocks: Optional[int] = None,
+                  prefix_cache: bool = False,
+                  prefill_chunk: Optional[int] = None,
+                  policy=None, max_preemptions: int = 3,
+                  spec_k: int = 0, draft="ngram", max_retries: int = 3,
+                  device=None) -> "LLM":
+        """Plan -> backend -> serving in one call (the paper's Fig. 3 flow).
+
+        Runs the EdgeShard joint device-selection + partition DP over
+        ``cluster`` (the port's copy of the planner) and materializes the
+        chosen deployment as a running backend: ``kind="pipeline"`` (the
+        no-bubbles stage pipeline, its uneven stages the planner's),
+        ``"tensor"`` (the single-device tensor backend), or ``"sim"`` (the
+        cost model -- no ``params`` needed).  The planned ``Deployment`` is
+        kept on ``llm.deployment``.  Real kinds run on ``device``: the GPU
+        unless ``"cpu"`` is asked for.
+
+        The other keywords are :meth:`from_backend`'s and
+        :func:`~repro_torch.runtime.factory.from_deployment`'s.  The
+        pipeline serves plain decode with monolithic admission for now: it
+        reports ``spec_decode=False`` (``spec_k`` then warns and serves
+        normally) and raises for ``prefix_cache=True``.
+        """
+        from repro_torch.core.planner import plan_deployment
+        from repro_torch.core.profile import Workload
+        from repro_torch.runtime.factory import from_deployment
+        workload = workload or Workload(dtype_bytes=2)
+        dep = plan_deployment(cfg, cluster, workload, objective=objective)
+        backend = from_deployment(dep, cluster, cfg, kind=kind, params=params,
+                                  workload=workload, n_slots=n_slots,
+                                  max_len=max_len, cache_dtype=cache_dtype,
+                                  schedule=schedule, impl=impl,
+                                  cache_layout=cache_layout,
+                                  block_size=block_size,
+                                  num_blocks=num_blocks,
+                                  prefix_cache=prefix_cache, device=device)
+        llm = cls(backend, seed=seed, min_bucket=min_bucket, pad_id=pad_id,
+                  prefill_chunk=prefill_chunk, policy=policy,
+                  max_preemptions=max_preemptions,
+                  spec_k=spec_k, draft=draft, max_retries=max_retries)
+        llm.deployment = dep
+        return llm
 
     # ------------------------------------------------------------------ #
     # stepping interface (servers)

@@ -3,8 +3,9 @@ kernels, the RG-LRU scan kernel and the int8 matmul against their plain
 versions, the wrappers' checks, the served models through the kernels
 against the ref paths, with and without speculative decoding, with
 streamed admission (prefix cache and chunked prefill) and for the hybrid
-recurrentgemma, and the train mode (the forward through the flash kernel,
-gradients on the ref path).
+recurrentgemma, the train mode (the forward through the flash kernel,
+gradients on the ref path), and the no-bubbles stage pipeline (its served
+tokens and its microbatched forward through the kernels).
 Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
 CPU or interpret mode).  The file imports no jax, so it runs on the GPU
 machine:
@@ -20,13 +21,15 @@ from flash_reference import bf16_steps_apart, flash_attention_f64  # noqa: E402
 from paged_cases import paged_case, poison_unread, ring_case  # noqa: E402
 from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import pipeline as PL  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import int8_matmul as I8  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.runtime import TensorBackend, TorchTensorBackend  # noqa: E402
+from repro_torch.runtime import (PipelineBackend, TensorBackend,  # noqa: E402
+                                 TorchTensorBackend)
 from repro_torch.serving import LLM, SamplingParams  # noqa: E402
 from repro_torch.serving.spec import OracleDraft  # noqa: E402
 from repro_torch.training import TrainConfig, adamw_init  # noqa: E402
@@ -627,3 +630,59 @@ def test_streamed_tokens_equal_monolithic_on_gpu(gpu):
     assert outs[True] == outs[False]
     assert stats[True].prefix_hits >= 3 and stats[True].prefill_chunks > 5
     assert stats[False].prefix_hits == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "qwen3-0.6b"])
+def test_pipeline_tokens_equal_tensor_backend_on_gpu(gpu, arch, layout):
+    """Reduced model in float32 on the card: the no-bubbles pipeline over
+    uneven stages with an empty first stage serves the contiguous
+    TensorBackend's greedy tokens (a pool small enough to preempt on the
+    paged layout), its layout's decode kernel launching once per layer and
+    fed token and the other never."""
+    cfg = get_config(arch).reduced(n_layers=4)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 40, 17, 9)]
+    sp = SamplingParams(max_tokens=12)
+    want = [o.tokens for o in LLM.from_backend(TensorBackend(
+        cfg, params, n_slots=3, max_len=64, impl="cuda")).generate(
+            prompts, sp)]
+    be = PipelineBackend(cfg, params, PL.PipelineSpec(3, (0, 3, 1)),
+                         n_slots=4, max_len=64, impl="cuda",
+                         cache_layout=layout, block_size=16,
+                         num_blocks=4 if layout == "paged" else None)
+    assert be.info.attn_impl == "cuda"
+    da, pa = DA.decode_attention.launches, PA.paged_attention.launches
+    llm = LLM.from_backend(be)
+    got = [o.tokens for o in llm.generate(prompts, sp)]
+    assert got == want
+    launched = (DA.decode_attention.launches - da,
+                PA.paged_attention.launches - pa)
+    if layout == "paged":
+        assert llm.stats.preemptions > 0
+        assert launched[0] == 0 and launched[1] > 0
+    else:
+        # every prompt token and every generated token but the last rides
+        # the whole ring once: one launch per layer
+        fed = sum(len(p) + sp.max_tokens - 1 for p in prompts)
+        assert launched == (cfg.n_layers * fed, 0)
+
+
+def test_pipeline_forward_on_gpu(gpu):
+    """Reduced llama2-7b in float32 on the card: the microbatched forward
+    through the flash kernel (one launch per layer and micro-batch) equals
+    the unstaged ref path at 2e-4, over uneven stages with an empty one."""
+    cfg = get_config("llama2-7b").reduced(n_layers=5)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 40))).to(gpu)
+    with torch.no_grad():
+        want, _ = TT.forward(cfg, params, tokens, mode="train", impl="ref")
+        before = FA.flash_attention.launches
+        got = PL.pipeline_forward(cfg, params, tokens,
+                                  PL.PipelineSpec(4, (2, 0, 2, 1)), 2,
+                                  impl="cuda")
+    assert FA.flash_attention.launches - before == cfg.n_layers * 2
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
