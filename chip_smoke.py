@@ -55,7 +55,9 @@ exits non-zero and prints no result line; no phase catches its own failure.
    4096); in bfloat16 each call repeated (bit-identical) and its outputs
    beyond one bf16 step of the plain version counted.  Then each is
    timed at the main path's shapes (the pipeline's decode at one slot a
-   call over 64 keys too) beside the plain version, one library
+   call over 64 keys, the hybrid's paged decode over its 2048-key window
+   and the fleet's over 128-key tables too) beside the plain version, one
+   library
    call where there is one and the card's bound, and every timing input set
    is held against the plain version too.  Kernel and library calls are
    timed as a CUDA graph's replay, so a short kernel's time is the card's
@@ -94,15 +96,30 @@ exits non-zero and prints no result line; no phase catches its own failure.
    planned stages' ``pipeline_forward`` over 2 x 4096 tokens in 2
    micro-batches (the flash kernel once per layer and micro-batch)
    against ``forward(mode="train", impl="ref")``;
-5. hybrid  -- the llama2 weights freed, recurrentgemma-2b at full width and
-   depth (18 RG-LRU and 8 local-attention layers, window 2048), random
-   weights from a seed, ``max_len`` 4096, six greedy requests over four
-   slots, one prompt of 2100 tokens so its ring wraps: the scan kernel
-   launches once per RG-LRU layer and prefill wave, the contiguous-ring
-   kernel once per attention layer and decode step, the paged one never;
-   the paged layout refuses the hybrid; teacher-forced logits, cuda
-   against ref (the doubling scan and the ring sdpa); then its score
-   phase at 2 x 4096 tokens (8 windowed flash launches, 18 scan launches);
+   then the fleet phase: a ``Fleet`` of two paged replicas (4 slots each)
+   over the same weight tensors is fed ``bursty_trace``'s 24 requests of
+   8-48 prompt tokens x 32 greedy tokens through ``replay``, fault free and
+   with the second replica wrapped in ``FaultInjectionBackend`` crashing at
+   its 21st decode call: one quarantine, the crashed replica's work
+   recovered on the survivor, every request finished or shed with its
+   reason, every token emitted before the crash step equal to the fault-free
+   run's (and how many after it), the paged kernel once per layer and
+   decode step, the peak device memory holding the weights once; then, the
+   weights freed, ``repro_torch.launch.serve`` in this process with
+   ``--policy edf --ttft-slo 64 --inject-faults transient@decode_step:5x2
+   --max-retries 3``: every request finishes, two retries, no escalation;
+5. hybrid  -- recurrentgemma-2b at full width and depth (18 RG-LRU and 8
+   local-attention layers, window 2048), random weights from a seed,
+   ``max_len`` 4096, six greedy requests over four slots, one prompt of
+   2100 tokens so its ring wraps, on the contiguous layout and then the
+   paged one (blocks of 16; the RG-LRU state stays dense beside the
+   pools): the scan kernel launches once per RG-LRU layer and prefill wave,
+   the contiguous-ring kernel (contiguous) or the paged kernel (paged)
+   once per attention layer and decode step, the other never;
+   teacher-forced logits, cuda against ref (the doubling scan and the ring
+   or gathered sdpa), and the paged serve's against the contiguous
+   serve's; then its score phase at 2 x 4096 tokens (8 windowed flash
+   launches, 18 scan launches);
 6. train   -- the hybrid's weights freed, qwen3-0.6b at full width and
    depth (28 layers, bf16 weights, float32 moments): 8 AdamW steps of the
    port's ``train`` on the synthetic stream (batch 4 x 512 tokens,
@@ -175,6 +192,16 @@ STREAM_MAX_LEN = 1280               # 1024 + 200 + 32 = 1256, in whole blocks
 # score phase's 2 x 4096 tokens in 2 micro-batches
 PIPE_PROMPT_LENS, PIPE_TOKENS, PIPE_MAX_LEN = (16, 48), 16, 64
 PIPE_MICROBATCHES = 2
+# the fleet phase: two paged replicas of llama2-7b (4 slots each) over one
+# set of weights, bursty_trace's 24 requests (prompts of 8-48 tokens) with
+# 32 greedy tokens each, fault free and with a crash of the second replica
+FLEET_REQUESTS, FLEET_MAX_LEN, FLEET_POLICY = 24, 128, "edf"
+FLEET_CRASH = "crash@decode_step:20"
+LAUNCHER_ARGV = ["--arch", ARCH, "--impl", "cuda", "--cache-layout", "paged",
+                 "--batch", "8", "--slots", "4", "--prompt-len", "64",
+                 "--varlen", "--gen", str(MAX_TOKENS), "--max-len", "128",
+                 "--policy", "edf", "--ttft-slo", "64", "--inject-faults",
+                 "transient@decode_step:5x2", "--max-retries", "3"]
 # the int8 matmul: the JAX kernel test's shapes (M, K, N), and llama2-7b's
 # projections (K x N: q/k/v/o, gate/up, down) at a decode step of 4 slots
 # and a prefill of 2 x 4096 tokens
@@ -625,25 +652,29 @@ def time_ms(fn, n_sets, iters=200, warmup=10, graph=True):
     return start.elapsed_time(end) / iters
 
 
-def paged_sets(kq, max_len=MAX_LEN, n_sets=4, slots=SLOTS):
+def paged_sets(kq, max_len=MAX_LEN, n_sets=4, slots=SLOTS,
+               heads=(32, 32, 128)):
     """``n_sets`` seeded bf16 inputs of paged_attention at a paged serve's
-    shapes: llama2-7b, ``slots`` slots with ``max_len`` keys each, ``kq``
-    query tokens per slot; by default 4 x 34 MB or more of K/V, past the
-    L2."""
+    shapes: ``slots`` slots with ``max_len`` keys each, ``kq`` query tokens
+    per slot, heads (H, KH, D); by default llama2-7b's, 4 x 34 MB or more
+    of K/V, past the L2."""
     from paged_cases import paged_case
-    return [to_device(paged_case(slots, 32, 32, 128, BLOCK_SIZE,
+    h, kh, d = heads
+    return [to_device(paged_case(slots, h, kh, d, BLOCK_SIZE,
                                  max_len // BLOCK_SIZE,
                                  (max_len - kq + 1,) * slots, kq,
                                  seed=200 + i), torch.bfloat16)
             for i in range(n_sets)]
 
 
-def time_paged(pa, card, kq, max_len=MAX_LEN, slots=SLOTS, n_sets=4):
+def time_paged(pa, card, kq, max_len=MAX_LEN, slots=SLOTS, n_sets=4,
+               heads=(32, 32, 128), window=None):
     """paged_attention on :func:`paged_sets`: by default the paged serve's
-    4 slots x 512 keys."""
+    4 slots x 512 keys of llama2-7b."""
     import torch.nn.functional as F
 
-    sets = paged_sets(kq, max_len, n_sets, slots)
+    sets = paged_sets(kq, max_len, n_sets, slots, heads)
+    opts = {} if window is None else dict(window=window)
     n_sets = len(sets)
     lib = []
     for x in sets:
@@ -656,17 +687,20 @@ def time_paged(pa, card, kq, max_len=MAX_LEN, slots=SLOTS, n_sets=4):
         qpos = x["pos"][:, None] + torch.arange(kq, device=DEVICE)
         kp = x["key_pos"][:, None]
         mask = (kp >= 0) & (kp <= qpos[..., None])           # [B, KQ, C]
+        if window is not None:
+            mask &= kp > qpos[..., None] - window
         lib.append((q4.transpose(1, 2).contiguous(), k.contiguous(),
                     v.contiguous(), mask[:, None]))
     err = max(compare(f"paged_attention timing set {i} KQ={kq}",
-                      pa.paged_attention, pa.paged_attention_plain, x, {},
+                      pa.paged_attention, pa.paged_attention_plain, x, opts,
                       torch.bfloat16)[1] for i, x in enumerate(sets))
-    ms = time_ms(lambda i: pa.paged_attention(**sets[i]), n_sets)
-    plain_ms = time_ms(lambda i: pa.paged_attention_plain(**sets[i]), n_sets,
-                       iters=20, graph=False)
+    ms = time_ms(lambda i: pa.paged_attention(**sets[i], **opts), n_sets)
+    plain_ms = time_ms(lambda i: pa.paged_attention_plain(**sets[i], **opts),
+                       n_sets, iters=20, graph=False)
     library_ms = time_ms(
         lambda i: F.scaled_dot_product_attention(
-            lib[i][0], lib[i][1], lib[i][2], attn_mask=lib[i][3]), n_sets)
+            lib[i][0], lib[i][1], lib[i][2], attn_mask=lib[i][3],
+            enable_gqa=lib[i][1].shape[1] != lib[i][0].shape[1]), n_sets)
     # the least work: read q, each valid key and value once, the slots'
     # key_pos, the table and pos; write the output
     x = sets[0]
@@ -1499,75 +1533,287 @@ def serve_streamed(model, wrappers, card):
 
 
 def serve_hybrid(model, pa, da, rs, card):
-    """recurrentgemma-2b on the contiguous layout: RG-LRU state per slot
-    beside windowed rings of 2048 keys."""
+    """recurrentgemma-2b on both layouts: RG-LRU state per slot beside
+    windowed rings of 2048 keys, then beside the attention layers' block
+    pools."""
     from repro_torch.serving import LLM, SamplingParams
     cfg = model.cfg
     n_scan = sum(spec.kind == "rglru" for spec in cfg.layer_specs())
     n_attn = cfg.n_layers - n_scan
-    try:
-        model.backend("cuda", "paged", HYBRID_MAX_LEN)
-    except ValueError as e:
-        print(f"serve hybrid: the paged layout refuses it: {e}")
-    else:
-        raise AssertionError("the paged layout served a hybrid model")
-    be = model.backend("cuda", "contiguous", HYBRID_MAX_LEN)
-    print(f"serve hybrid: {HYBRID} {cfg.n_layers} layers ({n_scan} RG-LRU, "
-          f"{n_attn} local attention, window {HYBRID_WINDOW}), d_model "
-          f"{cfg.d_model}, {be.info.param_bytes / 1e9:.2f} GB of {cfg.dtype} "
-          f"weights from seed {SEED} in {model.init_s:.1f} s; max_len "
-          f"{HYBRID_MAX_LEN}, {be.info.cache_bytes / 2 ** 20:.1f} MiB of "
-          f"rings and state")
-    clock = StepClock(be)
-    llm = LLM.from_backend(be, seed=SEED)
-    sp = SamplingParams(max_tokens=MAX_TOKENS)
-    llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=4))
+    result = {}
+    for layout in ("contiguous", "paged"):
+        t_phase = time.perf_counter()
+        be = model.backend("cuda", layout, HYBRID_MAX_LEN)
+        info = be.info
+        if layout == "contiguous":
+            print(f"serve hybrid: {HYBRID} {cfg.n_layers} layers ({n_scan} "
+                  f"RG-LRU, {n_attn} local attention, window "
+                  f"{HYBRID_WINDOW}), d_model {cfg.d_model}, "
+                  f"{info.param_bytes / 1e9:.2f} GB of {cfg.dtype} weights "
+                  f"from seed {SEED} in {model.init_s:.1f} s; max_len "
+                  f"{HYBRID_MAX_LEN}, {info.cache_bytes / 2 ** 20:.1f} MiB "
+                  f"of rings and state")
+        else:
+            pools = sum(c[k].numel() * c[k].element_size()
+                        for c in be.caches if "k_pool" in c
+                        for k in ("k_pool", "v_pool"))
+            print(f"serve hybrid paged: max_len {HYBRID_MAX_LEN}, blocks of "
+                  f"{BLOCK_SIZE}: a pool of {info.total_blocks} blocks "
+                  f"({info.max_ctx_blocks} a slot at most) and the scratch "
+                  f"block in each of {n_attn} attention layers, "
+                  f"{pools / 2 ** 20:.1f} MiB of K/V, "
+                  f"{info.cache_bytes / 2 ** 20:.1f} MiB with the tables and "
+                  f"the RG-LRU state; spec_decode={info.spec_decode}, "
+                  f"supports_extend={info.supports_extend}, prefix_caching="
+                  f"{info.prefix_caching}")
+            if info.spec_decode or info.supports_extend \
+                    or info.prefix_caching:
+                raise AssertionError("the paged hybrid advertises spec, "
+                                     "extend or the prefix cache")
+        clock = StepClock(be)
+        llm = LLM.from_backend(be, seed=SEED)
+        sp = SamplingParams(max_tokens=MAX_TOKENS)
+        llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=4))
 
-    clock.reset()
-    rs.rglru_scan.launches = 0
-    da.decode_attention.launches = 0
-    pa.paged_attention.launches = 0
-    t0 = time.perf_counter()
-    outs = llm.generate(model.prompts, sp)
-    wall = time.perf_counter() - t0
-    scans, attends = rs.rglru_scan.launches, da.decode_attention.launches
-    waves_, steps = len(clock.prefill_ms), len(clock.decode_ms)
-    if scans != n_scan * waves_ or attends != n_attn * steps or not scans \
-            or not attends or pa.paged_attention.launches:
-        raise AssertionError(
-            f"rglru_scan launched {scans} times over {waves_} prefill waves "
-            f"of {n_scan} RG-LRU layers, decode_attention {attends} times "
-            f"over {steps} decode steps of {n_attn} attention layers, "
-            f"paged_attention {pa.paged_attention.launches} times")
-    for o in outs:
-        if o.n_generated != MAX_TOKENS or o.finish_reason != "length" \
-                or not all(0 <= t < cfg.vocab_size for t in o.tokens):
-            raise AssertionError(f"request {o.uid}: {o.n_generated} tokens, "
-                                 f"{o.finish_reason}")
-    total = sum(o.n_generated for o in outs)
-    print(f"serve hybrid: {len(outs)} requests {list(HYBRID_PROMPT_LENS)} "
-          f"prompt tokens x {MAX_TOKENS} greedy tokens over {SLOTS} slots: "
-          f"{waves_} prefills, {steps} decode steps, rglru_scan launches "
-          f"{scans} = {n_scan} layers x {waves_} waves, decode_attention "
-          f"launches {attends} = {n_attn} layers x {steps} steps, "
-          f"paged_attention 0")
-    print(f"serve hybrid: {clock.summary()}, {total / wall:.1f} tokens/s over "
-          f"{wall:.2f} s [{card}]")
-    device_share("serve hybrid", f"{SLOTS} requests x 8 tokens",
-                 lambda: llm.generate(model.prompts[:SLOTS],
-                                      SamplingParams(max_tokens=8)), card)
-    del llm, be, clock
-    torch.cuda.empty_cache()
-
-    tokens = [o.tokens for o in outs]
-    got = {}
-    for impl in ("cuda", "ref"):
-        got[impl] = teacher_forced(
-            model.backend(impl, "contiguous", HYBRID_MAX_LEN),
-            model.prompts, tokens)
+        clock.reset()
+        rs.rglru_scan.launches = 0
+        da.decode_attention.launches = 0
+        pa.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        outs = llm.generate(model.prompts, sp)
+        wall = time.perf_counter() - t0
+        scans = rs.rglru_scan.launches
+        ring, paged = da.decode_attention.launches, pa.paged_attention.launches
+        attends, other = (ring, paged) if layout == "contiguous" \
+            else (paged, ring)
+        kernel = "decode_attention" if layout == "contiguous" \
+            else "paged_attention"
+        idle = "paged_attention" if layout == "contiguous" \
+            else "decode_attention"
+        waves_, steps = len(clock.prefill_ms), len(clock.decode_ms)
+        if scans != n_scan * waves_ or attends != n_attn * steps \
+                or not scans or not attends or other:
+            raise AssertionError(
+                f"{layout}: rglru_scan launched {scans} times over {waves_} "
+                f"prefill waves of {n_scan} RG-LRU layers, {kernel} "
+                f"{attends} times over {steps} decode steps of {n_attn} "
+                f"attention layers, {idle} {other} times")
+        for o in outs:
+            if o.n_generated != MAX_TOKENS or o.finish_reason != "length" \
+                    or not all(0 <= t < cfg.vocab_size for t in o.tokens):
+                raise AssertionError(f"request {o.uid}: {o.n_generated} "
+                                     f"tokens, {o.finish_reason}")
+        total = sum(o.n_generated for o in outs)
+        label = "serve hybrid" if layout == "contiguous" \
+            else "serve hybrid paged"
+        print(f"{label}: {len(outs)} requests {list(HYBRID_PROMPT_LENS)} "
+              f"prompt tokens x {MAX_TOKENS} greedy tokens over {SLOTS} "
+              f"slots: {waves_} prefills, {steps} decode steps, "
+              f"{llm.stats.preemptions} preemptions, rglru_scan launches "
+              f"{scans} = {n_scan} layers x {waves_} waves, {kernel} "
+              f"launches {attends} = {n_attn} layers x {steps} steps, {idle} "
+              f"0")
+        print(f"{label}: {clock.summary()}, {total / wall:.1f} tokens/s over "
+              f"{wall:.2f} s [{card}]")
+        device_share(label, f"{SLOTS} requests x 8 tokens",
+                     lambda: llm.generate(model.prompts[:SLOTS],
+                                          SamplingParams(max_tokens=8)), card)
+        del llm, be, clock
         torch.cuda.empty_cache()
-    compare_logits("hybrid decode", got, card)
-    return dict(scans=scans, attends=attends)
+        result[layout] = dict(scans=scans, attends=attends,
+                              tokens=[o.tokens for o in outs])
+
+        # logits fed this serve's own tokens: cuda against ref on its
+        # layout, and the paged layout's against the contiguous one's
+        tokens = result[layout]["tokens"]
+        got = {}
+        sides = (("cuda", layout), ("ref", layout)) + (
+            (("cuda", "contiguous"),) if layout == "paged" else ())
+        for impl, lay in sides:
+            got[f"{impl} {lay}"] = teacher_forced(
+                model.backend(impl, lay, HYBRID_MAX_LEN), model.prompts,
+                tokens)
+            torch.cuda.empty_cache()
+        if layout == "contiguous":
+            compare_logits("hybrid decode", got, card,
+                           sides=("cuda contiguous", "ref contiguous"))
+        else:
+            compare_logits("hybrid paged decode", got, card,
+                           sides=("cuda paged", "ref paged"))
+            compare_logits("hybrid paged decode", got, card,
+                           sides=("cuda paged", "cuda contiguous"))
+            same = sum(int(a == b) for t, u in zip(
+                tokens, result["contiguous"]["tokens"]) for a, b in zip(t, u))
+            print(f"serve hybrid paged: greedy tokens equal to the contiguous "
+                  f"serve's: {same}/{len(outs) * MAX_TOKENS}")
+        print(f"{label}: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(scans=result["contiguous"]["scans"],
+                attends=result["contiguous"]["attends"],
+                paged_scans=result["paged"]["scans"],
+                paged=result["paged"]["attends"])
+
+
+def fleet_replicas(model, faults=""):
+    """Two paged TensorBackends of the fleet phase over the same parameter
+    tensors (the weights stay on the card once), each under a StepClock;
+    the second wrapped in ``faults``."""
+    from repro_torch.runtime import FaultInjectionBackend, TensorBackend
+    inner = [TensorBackend(model.cfg, model.params, n_slots=SLOTS,
+                           max_len=FLEET_MAX_LEN, impl="cuda",
+                           cache_layout="paged", block_size=BLOCK_SIZE,
+                           device=DEVICE) for _ in range(2)]
+    clocks = [StepClock(be) for be in inner]
+    outer = [inner[0], FaultInjectionBackend(inner[1], faults, seed=SEED)]
+    return outer, clocks
+
+
+def run_fleet(model, pa, da, card, faults=""):
+    """One replay of the fleet phase's bursty trace over two replicas, the
+    second under ``faults``.  Returns what the run decided, by trace
+    index."""
+    from repro_torch.runtime import BackendDead
+    from repro_torch.serving import Fleet, replay
+    from repro_torch.serving.sched import bursty_trace
+    trace = bursty_trace(FLEET_REQUESTS, seed=SEED,
+                         out_lens=(MAX_TOKENS, MAX_TOKENS),
+                         vocab=model.cfg.vocab_size)
+    backends, clocks = fleet_replicas(model, faults)
+    events = []
+    fleet = Fleet(backends, policy=FLEET_POLICY, seed=SEED,
+                  on_token=events.append)
+    crash = []
+    faulty = backends[1]
+    decode = faulty.decode_step
+
+    def watched(feeds):
+        try:
+            return decode(feeds)
+        except BackendDead:
+            crash.append(fleet.step_no)     # the fleet step it died in
+            raise
+    faulty.decode_step = watched
+    pa.paged_attention.launches = 0
+    da.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    rep = replay(fleet, trace)
+    wall = time.perf_counter() - t0
+    launches = pa.paged_attention.launches
+    steps = sum(len(c.decode_ms) for c in clocks)
+    if launches != model.cfg.n_layers * steps or not launches \
+            or da.decode_attention.launches:
+        raise AssertionError(
+            f"fleet {faults or 'fault-free'}: paged_attention launched "
+            f"{launches} times over {steps} decode steps of "
+            f"{model.cfg.n_layers} layers, decode_attention "
+            f"{da.decode_attention.launches} times")
+    # replay numbers its requests in trace order, so uid - first uid is
+    # the trace index
+    uids = sorted(set(fleet.done) | set(fleet.failed))
+    first = uids[0]
+    if uids != list(range(first, first + FLEET_REQUESTS)):
+        raise AssertionError(f"fleet: {len(uids)} of {FLEET_REQUESTS} "
+                             f"requests accounted for")
+    for uid, r in fleet.done.items():
+        if r.finish_reason != "length" or len(r.generated) != MAX_TOKENS:
+            raise AssertionError(f"fleet request {uid - first}: "
+                                 f"{len(r.generated)} tokens, "
+                                 f"{r.finish_reason}")
+    total = sum(len(r.generated) for r in fleet.done.values())
+    label = f"fleet {faults or 'fault-free'}"
+    print(f"{label}: {len(fleet.done)} requests served, {len(fleet.failed)} "
+          f"shed, {total} tokens in {wall:.2f} s ({total / wall:.1f} "
+          f"tokens/s), {rep.steps} fleet steps, {steps} decode steps, "
+          f"paged_attention launches {launches} = {model.cfg.n_layers} "
+          f"layers x {steps} steps [{card}]")
+    for i, c in enumerate(clocks):
+        if c.decode_ms:
+            print(f"{label}: replica {i}: {len(c.prefill_ms)} prefills, "
+                  f"{c.summary()}")
+    print(f"{label}: {rep}")
+    recovered = [u - first for u in fleet.recovered_uids]
+    print(f"{label}: {fleet.stats}; migrations {fleet.migrations}, "
+          f"recovered requests {recovered}, health {fleet.health()}")
+    for uid, reason in fleet.failed_reason.items():
+        print(f"{label}: request {uid - first} shed: {reason}")
+    return dict(
+        tokens={uid - first: list(r.generated)
+                for uid, r in fleet.done.items()},
+        events={(e.uid - first, e.index): (e.token, e.step) for e in events},
+        stats=fleet.stats, crash=crash[0] if crash else None,
+        launches=launches, recovered=recovered,
+        weights=backends[0].info.param_bytes)
+
+
+def serve_fleet(model, pa, da, card):
+    """The fleet phase: llama2-7b on two paged replicas over one set of
+    weights, fed a seeded bursty trace through ``replay`` twice -- fault
+    free, and with the second replica crashing at its 21st decode call.
+    The crash is quarantined once and its work recovered on the survivor;
+    every token emitted before the crash step equals the fault-free
+    run's."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    clean = run_fleet(model, pa, da, card)
+    st = clean["stats"]
+    if st.quarantines or st.shed or len(clean["tokens"]) != FLEET_REQUESTS:
+        raise AssertionError(f"fault-free fleet: {st}")
+    crashed = run_fleet(model, pa, da, card, FLEET_CRASH)
+    st = crashed["stats"]
+    if st.quarantines != 1 or st.recovered < 1 or crashed["crash"] is None:
+        raise AssertionError(f"fleet with {FLEET_CRASH}: quarantines "
+                             f"{st.quarantines}, recovered {st.recovered}, "
+                             f"crash step {crashed['crash']}")
+    before = {k: v for k, v in crashed["events"].items()
+              if v[1] < crashed["crash"]}
+    differ = [k for k, v in before.items() if clean["events"].get(k) != v]
+    if differ:
+        raise AssertionError(f"fleet: {len(differ)} of {len(before)} tokens "
+                             f"emitted before the crash step differ from "
+                             f"the fault-free run's, e.g. {differ[:4]}")
+    after = [(i, j) for i, toks in crashed["tokens"].items()
+             for j in range(len(toks)) if (i, j) not in before]
+    same = sum(crashed["tokens"][i][j] == clean["tokens"][i][j]
+               for i, j in after)
+    peak, weights = torch.cuda.max_memory_allocated(), clean["weights"]
+    if peak > 1.5 * weights:
+        raise AssertionError(f"fleet: peak {peak / 1e9:.2f} GB for "
+                             f"{weights / 1e9:.2f} GB of weights: the "
+                             f"replicas do not share them")
+    print(f"fleet {FLEET_CRASH}: crash at fleet step {crashed['crash']}; "
+          f"the {len(before)} tokens emitted before it equal the fault-free "
+          f"run's; after it {same}/{len(after)} equal (a recovered request "
+          f"re-prefills its keys in one wave, which in bf16 may round apart "
+          f"from the decode steps that wrote them); recovered requests "
+          f"{crashed['recovered']}")
+    print(f"fleet: peak device memory {peak / 1e9:.2f} GB ({held / 1e9:.2f} "
+          f"GB held when the phase began) with {weights / 1e9:.2f} GB of "
+          f"weights shared by both replicas; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(launches=clean["launches"] + crashed["launches"])
+
+
+def serve_launcher(card):
+    """The launcher as a user calls it, in this process: llama2-7b on the
+    paged layout under EDF with a TTFT deadline, two transient decode
+    failures injected and absorbed by retries."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    llm, outs = serve.main(LAUNCHER_ARGV)
+    wall = time.perf_counter() - t0
+    st = llm.stats
+    bad = [o.uid for o in outs if o.finish_reason != "length"
+           or o.n_generated != MAX_TOKENS]
+    if len(outs) != 8 or bad or st.retries != 2 or st.failures != 2 \
+            or llm.backend.injected["transient"] != 2 \
+            or llm.backend.health() != "healthy":
+        raise AssertionError(f"launcher: {len(outs)} requests, unfinished "
+                             f"{bad}, {st}, injected {llm.backend.injected}, "
+                             f"health {llm.backend.health()}")
+    print(f"launcher: {' '.join(LAUNCHER_ARGV)}: 8 requests finished, 2 "
+          f"transient failures absorbed with 2 retries, backend healthy, in "
+          f"{wall:.1f} s with the weights' set-up [{card}]")
 
 
 def score(model, kernels, card):
@@ -2007,7 +2253,7 @@ def main():
     print(f"device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {name} x {torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     built = build.build()
     print(f"build: {built.path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2042,6 +2288,14 @@ def main():
             da, card, PIPE_MAX_LEN, c=PIPE_MAX_LEN, n_sets=64, slots=1),
         "paged_attention pipeline": time_paged(pa, card, 1, PIPE_MAX_LEN,
                                                slots=1, n_sets=64),
+        # the hybrid's paged decode: 4 x 8.4 MB of K/V per set, 8 sets
+        # exceed the L2
+        "paged_attention hybrid": time_paged(
+            pa, card, 1, HYBRID_WINDOW, heads=(10, 1, 256), n_sets=8,
+            window=HYBRID_WINDOW),
+        # the fleet's decode: 4 slots of up to 128 keys a replica
+        "paged_attention fleet": time_paged(pa, card, 1, FLEET_MAX_LEN,
+                                            n_sets=16),
         "rglru_scan": time_rglru(rs, card, HYBRID_MAX_LEN),
         "rglru_scan short": time_rglru(rs, card, 256),
         "flash_attention": time_flash(fa, card),
@@ -2067,6 +2321,11 @@ def main():
                                      f"{PIPE_MAX_LEN}-key ring, full, bf16",
         "paged_attention pipeline": f"llama2-7b x 1 slot x {PIPE_MAX_LEN} "
                                     f"keys bf16",
+        "paged_attention hybrid": f"{HYBRID} (H=10, KH=1, D=256) x {SLOTS} "
+                                  f"slots x {HYBRID_WINDOW}-key window, "
+                                  f"full, bf16",
+        "paged_attention fleet": f"llama2-7b x {SLOTS} slots x "
+                                 f"{FLEET_MAX_LEN} keys bf16",
         "rglru_scan": f"{HYBRID} {SLOTS} x {HYBRID_MAX_LEN} x 2560 f32",
         "rglru_scan short": f"{HYBRID} {SLOTS} x 256 x 2560 f32",
         "flash_attention": f"llama2-7b (H=KH=32, D=128) 1 x {SCORE_LEN}, "
@@ -2093,7 +2352,11 @@ def main():
     streamed = serve_streamed(model, wrappers, card)
     scored = score(model, wrappers, card)
     pipe = serve_pipeline(model, wrappers, card)
+    fleet = serve_fleet(model, pa, da, card)
     del model                       # 13.48 GB of llama2-7b weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launcher(card)
     gc.collect()
     torch.cuda.empty_cache()
     model = Model(HYBRID, HYBRID_PROMPT_LENS)
@@ -2129,6 +2392,17 @@ def main():
               hybrid["attends"]),
         entry("rglru_scan", "rglru_scan", "rglru_scan.cu",
               "rglru_scan.py:36", hybrid["scans"]),
+        # the hybrid on the paged layout: the scan in its prefill waves, the
+        # paged kernel at g=10, D=256 over the 2048-key window
+        entry("rglru_scan", f"rglru_scan@{HYBRID} paged", "rglru_scan.cu",
+              "rglru_scan.py:36", hybrid["paged_scans"]),
+        entry("paged_attention hybrid", f"paged_attention@{HYBRID}",
+              "paged_attention.cu", "decode_attention.py:201",
+              hybrid["paged"]),
+        # the fleet: both replays (fault free and with the crash)
+        entry("paged_attention fleet", "paged_attention@fleet",
+              "paged_attention.cu", "decode_attention.py:201",
+              fleet["launches"]),
         entry("flash_attention", "flash_attention", "flash_attention.cu",
               "flash_attention.py:86", scored["flash_attention"]),
         entry("flash_attention hybrid", f"flash_attention@{HYBRID}",
@@ -2155,6 +2429,8 @@ def main():
               "int8_matmul@prefill", "int8_matmul.cu", "int8_matmul.py:41",
               int8_launches["prefill"]),
     ]
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s, the "
+          f"build included [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -25,20 +25,29 @@ are random, made from ``--seed``.  Two modes:
     python -m repro_torch.launch.serve --arch llama2-7b --mode pipeline \
         --stages 4 --impl cuda --batch 8 --prompt-len 64 --varlen --gen 32 \
         --max-len 128
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --impl cuda \
+        --cache-layout paged --batch 6 --slots 4 --prompt-len 256 --varlen \
+        --gen 32 --max-len 4096
+    python -m repro_torch.launch.serve --arch llama2-7b --cache-layout paged \
+        --impl cuda --batch 8 --slots 4 --prompt-len 64 --varlen --gen 32 \
+        --max-len 128 --policy edf --ttft-slo 64 \
+        --inject-faults transient@decode_step:5x2 --max-retries 3
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --impl ref --batch 4 --gen 8 [--stream]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --mode pipeline --stages 4 --batch 4 --gen 8
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when no GPU
-is present.  The hybrid recurrentgemma-2b serves on the contiguous layout
-only; ``--cache-layout paged`` raises for it, and the pipeline mode too
-(its 26 layers are no whole number of 3-layer periods).  In pipeline mode
-``--spec-k``, ``--prefix-cache`` and ``--prefill-chunk`` stop the launcher:
-the pipeline's speculative verify, prefix cache and streamed admission
-arrive with later slices.  Fault injection and the SLO policies of
-``repro.launch.serve`` arrive with later slices too; this launcher has no
-flags for them, nor ``--devices`` (the reference's fake-XLA-device count).
+is present.  The hybrid recurrentgemma-2b serves on both layouts, and the
+pipeline mode raises for it (its 26 layers are no whole number of 3-layer
+periods).  In pipeline mode ``--spec-k``, ``--prefix-cache``,
+``--prefill-chunk`` and ``--inject-faults`` stop the launcher: the
+pipeline's speculative verify, prefix cache and streamed admission arrive
+with later slices, and fault injection wraps the single tp-mode backend.
+The reference's ``--kvint8`` (the int8 KV cache) and ``--devices`` (its
+fake-XLA-device count) have no flag here yet.
+
+Returns ``(llm, outputs)`` when called as ``main(argv)``.
 """
 import argparse
 import time
@@ -115,8 +124,50 @@ def main(argv=None):
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they decode (streaming API)")
+    ap.add_argument("--policy", default="fifo",
+                    choices=["fifo", "priority", "edf"],
+                    help="admission/preemption policy (serving.sched): "
+                         "arrival order, service-class priority, or "
+                         "earliest-deadline-first over --ttft-slo/--e2e-slo")
+    ap.add_argument("--priority", type=int, default=None,
+                    help="service-class priority for every request "
+                         "(higher = served first under --policy priority)")
+    ap.add_argument("--ttft-slo", type=int, default=None,
+                    help="first-token deadline in scheduler steps from "
+                         "arrival (drives --policy edf; misses are counted "
+                         "in the scheduler stats)")
+    ap.add_argument("--e2e-slo", type=int, default=None,
+                    help="completion deadline in scheduler steps from "
+                         "arrival (see --ttft-slo)")
+    ap.add_argument("--inject-faults", default="",
+                    help="deterministic fault schedule wrapped around the "
+                         "backend (runtime.faults), e.g. "
+                         "'transient@decode_step:5x2' or 'timeout@any~0.01' "
+                         "-- exercises the scheduler's retry/backoff path "
+                         "(tp mode only)")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="consecutive transient backend failures absorbed "
+                         "with exponential backoff before the scheduler "
+                         "gives up (the BackendError taxonomy)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+
+    if args.inject_faults and args.mode != "tp":
+        ap.error("--inject-faults wraps the single tp-mode backend; chaos "
+                 "over a multi-backend fleet is benchmarks/chaos_bench.py")
+
+    if args.policy != "fifo" and args.priority is None \
+            and args.ttft_slo is None and args.e2e_slo is None:
+        ap.error(
+            f"--policy {args.policy} without --priority/--ttft-slo/--e2e-slo "
+            f"degenerates to FIFO (every request gets the default service "
+            f"class): pass the service-class flags the policy orders by, or "
+            f"drop --policy")
+    if args.policy == "edf" and args.ttft_slo is None \
+            and args.e2e_slo is None:
+        ap.error("--policy edf orders by deadlines: pass --ttft-slo and/or "
+                 "--e2e-slo (steps from arrival); --priority alone only "
+                 "affects --policy priority")
     if args.mode == "pipeline":
         for flag, on in (("--spec-k", args.spec_k >= 2),
                          ("--prefix-cache", args.prefix_cache),
@@ -135,7 +186,7 @@ def main(argv=None):
     from repro_torch.core.devices import tpu_pod_cluster
     from repro_torch.core.profile import Workload
     from repro_torch.device import resolve_device
-    from repro_torch.runtime import TensorBackend
+    from repro_torch.runtime import FaultInjectionBackend, TensorBackend
     from repro_torch.serving import LLM, SamplingParams
 
     dev = resolve_device(args.device)
@@ -174,32 +225,45 @@ def main(argv=None):
                      dtype_bytes=2),
             objective="throughput", kind="pipeline", params=params,
             n_slots=args.slots or None, seed=args.seed,
-            min_bucket=args.min_bucket, **kv_kw)
+            min_bucket=args.min_bucket, policy=args.policy,
+            max_retries=args.max_retries, **kv_kw)
         print(f"planned stages (periods per stage): "
               f"{llm.backend.spec.periods_per_stage}")
-        backend = llm.backend
     else:
         backend = TensorBackend(cfg, params,
                                 n_slots=args.slots or args.batch,
                                 prefix_cache=args.prefix_cache, **kv_kw)
-    info = backend.info
-    if args.spec_k >= 2 and not info.spec_decode:
-        print(f"note: --spec-k {args.spec_k} ignored: the backend does not "
-              f"verify speculative drafts (cache_layout="
-              f"{info.cache_layout!r}; speculative decoding needs "
-              f"the paged layout and no sliding window); serving plain "
-              f"decode")
-    if args.prefix_cache and not info.prefix_caching:
-        print(f"note: --prefix-cache has no effect on this deployment: "
-              f"backend reports prefix_caching=False over cache_layout="
-              f"{info.cache_layout!r} (needs --cache-layout paged and an "
-              f"all-attention model)")
-    if args.mode == "tp":
+        if args.inject_faults:
+            backend = FaultInjectionBackend(backend, args.inject_faults,
+                                            seed=args.seed)
         llm = LLM.from_backend(backend, seed=args.seed,
                                min_bucket=args.min_bucket,
                                prefill_chunk=args.prefill_chunk or None,
-                               spec_k=args.spec_k, draft=args.draft)
-    sp = SamplingParams(max_tokens=args.gen)
+                               policy=args.policy, spec_k=args.spec_k,
+                               draft=args.draft,
+                               max_retries=args.max_retries)
+
+    # every user-passed flag that ends up inert gets one explicit line
+    def _inert(flag, why):
+        print(f"note: {flag} has no effect on this deployment: {why}")
+
+    info = llm.backend.info
+    if args.prefix_cache and not info.prefix_caching:
+        _inert("--prefix-cache",
+               f"backend reports prefix_caching=False over cache_layout="
+               f"{info.cache_layout!r} (needs --cache-layout paged and an "
+               f"all-attention model)")
+    if args.spec_k >= 2 and not info.spec_decode:
+        _inert("--spec-k",
+               f"backend reports spec_decode=False (cache_layout="
+               f"{info.cache_layout!r}); serving plain decode")
+    if args.priority is not None and args.policy == "fifo":
+        _inert("--priority", "FIFO ignores service classes; pass "
+                             "--policy priority")
+
+    sp = SamplingParams(max_tokens=args.gen,
+                        priority=args.priority or 0,
+                        ttft_slo=args.ttft_slo, e2e_slo=args.e2e_slo)
     t0 = time.time()
     if args.stream:
         outs = {}
@@ -214,15 +278,26 @@ def main(argv=None):
         outs = llm.generate(prompts, sp)
     dt = time.time() - t0
     total = sum(o.n_generated for o in outs)
-    info = backend.info
+    info = llm.backend.info
     st = llm.stats
     print(f"served {len(outs)} requests ({[o.n_prompt for o in outs]} prompt "
           f"tokens), {total} generated in {dt:.2f}s ({total / dt:.1f} tok/s) "
           f"on {dev} (attn_impl={info.attn_impl}) — {llm.stats}")
+    if args.inject_faults:
+        inj = llm.backend.injected
+        print(f"  faults ({args.inject_faults}): injected "
+              f"{ {k: v for k, v in inj.items() if v} }, "
+              f"absorbed with {st.retries} retries "
+              f"({st.failures} failures) — backend {llm.backend.health()}")
     if st.prefix_hits or st.prefill_chunks:
         print(f"  prefix cache: {st.prefix_hits} hits "
               f"({st.prefix_hit_tokens} prompt tokens reused); "
               f"{st.prefill_chunks} prefill chunk passes")
+    if args.ttft_slo is not None or args.e2e_slo is not None:
+        met = sum(1 for o in outs if o.slo_met())
+        print(f"  SLO ({args.policy}): {met}/{len(outs)} met "
+              f"(ttft_misses={st.ttft_misses}, e2e_misses={st.e2e_misses}, "
+              f"slo_preemptions={st.slo_preemptions})")
     for o in outs[:4]:
         ttft = f"{o.timing.ttft_s:.2f}s" if o.timing.ttft_s else "-"
         print(f"  req {o.uid}: {o.finish_reason} after {o.n_generated} toks "
@@ -232,6 +307,7 @@ def main(argv=None):
             "--expect-prefix-hits: no prefix-cache hits were recorded "
             f"(prefix_caching={info.prefix_caching}); check "
             "--cache-layout paged / --prefix-cache / --shared-prefix")
+    return llm, outs
 
 
 if __name__ == "__main__":

@@ -13,9 +13,10 @@ paged block pool.  Port of the attention part of ``repro.models.kvcache``.
   the cache dtype, and ``pos [B]``.
 
 Caches are plain dicts of tensors, one dict per layer.  Unlike the
-reference's immutable pytrees, the port updates them in place.  The xLSTM
-states arrive with their mixers, and the paged layout of hybrid models
-(dense recurrent state beside the block pools) with a later slice.
+reference's immutable pytrees, the port updates them in place.  In the
+paged layout only attention layers page: a hybrid's RG-LRU layers keep
+their dense per-slot state beside the pools (``init_paged_caches``).  The
+xLSTM states arrive with their mixers.
 """
 from __future__ import annotations
 
@@ -88,12 +89,7 @@ def block_pool_bytes_per_block(cfg: ModelConfig,
     return per_tok * n_attn
 
 
-def _check_attn(cfg: ModelConfig, spec: BlockSpec) -> None:
-    if spec.kind != "attn":
-        raise ValueError(
-            f"a paged {spec.kind!r} cache: the paged layout of models with "
-            f"recurrent layers arrives in a later slice; serve them on the "
-            f"contiguous layout")
+def _check_kv_dtype(cfg: ModelConfig) -> None:
     if cfg.kv_dtype != "bfloat16":
         raise ValueError(
             f"kv_dtype={cfg.kv_dtype!r} (the int8 KV cache) arrives in a "
@@ -105,7 +101,8 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                            block_size: int = DEFAULT_BLOCK_SIZE,
                            dtype: torch.dtype = torch.bfloat16,
                            device=None) -> Dict[str, torch.Tensor]:
-    """Paged twin of :func:`init_block_cache` for one attention layer.
+    """Paged twin of :func:`init_block_cache` for ``spec.kind == "attn"``
+    (non-attention kinds keep their dense cache: :func:`init_block_cache`).
 
     - ``k_pool``/``v_pool`` ``[num_blocks+1, block_size, n_kv, head_dim]`` --
       the shared pool; the **last block is scratch**: writes whose block-table
@@ -116,7 +113,11 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
       (-1 = empty), per-slot like the contiguous layout,
     - ``pos`` ``[B]`` per-slot decode position.
     """
-    _check_attn(cfg, spec)
+    if spec.kind != "attn":
+        raise ValueError(f"a paged {spec.kind!r} cache: only attention "
+                         f"layers page; a {spec.kind!r} layer keeps its "
+                         f"dense state (init_block_cache)")
+    _check_kv_dtype(cfg)
     c = paged_cache_len(spec, max_len, block_size)
     nbs = max_ctx_blocks(cfg, max_len, block_size)
     shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -148,7 +149,7 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
         raise ValueError(
             f"{spec.kind!r} caches arrive with the xLSTM recurrent mixers in "
             f"a later slice")
-    _check_attn(cfg, spec)
+    _check_kv_dtype(cfg)
     c = attn_cache_len(spec, max_len)
     shape = (batch, c, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {

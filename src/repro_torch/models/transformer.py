@@ -67,10 +67,14 @@ def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
                       num_blocks: int, block_size: int = DEFAULT_BLOCK_SIZE,
                       dtype: torch.dtype = torch.bfloat16,
                       device=None) -> Caches:
-    """Paged caches, one per layer: a block pool per layer plus per-slot
-    block tables (``batch`` = slots)."""
+    """Paged caches, one per layer (``batch`` = slots): an attention layer
+    holds a block pool plus per-slot block tables; any other layer keeps
+    its dense per-slot state (``pos`` is per-slot [B] in every layout, so
+    each slot owns its position in the batched decode)."""
     return [init_paged_block_cache(cfg, spec, batch, max_len, num_blocks,
                                    block_size, dtype, device)
+            if spec.kind == "attn" else
+            init_block_cache(cfg, spec, batch, max_len, dtype, device)
             for spec in cfg.layer_specs()]
 
 
@@ -259,12 +263,14 @@ def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
     """One decode step over ring or paged caches. inputs: [B] int tokens.
 
     Returns (logits [B, vocab], caches).  Every slot decodes at its own
-    ``pos``.  On paged caches ``write_mask [B]`` freezes masked slots (their
-    writes go to the scratch block); ring caches take every row, as the
-    reference's vmapped decode does.  ``impl="cuda"`` reads the caches with
-    the decode or paged attention kernel; unknown impls raise.
+    ``pos``.  On paged caches ``write_mask [B]`` freezes masked slots' pool
+    writes (they go to the scratch block); ring caches and a hybrid's dense
+    recurrent state take every row, as the reference's decode does (an
+    idle slot's rows are overwritten whole by its next prefill).
+    ``impl="cuda"`` reads the caches with the decode or paged attention
+    kernel; unknown impls raise.
     """
-    if write_mask is not None and "k_pool" not in caches[0]:
+    if write_mask is not None and not any("k_pool" in c for c in caches):
         raise ValueError("write_mask applies to paged caches only")
     x = embed_tokens(params, cfg, inputs[:, None])
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):

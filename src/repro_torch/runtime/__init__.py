@@ -1,6 +1,7 @@
-"""Serving runtime of the port: the backend protocol and the prefix index
-(copies of ``repro.runtime.base`` and ``repro.runtime.prefix_cache``), the
-torch tensor backend, the no-bubbles stage pipeline backend, the planner's
+"""Serving runtime of the port: the backend protocol, the prefix index and
+fault injection (copies of ``repro.runtime.base``,
+``repro.runtime.prefix_cache`` and ``repro.runtime.faults``), the torch
+tensor backend, the no-bubbles stage pipeline backend, the planner's
 cost-model backend (a copy of ``repro.runtime.sim``) and the planner ->
 backend factory."""
 from repro_torch.runtime.base import (BackendDead, BackendError, BackendInfo,
@@ -8,6 +9,8 @@ from repro_torch.runtime.base import (BackendDead, BackendError, BackendInfo,
                                       InferenceBackend, PoolExhausted,
                                       SlotEvent, SlotPager)
 from repro_torch.runtime.factory import from_deployment, plan_pipeline_spec
+from repro_torch.runtime.faults import (Fault, FaultInjectionBackend,
+                                        parse_faults)
 from repro_torch.runtime.pipeline_backend import PipelineBackend
 from repro_torch.runtime.prefix_cache import PrefixCache
 from repro_torch.runtime.sim import SimBackend
@@ -15,7 +18,8 @@ from repro_torch.runtime.tensor import TensorBackend, TorchTensorBackend
 
 __all__ = [
     "BackendDead", "BackendError", "BackendInfo", "BackendTimeout",
-    "BlockAllocator", "InferenceBackend", "PipelineBackend", "PoolExhausted",
+    "BlockAllocator", "Fault", "FaultInjectionBackend", "InferenceBackend", "PipelineBackend", "PoolExhausted",
     "PrefixCache", "SimBackend", "SlotEvent", "SlotPager", "TensorBackend",
-    "TorchTensorBackend", "from_deployment", "plan_pipeline_spec",
+    "TorchTensorBackend", "from_deployment", "parse_faults",
+    "plan_pipeline_spec",
 ]

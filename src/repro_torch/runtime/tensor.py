@@ -35,11 +35,12 @@ the paged one -- then scatter the wave's rows into the slots' storage: the
 reference's path, not a direct paged prefill.
 
 Hybrid models (recurrentgemma: RG-LRU and local-attention layers) serve on
-the contiguous layout: each RG-LRU layer keeps its dense state (``h``
-float32, the conv window, ``pos``) per slot, written by the same row
-scatter as the rings.  The paged layout refuses them until the slice that
-keeps dense state beside the block pools; speculative verify needs
-all-attention layers, as in the reference.
+both layouts: each RG-LRU layer keeps its dense state (``h`` float32, the
+conv window, ``pos``) per slot -- beside the rings, or beside the
+attention layers' block pools -- and a prefill wave writes it into the
+wave's slot rows whole, so a freed, preempted or resumed slot carries no
+stale recurrent state into its next occupant.  Speculative verify and
+streamed admission need all-attention layers, as in the reference.
 
 Streamed admission (``start_stream`` + ``prefill_chunk``): where ring slot
 == position -- the paged layout with no effective window
@@ -90,13 +91,6 @@ class TensorBackend(InferenceBackend):
         nbs = KV.max_ctx_blocks(cfg, max_len, block_size)
         if nbs == 0:
             raise ValueError(f"{cfg.name} has no attention layers")
-        recurrent = sorted({s.kind for s in cfg.layer_specs()} - {"attn"})
-        if cache_layout == "paged" and recurrent:
-            raise ValueError(
-                f"cache_layout='paged': {cfg.name} has {recurrent} layers, "
-                f"and the paged layout of hybrid models (dense recurrent "
-                f"state beside the block pools) arrives in a later slice; "
-                f"serve it with cache_layout='contiguous'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -118,9 +112,13 @@ class TensorBackend(InferenceBackend):
             self.caches = T.init_paged_caches(cfg, n_slots, max_len,
                                               self.num_blocks, block_size,
                                               self.cache_dtype, self.device)
+            #: the attention layers' paged entries (a hybrid's recurrent
+            #: layers keep dense per-slot state beside them)
+            self._pools = [c for c in self.caches if "k_pool" in c]
         else:
             self.caches = T.init_caches(cfg, n_slots, max_len,
                                         self.cache_dtype, self.device)
+            self._pools = []
         # streamed admission (prefix reuse + chunked prefill) and speculative
         # verify need ring slot == absolute position (a rejected draft rolls
         # back exactly, a shared block is never rewritten): the paged layout
@@ -204,7 +202,7 @@ class TensorBackend(InferenceBackend):
     def _push_tables(self) -> None:
         """Refresh the device block-table tensors from the host pager."""
         table = torch.from_numpy(self.pager.table).to(self.device)
-        for cache in self.caches:
+        for cache in self._pools:
             cache["bt"].copy_(table)
 
     def _grow_atomic(self, targets: Sequence[Tuple[int, int]]) -> bool:
@@ -238,7 +236,7 @@ class TensorBackend(InferenceBackend):
         ``pos``.  Exact because ring slot == position on the spec path, so
         a rejected draft's key is invalidated without touching any
         surviving key."""
-        for cache in self.caches:
+        for cache in self._pools:
             iota = torch.arange(cache["key_pos"].shape[-1], dtype=torch.int32,
                                 device=self.device)[None]
             row = torch.where(iota < new_pos[:, None], iota, -1)  # [B, C]
@@ -346,7 +344,7 @@ class TensorBackend(InferenceBackend):
         the host just wired into the table) become valid keys, everything
         above empty -- stale keys of the slot's previous occupant must never
         be attended."""
-        for cache in self.caches:
+        for cache in self._pools:
             iota = torch.arange(cache["key_pos"].shape[-1], dtype=torch.int32,
                                 device=self.device)
             cache["key_pos"][slot] = torch.where(iota < start, iota, -1)
@@ -448,12 +446,15 @@ class TensorBackend(InferenceBackend):
                 torch.from_numpy(prompts_p).to(dev, torch.long), fresh,
                 prompt_lens=torch.from_numpy(lens_p).to(dev), impl=self.impl)
             idx = torch.from_numpy(slots_p).to(dev)
-            if paged:
-                bt_rows = torch.from_numpy(self.pager.table[slots_p]).to(dev)
-                for store, d in zip(self.caches, dense):
+            bt_rows = torch.from_numpy(self.pager.table[slots_p]).to(dev) \
+                if paged else None
+            for store, d in zip(self.caches, dense):
+                if "k_pool" in store:
                     self._scatter_one_paged(store, d, idx, bt_rows)
-            else:
-                for store, d in zip(self.caches, dense):
+                else:
+                    # dense per-slot state (contiguous rings, a hybrid's
+                    # recurrent state in either layout): every leaf, pos
+                    # included, lands at the wave's slot rows whole
                     for key, t in store.items():
                         t[idx[:k]] = d[key][:k].to(t.dtype)
             last = logits[:, -1].float().cpu().numpy()

@@ -3,7 +3,7 @@ kernels, the RG-LRU scan kernel and the int8 matmul against their plain
 versions, the wrappers' checks, the served models through the kernels
 against the ref paths, with and without speculative decoding, with
 streamed admission (prefix cache and chunked prefill) and for the hybrid
-recurrentgemma, the train mode (the forward through the flash kernel,
+recurrentgemma on both layouts, the train mode (the forward through the flash kernel,
 gradients on the ref path), and the no-bubbles stage pipeline (its served
 tokens and its microbatched forward through the kernels).
 Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
@@ -427,6 +427,54 @@ def test_served_hybrid_tokens_kernel_equals_ref(gpu):
         want = (n_rglru * calls["prefill"], n_attn * calls["decode_step"])
         assert launched == (want if impl == "cuda" else (0, 0))
     assert outs["cuda"] == outs["ref"]
+
+
+def test_served_hybrid_paged_tokens_kernel_equals_ref(gpu):
+    """The same model on the paged layout (blocks of 4, a pool small enough
+    to preempt): greedy tokens with the kernels equal the ref paths' and
+    the contiguous serve's.  The scan launches once per RG-LRU layer and
+    prefill, the paged kernel once per attention layer and decode step,
+    the contiguous-ring kernel never."""
+    cfg = get_config("recurrentgemma-2b").reduced(n_layers=5)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 40, 17, 9)]
+    n_rglru = sum(s.kind == "rglru" for s in cfg.layer_specs())
+    n_attn = cfg.n_layers - n_rglru
+    outs, preempted = {}, 0
+    for impl, layout in (("cuda", "paged"), ("ref", "paged"),
+                         ("cuda", "contiguous")):
+        kw = dict(block_size=4, num_blocks=7) if layout == "paged" else {}
+        be = TensorBackend(cfg, params, n_slots=3, max_len=64, impl=impl,
+                           cache_layout=layout, **kw)
+        calls = {"prefill": 0, "decode_step": 0}
+
+        def counted(name, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)       # a preempting call raises first
+                calls[name] += bool(len(args[0]))
+                return out
+            return call
+        for name in calls:
+            setattr(be, name, counted(name, getattr(be, name)))
+        before = (RS.rglru_scan.launches, PA.paged_attention.launches,
+                  DA.decode_attention.launches)
+        llm = LLM.from_backend(be)
+        outs[impl, layout] = [o.tokens for o in llm.generate(
+            prompts, SamplingParams(max_tokens=12))]
+        launched = (RS.rglru_scan.launches - before[0],
+                    PA.paged_attention.launches - before[1],
+                    DA.decode_attention.launches - before[2])
+        if impl == "cuda" and layout == "paged":
+            preempted = llm.stats.preemptions
+            assert launched == (n_rglru * calls["prefill"],
+                                n_attn * calls["decode_step"], 0)
+        elif impl == "ref":
+            assert launched == (0, 0, 0)
+    assert preempted > 0
+    assert outs["cuda", "paged"] == outs["ref", "paged"] == \
+        outs["cuda", "contiguous"]
 
 
 FLASH_CASES = [

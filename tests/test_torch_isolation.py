@@ -42,6 +42,8 @@ def _env():
 def test_import_loads_no_jax_or_triton():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.runtime, repro_torch.launch.serve, "
+            "repro_torch.runtime.faults, repro_torch.serving.sched.trace, "
+            "repro_torch.serving.sched.fleet, "
             "repro_torch.kernels.paged_attention, "
             "repro_torch.kernels.decode_attention, "
             "repro_torch.kernels.rglru_scan, "

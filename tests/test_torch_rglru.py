@@ -359,10 +359,11 @@ def test_served_logits_match(model):
 
 
 def test_backend_info_and_paged_refusal(model):
-    """BackendInfo matches the JAX backend's on the contiguous layout (the
-    port's read path is named "plain" on the CPU), with the recurrent state
-    in the bytes per slot and no speculative decoding; the paged layout
-    raises for a hybrid rather than serving contiguously."""
+    """BackendInfo matches the JAX backend's on both layouts (the port's
+    read path is named "plain" on the CPU), with the recurrent state in the
+    bytes per slot and no speculative decoding; in the paged layout only
+    the attention layers page, so a paged cache for an RG-LRU layer is
+    refused."""
     jcfg, tcfg, jparams, tparams = model
     want = dataclasses.asdict(TensorBackend(jcfg, jparams, n_slots=2,
                                             max_len=32, impl="pallas").info)
@@ -375,16 +376,25 @@ def test_backend_info_and_paged_refusal(model):
     assert not be.info.spec_decode and not be.info.supports_extend
     rnn = tcfg.rnn_dim * 4 + (tcfg.conv_width - 1) * tcfg.rnn_dim * 4 + 4
     assert be.info.cache_bytes_per_slot > 4 * rnn
-    with pytest.raises(ValueError, match="later slice"):
-        TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
-                           cache_layout="paged", device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
+    want = dataclasses.asdict(TensorBackend(
+        jcfg, jparams, n_slots=2, max_len=32, impl="pallas",
+        cache_layout="paged").info)
+    paged = TorchTensorBackend(tcfg, tparams, n_slots=2, max_len=32,
+                               impl="cuda", cache_layout="paged",
+                               cache_dtype=torch.float32, device="cpu")
+    got = dataclasses.asdict(paged.info)
+    assert got.pop("attn_impl") == "plain" and want.pop("attn_impl") == \
+        "pallas"
+    assert got.pop("cache_bytes_per_slot") > 4 * rnn
+    want.pop("cache_bytes_per_slot")
+    assert got == want
+    with pytest.raises(ValueError, match="only attention layers page"):
         TKV.init_paged_block_cache(tcfg, tcfg.pattern[0], 2, 32, 4)
 
 
 def test_serve_launcher_hybrid_on_cpu(capsys):
     """``--arch recurrentgemma-2b --smoke`` serves on the CPU (slots
-    recycle); the paged layout raises for it."""
+    recycle), on the paged layout with the contiguous serve's tokens."""
     from repro_torch.launch.serve import main
     argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--impl", "cuda",
             "--batch", "5", "--slots", "3", "--varlen", "--prompt-len", "24",
@@ -392,5 +402,11 @@ def test_serve_launcher_hybrid_on_cpu(capsys):
     main(argv)
     out = capsys.readouterr().out
     assert "served 5 requests" in out and "attn_impl=plain" in out
-    with pytest.raises(ValueError, match="later slice"):
-        main(argv + ["--cache-layout", "paged"])
+    main(argv + ["--cache-layout", "paged"])
+    paged = capsys.readouterr().out
+    assert "served 5 requests" in paged
+
+    def reqs(text):
+        return [line.split("(ttft")[-1].split(")", 1)[1]
+                for line in text.splitlines() if line.startswith("  req ")]
+    assert reqs(paged) == reqs(out) and len(reqs(out)) == 4

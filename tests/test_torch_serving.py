@@ -269,5 +269,6 @@ def test_serve_launcher_layouts_and_spec(capsys, layout):
         main(argv)
     out = capsys.readouterr().out
     assert "served 3 requests" in out
-    assert ("note: --spec-k 4 ignored" in out) == (layout == "contiguous")
+    assert ("note: --spec-k has no effect on this deployment: backend "
+            "reports spec_decode=False" in out) == (layout == "contiguous")
     assert ("spec_drafted=" in out) == (layout == "paged")
