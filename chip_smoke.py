@@ -87,7 +87,7 @@ exits non-zero and prints no result line; no phase catches its own failure.
    then the pipeline phase, the paper's path: ``LLM.from_plan`` plans
    llama2-7b over the paper's testbed (the throughput DP: 13 uneven
    stages) and serves the plan as the no-bubbles stage pipeline on this
-   card, one request of 16-48 prompt tokens per slot x 16 greedy tokens,
+   card, one request of 16-48 prompt tokens per slot x 8 greedy tokens,
    ``max_len`` 64, on the contiguous layout (the contiguous-ring kernel
    once per layer and fed token) and then the paged one (the paged
    kernel likewise); each serve's logits, which chose its greedy tokens,
@@ -95,7 +95,17 @@ exits non-zero and prints no result line; no phase catches its own failure.
    tick ms, tokens/s, the phase's wall and a profiled window; then the
    planned stages' ``pipeline_forward`` over 2 x 4096 tokens in 2
    micro-batches (the flash kernel once per layer and micro-batch)
-   against ``forward(mode="train", impl="ref")``;
+   against ``forward(mode="train", impl="ref")``; then the paged pipeline
+   with ``spec_k=4`` and an oracle of its plain serve's tokens (corrupted
+   at 25%): greedy tokens bit for bit the plain paged pipeline serve's,
+   drafts accepted, fewer scheduler quanta, the paged kernel once a layer
+   and fed token (rejected drafts included); then its streamed admission:
+   three requests sharing a 48-token prefix, plain and then with
+   16-token chunks, request 0 first so that on the paged layout, with
+   the prefix cache, the other two adopt its prefix blocks (two hits, 96
+   fewer fed tokens), on the contiguous layout with chunks alone (no
+   hit); each streamed serve's tokens bit for bit its plain serve's and
+   its decode kernel once a layer and fed token;
    then the fleet phase: a ``Fleet`` of two paged replicas (4 slots each)
    over the same weight tensors is fed ``bursty_trace``'s 24 requests of
    8-48 prompt tokens x 32 greedy tokens through ``replay``, fault free and
@@ -108,6 +118,18 @@ exits non-zero and prints no result line; no phase catches its own failure.
    weights freed, ``repro_torch.launch.serve`` in this process with
    ``--policy edf --ttft-slo 64 --inject-faults transient@decode_step:5x2
    --max-retries 3``: every request finishes, two retries, no escalation;
+   then the reference's dense configs, one model at a time at full width
+   through the ``TensorBackend`` on both layouts (gemma2-2b at all 26
+   layers, four prompts of 4200-4400 tokens over two slots so that the
+   local layers' 4096-key window rings wrap, both softcaps and post-norms;
+   starcoder2-7b at 32 layers, layernorm, biases and a group of 9, also
+   with ``spec_k=4``: 36 verify rows a K/V head; qwen1.5-32b at 16 of its
+   64 layers, qkv bias and MHA at 40 heads; pixtral-12b's decoder at 40
+   layers on token inputs): launches exact, teacher-forced logits within
+   0.25 of ``impl="ref"``, peak device memory; gemma2-2b also scored over
+   1 x 4608 tokens (26 flash launches at D=256 with softcap 50, windowed
+   on the local layers).  The kernels phase holds every kernel at these
+   configs' shapes against its plain version and times it;
 5. hybrid  -- recurrentgemma-2b at full width and depth (18 RG-LRU and 8
    local-attention layers, window 2048), random weights from a seed,
    ``max_len`` 4096, six greedy requests over four slots, one prompt of
@@ -188,10 +210,28 @@ STREAM_CHUNK = 256
 STREAM_MAX_LEN = 1280               # 1024 + 200 + 32 = 1256, in whole blocks
 # the pipeline phase: LLM.from_plan over the paper's testbed (13 planned
 # stages for llama2-7b), one request per slot so the ring is full, prompts
-# of 16-48 tokens, 16 greedy tokens each; its microbatched forward over the
+# of 16-48 tokens, 8 greedy tokens each; its microbatched forward over the
 # score phase's 2 x 4096 tokens in 2 micro-batches
-PIPE_PROMPT_LENS, PIPE_TOKENS, PIPE_MAX_LEN = (16, 48), 16, 64
+PIPE_PROMPT_LENS, PIPE_TOKENS, PIPE_MAX_LEN = (16, 48), 8, 64
 PIPE_MICROBATCHES = 2
+# the pipeline's streamed serves: requests sharing a 48-token prefix (three
+# blocks of 16) plus 1-16 tokens of their own, 8 greedy tokens each, chunks
+# of 16; the first request alone, then the rest, which adopt its prefix
+PIPE_STREAM_REQUESTS, PIPE_STREAM_SHARED, PIPE_STREAM_TAIL = 3, 48, (1, 16)
+PIPE_STREAM_TOKENS, PIPE_STREAM_CHUNK, PIPE_STREAM_MAX_LEN = 8, 16, 80
+# the dense configs on the TensorBackend: (arch, layers served, None for
+# all; prompt lengths; max_len; slots).  gemma2-2b's prompts of 4200-4400
+# tokens wrap its local layers' 4096-key window, in waves of two slots (a
+# prefill's [B, S, 256000] logits); qwen1.5-32b keeps 16 of its 64 layers
+# (all 64 are 65 GB of bf16 weights)
+DENSE_CONFIGS = (
+    ("gemma2-2b", None, (4200, 4400, 4300, 4350), 4608, 2),
+    ("starcoder2-7b", None, PROMPT_LENS, MAX_LEN, SLOTS),
+    ("qwen1.5-32b", 16, PROMPT_LENS, MAX_LEN, SLOTS),
+    ("pixtral-12b", None, PROMPT_LENS, MAX_LEN, SLOTS),
+)
+DENSE_TOKENS = 16
+GEMMA_WINDOW, GEMMA_SOFTCAP, GEMMA_LEN = 4096, 50.0, 4608
 # the fleet phase: two paged replicas of llama2-7b (4 slots each) over one
 # set of weights, bursty_trace's 24 requests (prompts of 8-48 tokens) with
 # 32 greedy tokens each, fault free and with a crash of the second replica
@@ -249,6 +289,36 @@ def bound(n_bytes, n_ops, card, peak=PEAK_BF16):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def sets_past_l2(set_bytes):
+    """Input sets of ``set_bytes`` bytes of K/V each that together exceed
+    the L2 (50 MB) fourfold, so that each timed call reads its cache cold
+    from device memory, as each layer does on the main path."""
+    return max(4, -(-200_000_000 // set_bytes))
+
+
+def d256_instances(logs):
+    """Print the registers and spills of every kernel instance built with a
+    template argument of 256: the flash kernel's D=256 instances (the
+    paged and ring kernels take D at run time, so their D=256 calls run
+    the instances the build lines above list by row count)."""
+    import re
+    for source, log in logs.items():
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            if name is None or "256" not in re.findall(r"Li(\d+)E", name):
+                continue
+            if "spill" in line or "registers" in line:
+                kernel = re.search(r"\d+(\w+?_kernel)I", name)
+                args = re.findall(r"Li(\d+)E", name)
+                print(f"build: D=256 {source} "
+                      f"{kernel.group(1) if kernel else name[:40]}"
+                      f"<{', '.join(args)}>: {line.strip()}")
+
+
 # --------------------------------------------------------------------------- #
 # kernels against their plain versions
 # --------------------------------------------------------------------------- #
@@ -294,9 +364,25 @@ PAGED_CASES = [
     (f"split: {HYBRID} g=10 D=256 window {HYBRID_WINDOW}, slot 0 wrapped",
      (4, 10, 1, 256, 16, HYBRID_WINDOW // 16, (2048, 2048, 700, 17), 1),
      dict(window=HYBRID_WINDOW, last=2130)),
+    # the dense configs' groups: starcoder2-7b's 9 query heads a K/V head
+    # (9 rows at KQ=1; 36 at KQ=4, three blocks of 16, 16 and 4 rows whose
+    # boundaries fall inside a draft token's group), qwen1.5-32b's MHA at
+    # 40 heads, gemma2-2b's D=256 with softcap 50 over a wrapped 4096-key
+    # window
+    ("starcoder2-7b g=9", (4, 36, 4, 128, 16, 32, (512, 300, 17, 129), 1),
+     {}),
+    ("starcoder2-7b g=9 KQ=4, rows 16 + 16 + 4",
+     (4, 36, 4, 128, 16, 32, (509, 300, 17, 129), 4), {}),
+    ("qwen1.5-32b g=1 H=KH=40", (4, 40, 40, 128, 16, 32,
+                                 (512, 300, 17, 129), 1), {}),
+    (f"gemma2-2b g=2 D=256 softcap {GEMMA_SOFTCAP:g} window {GEMMA_WINDOW}, "
+     f"slot 0 wrapped at {GEMMA_LEN - 8}",
+     (2, 8, 4, 256, 16, GEMMA_WINDOW // 16, (4096, 700), 1),
+     dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP, last=GEMMA_LEN - 8)),
 ]
 # row i of a KQ=4 call must equal the KQ=1 call at pos + i, bit for bit
-VERIFY_DECODE_CASES = ("llama2-7b g=1 KQ=4", "qwen3-0.6b g=2 KQ=4 softcap")
+VERIFY_DECODE_CASES = ("llama2-7b g=1 KQ=4", "qwen3-0.6b g=2 KQ=4 softcap",
+                       "starcoder2-7b g=9 KQ=4, rows 16 + 16 + 4")
 
 RING_CASES = [
     # name, ring_case(b, h, kh, d, c, valid), options
@@ -326,9 +412,15 @@ RING_CASES = [
     ("fully masked row through the merge", (2, 16, 8, 128, 1024, (600, 5)),
      {}),
     ("split: llama2-70b g=8 B=1 C=4096", (1, 64, 8, 128, 4096, 3001), {}),
+    # gemma2-2b's local layers: D=256, softcap 50, a 4096-key window ring
+    # wrapped by a 4600-token context (row 0)
+    (f"gemma2-2b g=2 D=256 softcap {GEMMA_SOFTCAP:g} window {GEMMA_WINDOW}, "
+     f"row 0 wrapped", (2, 8, 4, 256, GEMMA_WINDOW, (4096, 700)),
+     dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP)),
 ]
 # the ring position a case with this window has wrapped to
-RING_WRAP = {50: 200, 40: 1000, HYBRID_WINDOW: 2130}
+RING_WRAP = {50: 200, 40: 1000, HYBRID_WINDOW: 2130,
+             GEMMA_WINDOW: GEMMA_LEN - 8}
 
 
 FLASH_CASES = [
@@ -354,6 +446,12 @@ FLASH_CASES = [
     ("S = 63", (1, 63, 8, 8, 64), {}),
     ("S = 65 D=256 window 16", (1, 65, 4, 1, 256), dict(window=16)),
     ("q x 16 window 64", (1, 300, 4, 2, 128), dict(window=64, q_scale=16.0)),
+    # gemma2-2b's score: 1 x 4608 at D=256, softcap 50, on a local layer
+    # (window 4096) and a global one
+    *((f"gemma2-2b score {kind} softcap {GEMMA_SOFTCAP:g}",
+       (1, GEMMA_LEN, 8, 4, 256), dict(window=w, softcap=GEMMA_SOFTCAP))
+      for kind, w in ((f"local window {GEMMA_WINDOW}", GEMMA_WINDOW),
+                      ("global", None))),
 ]
 
 
@@ -668,13 +766,15 @@ def paged_sets(kq, max_len=MAX_LEN, n_sets=4, slots=SLOTS,
 
 
 def time_paged(pa, card, kq, max_len=MAX_LEN, slots=SLOTS, n_sets=4,
-               heads=(32, 32, 128), window=None):
+               heads=(32, 32, 128), window=None, softcap=None):
     """paged_attention on :func:`paged_sets`: by default the paged serve's
-    4 slots x 512 keys of llama2-7b."""
+    4 slots x 512 keys of llama2-7b.  With a softcap sdpa, which applies
+    none, is timed beside it (:func:`library_times`)."""
     import torch.nn.functional as F
 
     sets = paged_sets(kq, max_len, n_sets, slots, heads)
-    opts = {} if window is None else dict(window=window)
+    opts = {k: v for k, v in (("window", window), ("softcap", softcap))
+            if v is not None}
     n_sets = len(sets)
     lib = []
     for x in sets:
@@ -706,49 +806,75 @@ def time_paged(pa, card, kq, max_len=MAX_LEN, slots=SLOTS, n_sets=4,
     x = sets[0]
     h, d = x["q"].shape[-2:]
     kh, item = x["k_pool"].shape[2], x["k_pool"].element_size()
-    n_keys = int((x["key_pos"] >= 0).sum())
+    n_keys = int(lib[0][3][:, :, -1].sum())   # the keys the last row sees
     n_bytes = (2 * x["q"].numel() * item + n_keys * kh * d * 2 * item
                + x["key_pos"].numel() * 4 + x["bt"].numel() * 4 + slots * 4)
     n_ops = n_keys * kq * h * 4 * d
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, splits=table_splits(pa, x),
-                **bound(n_bytes, n_ops, card))
+                **library_times(library_ms, softcap),
+                splits=table_splits(pa, x), **bound(n_bytes, n_ops, card))
+
+
+def library_times(sdpa_ms, softcap):
+    """``library_ms``: sdpa's time where it computes the kernel's function;
+    with a softcap it does not (sdpa applies none), so ``library_ms`` is
+    None and its time is kept as ``sdpa_no_softcap_ms``."""
+    if softcap is None:
+        return dict(library_ms=sdpa_ms)
+    return dict(library_ms=None, sdpa_no_softcap_ms=sdpa_ms)
 
 
 def decode_sets(n_valid, heads=(32, 32, 128), c=CONTIGUOUS_MAX_LEN,
-                n_sets=3, slots=SLOTS):
+                n_sets=3, slots=SLOTS, wrap_pos=None):
     """``n_sets`` seeded bf16 inputs of decode_attention at a contiguous
     serve's shapes: ``slots`` slots with a ``c``-key ring each, ``n_valid``
     keys filled; by default 4 slots, llama2-7b's heads (H, KH, D) and
-    4096-key ring."""
+    4096-key ring.  ``wrap_pos``: every slot's ring has wrapped, decoding
+    at that position."""
     from paged_cases import ring_case
     h, kh, d = heads
-    return [to_device(ring_case(slots, h, kh, d, c, (n_valid,) * slots,
-                                seed=400 + i), torch.bfloat16)
-            for i in range(n_sets)]
+    sets = []
+    for i in range(n_sets):
+        if wrap_pos is None:
+            case = ring_case(slots, h, kh, d, c, (n_valid,) * slots,
+                             seed=400 + i)
+        else:
+            case = ring_case(slots, h, kh, d, c, c, seed=400 + i,
+                             wrap_pos=wrap_pos)
+            case["key_pos"] = np.tile(case["key_pos"], (slots, 1))
+            case["pos"] = np.full(slots, wrap_pos, np.int32)
+        sets.append(to_device(case, torch.bfloat16))
+    return sets
 
 
 def time_decode(da, card, n_valid, heads=(32, 32, 128),
-                c=CONTIGUOUS_MAX_LEN, n_sets=3, slots=SLOTS):
+                c=CONTIGUOUS_MAX_LEN, n_sets=3, slots=SLOTS, window=None,
+                softcap=None, wrap_pos=None):
     """decode_attention on :func:`decode_sets`; ``n_sets`` input sets
-    together exceed the L2."""
+    together exceed the L2.  With a softcap sdpa, which applies none, is
+    timed beside it (:func:`library_times`)."""
     import torch.nn.functional as F
 
     h, kh, d = heads
-    sets = decode_sets(n_valid, heads, c, n_sets, slots)
+    sets = decode_sets(n_valid, heads, c, n_sets, slots, wrap_pos)
+    opts = {k: v for k, v in (("window", window), ("softcap", softcap))
+            if v is not None}
     lib = []
     for x in sets:
-        kp = x["key_pos"]
-        mask = (kp >= 0) & (kp <= x["pos"][:, None])             # [B, C]
+        kp, qpos = x["key_pos"], x["pos"][:, None]
+        mask = (kp >= 0) & (kp <= qpos)                          # [B, C]
+        if window is not None:
+            mask &= kp > qpos - window
         lib.append((x["q"][:, :, None], x["k_cache"].transpose(1, 2)
                     .contiguous(), x["v_cache"].transpose(1, 2).contiguous(),
                     mask[:, None, None]))
     err = max(compare(f"decode_attention timing set {i} {n_valid} keys "
                       f"H={h} KH={kh} D={d}", da.decode_attention,
-                      da.decode_attention_plain, x, {}, torch.bfloat16)[1]
+                      da.decode_attention_plain, x, opts, torch.bfloat16)[1]
               for i, x in enumerate(sets))
-    ms = time_ms(lambda i: da.decode_attention(**sets[i]), n_sets)
-    plain_ms = time_ms(lambda i: da.decode_attention_plain(**sets[i]),
+    ms = time_ms(lambda i: da.decode_attention(**sets[i], **opts), n_sets)
+    plain_ms = time_ms(lambda i: da.decode_attention_plain(**sets[i],
+                                                           **opts),
                        n_sets, iters=20, graph=False)
     library_ms = time_ms(
         lambda i: F.scaled_dot_product_attention(
@@ -759,13 +885,13 @@ def time_decode(da, card, n_valid, heads=(32, 32, 128),
     x = sets[0]
     b, h, d = x["q"].shape
     kh, item = x["k_cache"].shape[2], x["k_cache"].element_size()
-    n_keys = int((x["key_pos"] >= 0).sum())
+    n_keys = int(lib[0][3].sum())           # the keys the mask lets through
     n_bytes = (2 * x["q"].numel() * item + n_keys * kh * d * 2 * item
                + x["key_pos"].numel() * 4 + b * 4)
     n_ops = n_keys * h * 4 * d
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, splits=ring_splits(da, x),
-                **bound(n_bytes, n_ops, card))
+                **library_times(library_ms, softcap),
+                splits=ring_splits(da, x), **bound(n_bytes, n_ops, card))
 
 
 def time_rglru(rs, card, s):
@@ -797,18 +923,19 @@ def flash_sets(b, s, heads, n_sets):
 
 
 def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2, b=1,
-               s=SCORE_LEN):
+               s=SCORE_LEN, softcap=None):
     """flash_attention in bf16 at [B, S] tokens, by default a score phase's
     shape per sequence (1 x 4096) and llama2-7b's heads (H, KH, D), causal.
-    ``n_sets`` input sets together exceed the L2."""
+    ``n_sets`` input sets together exceed the L2.  With a softcap sdpa,
+    which applies none, is timed beside it (:func:`library_times`)."""
     import torch.nn.functional as F
     from flash_reference import flash_attention_f64
     h, kh, d = heads
     sets = flash_sets(b, s, heads, n_sets)
+    opts = dict(window=window, softcap=softcap)
     err = max(compare(f"flash_attention timing set {i} H={h} KH={kh} D={d}",
                       fa.flash_attention, fa.flash_attention_plain, x,
-                      dict(window=window), torch.bfloat16,
-                      exact=flash_attention_f64)[1]
+                      opts, torch.bfloat16, exact=flash_attention_f64)[1]
               for i, x in enumerate(sets))
     lib = [{n: t.transpose(1, 2).contiguous() for n, t in x.items()}
            for x in sets]
@@ -816,10 +943,10 @@ def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2, b=1,
     mask = pos[None, :] <= pos[:, None]
     if window is not None:
         mask &= pos[None, :] > pos[:, None] - window
-    ms = time_ms(lambda i: fa.flash_attention(**sets[i], window=window),
+    ms = time_ms(lambda i: fa.flash_attention(**sets[i], **opts),
                  n_sets, iters=20, warmup=2)
     plain_ms = time_ms(
-        lambda i: fa.flash_attention_plain(**sets[i], window=window), n_sets,
+        lambda i: fa.flash_attention_plain(**sets[i], **opts), n_sets,
         iters=3, warmup=1, graph=False)
     # causal: sdpa's own causal mask; with a window: the boolean mask
     library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
@@ -836,7 +963,8 @@ def time_flash(fa, card, heads=(32, 32, 128), window=None, n_sets=2, b=1,
     masked = sum(len(t.masked) for t in plan.tiles)
     walked = sum(t.last - t.first + 1 for t in plan.tiles)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, tiles=(masked, walked - masked),
+                **library_times(library_ms, softcap),
+                tiles=(masked, walked - masked),
                 tile_shape=(plan.rows, plan.keys),
                 **bound(n_bytes, 4 * b * h * d * n_pairs, card))
 
@@ -1008,6 +1136,10 @@ def timing_line(name, shape, t, card):
           f"{t['plain_ms']:.4f} ms, library {lib}, bound "
           f"{t['bound_ms']:.4f} ms ({t['n_bytes'] / 1e6:.2f} MB by "
           f"{t['bound_by']}), max abs err {t['max_abs_err']:.3g} [{card}]")
+    if t.get("sdpa_no_softcap_ms") is not None:
+        print(f"kernels: {name} at {shape}: sdpa on the same inputs without "
+              f"the softcap (no library call applies one) "
+              f"{t['sdpa_no_softcap_ms']:.4f} ms")
     if "tiles" in t:
         print(f"kernels: {name} at {shape}: blocks of {t['tile_shape'][0]} "
               f"rows walk {t['tiles'][0]} masked and {t['tiles'][1]} "
@@ -1105,15 +1237,15 @@ def teacher_forced(backend, prompts, tokens, n_slots=SLOTS,
     return np.concatenate(rows)
 
 
-def teacher_forced_verify(backend, prompts, tokens):
-    """Verify logits [n_req, MAX_TOKENS, V]: each request's own tokens fed
+def teacher_forced_verify(backend, prompts, tokens, n_tokens=MAX_TOKENS):
+    """Verify logits [n_req, n_tokens, V]: each request's own tokens fed
     ``SPEC_K`` at a time through ``verify_step``, all accepted."""
     rows = []
     for wave, padded, lens in waves(prompts):
         slots = list(range(len(wave)))
         backend.prefill(slots, padded, lens)
         steps = []
-        for t in range(0, MAX_TOKENS, SPEC_K):
+        for t in range(0, n_tokens, SPEC_K):
             evs = backend.verify_step({
                 s: np.asarray(tokens[i][t:t + SPEC_K], np.int32)
                 for s, i in zip(slots, wave)})
@@ -1157,13 +1289,18 @@ def run_requests(llm, prompts, sp):
 
 
 class Model:
-    """A model at full width and depth with random weights from SEED (by
-    default llama2-7b), and its six requests."""
+    """A model at full width with random weights from SEED (by default
+    llama2-7b), at full depth or its first ``n_layers`` layers, and its
+    requests."""
 
-    def __init__(self, arch=ARCH, prompt_lens=PROMPT_LENS):
+    def __init__(self, arch=ARCH, prompt_lens=PROMPT_LENS, n_layers=None):
+        import dataclasses
+
         from repro_torch.bridge import init_params
         from repro_torch.configs import get_config
         self.cfg = get_config(arch)
+        if n_layers is not None:
+            self.cfg = dataclasses.replace(self.cfg, n_layers=n_layers)
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(SEED)
         t0 = time.perf_counter()
@@ -1296,10 +1433,11 @@ def serve_contiguous(model, pa, da, card, paged_tokens):
     return dict(launches=launches)
 
 
-def serve_spec(model, pa, da, card, paged_tokens):
+def serve_spec(model, pa, da, card, paged_tokens, n_tokens=MAX_TOKENS,
+               label="serve spec"):
     """Paged layout with speculative decoding: ``SPEC_K`` tokens per verify
     step from an oracle of the paged serve's tokens, corrupted at
-    ``1 - ACCEPT_PROB`` per token."""
+    ``1 - ACCEPT_PROB`` per token; ``n_tokens`` greedy tokens a request."""
     from repro_torch.serving import LLM, SamplingParams
     from repro_torch.serving.spec import OracleDraft
     cfg = model.cfg
@@ -1307,7 +1445,7 @@ def serve_spec(model, pa, da, card, paged_tokens):
     if not be.info.spec_decode:
         raise AssertionError("the paged backend reports spec_decode=False")
     clock = StepClock(be)
-    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    sp = SamplingParams(max_tokens=n_tokens)
 
     def llm():
         oracle = OracleDraft(dict(enumerate(paged_tokens)),
@@ -1340,7 +1478,7 @@ def serve_spec(model, pa, da, card, paged_tokens):
     same = sum(int(a == b) for t, u in zip(tokens, paged_tokens)
                for a, b in zip(t, u))
     total = sum(o.n_generated for o in outs)
-    print(f"serve spec: {len(outs)} requests x {MAX_TOKENS} greedy tokens, "
+    print(f"{label}: {len(outs)} requests x {n_tokens} greedy tokens, "
           f"spec_k {SPEC_K}, oracle accept_prob {ACCEPT_PROB}: {steps} verify "
           f"steps ({at_k} at KQ={SPEC_K}), paged_attention launches "
           f"{launches} = {cfg.n_layers} layers x {steps} steps; drafts "
@@ -1350,7 +1488,7 @@ def serve_spec(model, pa, da, card, paged_tokens):
           f"slot and verify step (the first token of each request comes "
           f"from its prefill); greedy tokens equal to the paged serve's: "
           f"{same}/{total}")
-    print(f"serve spec: {clock.summary('verify')}, {total / wall:.1f} "
+    print(f"{label}: {clock.summary('verify')}, {total / wall:.1f} "
           f"tokens/s over {wall:.2f} s [{card}]")
     del spec, be, clock
     torch.cuda.empty_cache()
@@ -1358,9 +1496,9 @@ def serve_spec(model, pa, da, card, paged_tokens):
     got = {}
     for impl in ("cuda", "ref"):
         got[impl] = teacher_forced_verify(model.backend(impl), model.prompts,
-                                          tokens)
+                                          tokens, n_tokens)
         torch.cuda.empty_cache()
-    compare_logits(f"verify (KQ={SPEC_K})", got, card)
+    compare_logits(f"{model.cfg.name} verify (KQ={SPEC_K})", got, card)
     return dict(launches=launches)
 
 
@@ -1653,6 +1791,104 @@ def serve_hybrid(model, pa, da, rs, card):
                 paged=result["paged"]["attends"])
 
 
+def serve_dense(kernels, card):
+    """The reference's dense configs on the TensorBackend, one model at a
+    time at full width (DENSE_CONFIGS: full depth but qwen1.5-32b's 16 of
+    64 layers), random weights from SEED: greedy serves on the paged and
+    the contiguous layout, the paged kernel or the ring kernel once a
+    layer and decode step and the other never, teacher-forced logits
+    within ``LOGITS_ATOL`` of ``impl="ref"``; starcoder2-7b also with
+    ``spec_k=4`` (36 verify rows a K/V head), gemma2-2b also scored over
+    1 x 4608 tokens through the flash kernel.  Returns each config's
+    launches by kernel and path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving import LLM, SamplingParams
+    result = {}
+    for arch, n_layers, lens, max_len, slots in DENSE_CONFIGS:
+        t_model = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(arch, lens, n_layers)
+        cfg, full = model.cfg, get_config(arch)
+        g = cfg.n_heads // cfg.n_kv_heads
+        windows = sorted({str(s.window) for s in cfg.layer_specs()})
+        cut = "" if n_layers is None else " (cut to fit one card)"
+        print(f"dense {arch}: {cfg.n_layers} of {full.n_layers} layers{cut}"
+              f", d_model {cfg.d_model}, H={cfg.n_heads} KH={cfg.n_kv_heads} "
+              f"(g={g}) D={cfg.resolved_head_dim}, windows {windows}, "
+              f"softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap}, "
+              f"norm {cfg.norm}, qkv_bias {cfg.qkv_bias}, post_norm "
+              f"{cfg.post_norm}, vocab {cfg.vocab_size}; weights from seed "
+              f"{SEED} in {model.init_s:.1f} s; {len(lens)} requests of "
+              f"{list(lens)} tokens x {DENSE_TOKENS} over {slots} slots, "
+              f"max_len {max_len}")
+        out = {}
+        for layout in ("paged", "contiguous"):
+            be = model.backend("cuda", layout, max_len, n_slots=slots)
+            kernel = "paged_attention" if layout == "paged" \
+                else "decode_attention"
+            clock = StepClock(be)
+            llm = LLM.from_backend(be, seed=SEED)
+            sp = SamplingParams(max_tokens=DENSE_TOKENS)
+            llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=2))
+            clock.reset()
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            outs = llm.generate(model.prompts, sp)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            steps = len(clock.decode_ms)
+            want = {k: cfg.n_layers * steps if k == kernel else 0
+                    for k in kernels}
+            if launches != want or not steps:
+                raise AssertionError(f"dense {arch} {layout}: launches "
+                                     f"{launches}, expected {want}")
+            for o in outs:
+                if o.n_generated != DENSE_TOKENS \
+                        or not all(0 <= t < cfg.vocab_size for t in o.tokens):
+                    raise AssertionError(f"{arch} request {o.uid}: "
+                                         f"{o.n_generated} tokens")
+            total = sum(o.n_generated for o in outs)
+            print(f"dense {arch} {layout}: {len(clock.prefill_ms)} prefills, "
+                  f"{steps} decode steps, {kernel} launches "
+                  f"{launches[kernel]} = {cfg.n_layers} layers x {steps} "
+                  f"steps, the other kernels 0; {clock.summary()}, "
+                  f"{total / wall:.1f} tokens/s over {wall:.2f} s [{card}]")
+            del llm, be, clock
+            torch.cuda.empty_cache()
+            tokens = [o.tokens for o in outs]
+            got = {}
+            for impl in ("cuda", "ref"):
+                got[impl] = teacher_forced(
+                    model.backend(impl, layout, max_len, n_slots=slots),
+                    model.prompts, tokens, slots, DENSE_TOKENS)
+                torch.cuda.empty_cache()
+            compare_logits(f"{arch} {layout} decode", got, card)
+            del got
+            out[layout] = dict(launches=launches[kernel], tokens=tokens)
+        if arch == "starcoder2-7b":
+            out["spec"] = serve_spec(model, pa, da, card,
+                                     out["paged"]["tokens"], DENSE_TOKENS,
+                                     f"dense {arch} spec")["launches"]
+        if arch == "gemma2-2b":
+            out["score"] = score(model, kernels, card, 1, GEMMA_LEN)[
+                "flash_attention"]
+        same = sum(int(a == b) for t, u in zip(out["paged"]["tokens"],
+                                               out["contiguous"]["tokens"])
+                   for a, b in zip(t, u))
+        print(f"dense {arch}: greedy tokens of the paged serve equal to the "
+              f"contiguous serve's: {same}/{len(lens) * DENSE_TOKENS}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB; model wall {time.perf_counter() - t_model:.1f} s [{card}]")
+        result[arch] = out
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
 def fleet_replicas(model, faults=""):
     """Two paged TensorBackends of the fleet phase over the same parameter
     tensors (the weights stay on the card once), each under a StepClock;
@@ -1816,17 +2052,17 @@ def serve_launcher(card):
           f"{wall:.1f} s with the weights' set-up [{card}]")
 
 
-def score(model, kernels, card):
-    """The train-mode forward of ``SCORE_BATCH`` x ``SCORE_LEN`` seeded tokens
-    under ``torch.no_grad``: ``impl="cuda"`` launches the flash kernel once
-    per attention layer and the scan once per RG-LRU layer, and no decode
+def score(model, kernels, card, batch=SCORE_BATCH, length=SCORE_LEN):
+    """The train-mode forward of ``batch`` x ``length`` seeded tokens under
+    ``torch.no_grad``: ``impl="cuda"`` launches the flash kernel once per
+    attention layer and the scan once per RG-LRU layer, and no decode
     kernel; its logits agree with ``impl="ref"``'s.  ``kernels`` maps each
     kernel's name to its wrapper; returns the launches of the cuda run."""
     from repro_torch.models import transformer as T
     cfg = model.cfg
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (SCORE_BATCH, SCORE_LEN))).to(DEVICE)
+        0, cfg.vocab_size, (batch, length))).to(DEVICE)
     n_scan = sum(spec.kind == "rglru" for spec in cfg.layer_specs())
     want = dict(flash_attention=cfg.n_layers - n_scan, rglru_scan=n_scan,
                 decode_attention=0, paged_attention=0, int8_matmul=0)
@@ -1847,7 +2083,7 @@ def score(model, kernels, card):
         raise AssertionError(f"score {cfg.name}: launches {launches}, "
                              f"expected {want}")
     diff = agree = 0
-    for row in range(SCORE_BATCH):           # one row at a time: V is large
+    for row in range(batch):           # one row at a time: V is large
         got, ref = logits["cuda"][row].float(), logits["ref"][row].float()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"score {cfg.name}: non-finite logits")
@@ -1856,10 +2092,10 @@ def score(model, kernels, card):
     if diff > LOGITS_ATOL:
         raise AssertionError(f"score {cfg.name}: logits cuda vs ref max abs "
                              f"diff {diff:.4g} > {LOGITS_ATOL}")
-    print(f"score {cfg.name}: forward(mode='train') over {SCORE_BATCH} x "
-          f"{SCORE_LEN} tokens, logits {list(logits['cuda'].shape)}: impl "
+    print(f"score {cfg.name}: forward(mode='train') over {batch} x "
+          f"{length} tokens, logits {list(logits['cuda'].shape)}: impl "
           f"cuda vs ref max abs diff {diff:.4g} (atol {LOGITS_ATOL}), argmax "
-          f"agreement {agree}/{SCORE_BATCH * SCORE_LEN}; launches "
+          f"agreement {agree}/{batch * length}; launches "
           f"{launches}; {secs['cuda'] * 1e3:.1f} ms cuda, "
           f"{secs['ref'] * 1e3:.1f} ms ref [{card}]")
     del logits
@@ -1923,21 +2159,16 @@ def serve_pipeline(model, kernels, card):
     stages' microbatched train-mode forward (the flash kernel once per
     layer and micro-batch) against the unstaged ref path.  ``kernels`` maps
     each kernel's name to its wrapper; returns each layout's launches and
-    the forward's."""
+    the forward's, each layout's serve (tokens, quanta, ticks, fed tokens,
+    wall, tokens/s) and the prompts."""
     from repro_torch.core import pipeline as PL
-    from repro_torch.core.devices import paper_testbed
-    from repro_torch.core.profile import Workload
     from repro_torch.models import transformer as T
     from repro_torch.serving import LLM, SamplingParams
     cfg = model.cfg
     sp = SamplingParams(max_tokens=PIPE_TOKENS)
 
     def plan(layout):
-        return LLM.from_plan(cfg, paper_testbed(), Workload(dtype_bytes=2),
-                             objective="throughput", kind="pipeline",
-                             params=model.params, max_len=PIPE_MAX_LEN,
-                             cache_layout=layout, block_size=BLOCK_SIZE,
-                             impl="cuda", device=DEVICE, seed=SEED)
+        return plan_pipeline(model, layout)
 
     llm = plan("contiguous")
     spec = llm.backend.spec
@@ -1987,12 +2218,14 @@ def serve_pipeline(model, kernels, card):
         logits.clear()
         for fn in kernels.values():
             fn.launches = 0
+        quanta = llm.stats.decode_steps
         t0 = time.perf_counter()
         outs = run_requests(llm, prompts, sp)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
         wall = t_end - t0
         launches = {n: fn.launches for n, fn in kernels.items()}
+        quanta = llm.stats.decode_steps - quanta
         # a tick's time: from its start to the next tick's (the scheduler's
         # work between them included), the last one's to the serve's end
         ticks = np.diff(starts + [t_end]) * 1e3
@@ -2035,6 +2268,9 @@ def serve_pipeline(model, kernels, card):
         print(f"pipeline {layout}: phase wall "
               f"{time.perf_counter() - t_phase:.2f} s [{card}]")
         out[layout] = launches[kernel]
+        out[f"{layout} serve"] = dict(tokens=tokens, quanta=quanta,
+                                      ticks=len(ticks), fed=fed, wall=wall,
+                                      tokens_s=total / wall)
         llm = None
         torch.cuda.empty_cache()
 
@@ -2080,6 +2316,241 @@ def serve_pipeline(model, kernels, card):
     del got, ref
     torch.cuda.empty_cache()
     out["flash_attention"] = launches["flash_attention"]
+    out["prompts"] = prompts
+    return out
+
+
+def plan_pipeline(model, layout, max_len=PIPE_MAX_LEN, **kw):
+    """``LLM.from_plan`` of ``model`` over the paper's testbed (the
+    throughput DP) on ``layout``; ``kw`` are the serving options (spec,
+    prefix cache, chunks)."""
+    from repro_torch.core.devices import paper_testbed
+    from repro_torch.core.profile import Workload
+    from repro_torch.serving import LLM
+    return LLM.from_plan(model.cfg, paper_testbed(), Workload(dtype_bytes=2),
+                         objective="throughput", kind="pipeline",
+                         params=model.params, max_len=max_len,
+                         cache_layout=layout, block_size=BLOCK_SIZE,
+                         impl="cuda", device=DEVICE, seed=SEED, **kw)
+
+
+class FedTicks:
+    """Counts the stage pipeline's fed ticks (a tick whose stage 0 takes a
+    token: one 32-layer pass of that token, one decode-kernel launch a
+    layer) while in use, by wrapping ``pipeline_decode_tick``."""
+
+    def __enter__(self):
+        from repro_torch.core import pipeline as PL
+        self.fed, self._pl, self._tick = 0, PL, PL.pipeline_decode_tick
+
+        def tick(*args, feed_valid=True, **kw):
+            self.fed += bool(feed_valid)
+            return self._tick(*args, feed_valid=feed_valid, **kw)
+        PL.pipeline_decode_tick = tick
+        return self
+
+    def __exit__(self, *exc):
+        self._pl.pipeline_decode_tick = self._tick
+
+
+def serve_pipeline_spec(model, kernels, card, pipe):
+    """Speculative verify on the paged stage pipeline: the pipeline phase's
+    prompts with ``spec_k=4`` and an oracle of its paged serve's tokens
+    (corrupted at ``1 - ACCEPT_PROB``).  Each draft is one tick at the
+    position a decode would have, so the greedy tokens equal the plain
+    paged serve's bit for bit, in fewer scheduler quanta; the paged kernel
+    launches once a layer and fed token, rejected drafts included."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.spec import OracleDraft
+    cfg = model.cfg
+    plain, prompts = pipe["paged serve"], pipe["prompts"]
+    sp = SamplingParams(max_tokens=PIPE_TOKENS)
+    oracle = OracleDraft(dict(enumerate(plain["tokens"])),
+                         accept_prob=ACCEPT_PROB, seed=SEED,
+                         vocab_size=cfg.vocab_size)
+    t_phase = time.perf_counter()
+    llm = plan_pipeline(model, "paged", spec_k=SPEC_K, draft=oracle)
+    be = llm.backend
+    if not be.info.spec_decode:
+        raise AssertionError("the paged pipeline reports spec_decode=False")
+    clock = StepClock(be)
+    llm.generate([prompts[0][:2]], SamplingParams(max_tokens=1))
+    clock.reset()
+    for fn in kernels.values():
+        fn.launches = 0
+    quanta, tick0 = llm.stats.decode_steps, be.state.tick
+    with FedTicks() as fed:
+        t0 = time.perf_counter()
+        outs = run_requests(llm, prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    quanta = llm.stats.decode_steps - quanta
+    ticks = be.state.tick - tick0
+    want = {n: cfg.n_layers * fed.fed if n == "paged_attention" else 0
+            for n in kernels}
+    if launches != want or not fed.fed:
+        raise AssertionError(f"pipeline spec: launches {launches}, expected "
+                             f"{want} ({fed.fed} fed tokens)")
+    tokens = [o.tokens for o in outs]
+    same = sum(int(a == b) for t, u in zip(tokens, plain["tokens"])
+               for a, b in zip(t, u))
+    total = sum(o.n_generated for o in outs)
+    st = llm.stats
+    print(f"pipeline spec: {len(outs)} requests x {PIPE_TOKENS} greedy "
+          f"tokens, spec_k {SPEC_K}, oracle accept_prob {ACCEPT_PROB}: "
+          f"{quanta} scheduler quanta ({len(clock.verify_ms)} verify calls) "
+          f"against the plain paged serve's {plain['quanta']}, {ticks} "
+          f"ticks ({plain['ticks']}), {fed.fed} fed tokens ({plain['fed']}); "
+          f"drafts accepted {st.spec_accepted}/{st.spec_drafted}; "
+          f"paged_attention launches {launches['paged_attention']} = "
+          f"{cfg.n_layers} layers x {fed.fed} fed tokens, the other kernels "
+          f"0; greedy tokens equal to the plain paged serve's: "
+          f"{same}/{total}")
+    v = clock.verify_ms
+    print(f"pipeline spec: {wall / ticks * 1e3:.3f} ms a tick on average, "
+          f"verify ms per call median {statistics.median(v):.3f} (min "
+          f"{min(v):.3f}, max {max(v):.3f}), {total / wall:.1f} tokens/s "
+          f"over {wall:.2f} s (the plain paged serve: "
+          f"{plain['wall'] / plain['ticks'] * 1e3:.3f} ms a tick on average, "
+          f"{plain['tokens_s']:.1f} tokens/s) [{card}]")
+    if tokens != plain["tokens"]:
+        raise AssertionError(f"pipeline spec: {total - same} greedy tokens "
+                             f"differ from the plain paged serve's")
+    if not st.spec_accepted or quanta >= plain["quanta"]:
+        raise AssertionError(f"pipeline spec: {st.spec_accepted} drafts "
+                             f"accepted, {quanta} quanta against "
+                             f"{plain['quanta']}")
+    print(f"pipeline spec: phase wall {time.perf_counter() - t_phase:.2f} s")
+    del llm, be, clock
+    torch.cuda.empty_cache()
+    return launches["paged_attention"]
+
+
+def pipe_stream_prompts(cfg):
+    """``PIPE_STREAM_REQUESTS`` prompts from SEED + 2: one shared
+    ``PIPE_STREAM_SHARED``-token prefix, then 1-16 seeded tokens of each
+    request's own."""
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, cfg.vocab_size, PIPE_STREAM_SHARED)
+    tails = rng.integers(PIPE_STREAM_TAIL[0], PIPE_STREAM_TAIL[1] + 1,
+                         PIPE_STREAM_REQUESTS)
+    return [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+            .astype(np.int32) for n in tails]
+
+
+def stream_serve(llm, prompts, sp, staged):
+    """Serve ``prompts`` under uids 0.. and return the outputs; ``staged``:
+    request 0 alone until its first token (its prompt's blocks are then
+    registered), then the rest."""
+    rest = list(enumerate(prompts))
+    if staged:
+        llm.submit(prompts[0], sp, uid=0)
+        rest = rest[1:]
+        while not any(ev.uid == 0 for ev in llm.step()):
+            pass
+    for uid, prompt in rest:
+        llm.submit(prompt, sp, uid=uid)
+    while llm.has_work:
+        llm.step()
+    return [llm.poll(uid) for uid in range(len(prompts))]
+
+
+def serve_pipeline_streamed(model, kernels, card):
+    """Streamed admission on the stage pipeline: prompts sharing a 48-token
+    prefix, served plain, then with ``prefill_chunk=16`` and (paged) the
+    prefix cache, request 0 first so the rest adopt its prefix blocks.  On
+    each layout the streamed serve's greedy tokens equal the plain serve's
+    bit for bit (every fed token is the same tick at the same position;
+    an adopted block holds the keys request 0 wrote there); the prefix
+    hits cut the fed tokens, and the decode kernel launches once a layer
+    and fed token."""
+    from repro_torch.serving import SamplingParams
+    cfg = model.cfg
+    prompts = pipe_stream_prompts(cfg)
+    sp = SamplingParams(max_tokens=PIPE_STREAM_TOKENS)
+    n = len(prompts)
+    print(f"pipeline streamed: {n} requests of {[len(p) for p in prompts]} "
+          f"prompt tokens ({PIPE_STREAM_SHARED} shared) x "
+          f"{PIPE_STREAM_TOKENS} greedy tokens, max_len "
+          f"{PIPE_STREAM_MAX_LEN}, chunks of {PIPE_STREAM_CHUNK}")
+    out = {}
+    for layout in ("paged", "contiguous"):
+        t_phase = time.perf_counter()
+        kernel = "decode_attention" if layout == "contiguous" \
+            else "paged_attention"
+        runs = {}
+        for kind in ("plain", "streamed"):
+            kw = dict(prefix_cache=True, prefill_chunk=PIPE_STREAM_CHUNK) \
+                if kind == "streamed" else {}
+            llm = plan_pipeline(model, layout, PIPE_STREAM_MAX_LEN, **kw)
+            info = llm.backend.info
+            if kind == "streamed" and (info.prefix_caching
+                                       != (layout == "paged")
+                                       or not info.supports_extend):
+                raise AssertionError(f"pipeline streamed {layout}: "
+                                     f"prefix_caching={info.prefix_caching}, "
+                                     f"supports_extend="
+                                     f"{info.supports_extend}")
+            tick0 = llm.backend.state.tick
+            for fn in kernels.values():
+                fn.launches = 0
+            with FedTicks() as fed:
+                t0 = time.perf_counter()
+                outs = stream_serve(llm, prompts, sp, kind == "streamed")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            want = {k: cfg.n_layers * fed.fed if k == kernel else 0
+                    for k in kernels}
+            if launches != want:
+                raise AssertionError(f"pipeline {kind} {layout}: launches "
+                                     f"{launches}, expected {want}")
+            for o in outs:
+                if o.n_generated != PIPE_STREAM_TOKENS:
+                    raise AssertionError(f"request {o.uid}: {o.n_generated} "
+                                         f"tokens")
+            st = llm.stats
+            ticks = llm.backend.state.tick - tick0
+            ttft = [o.timing.ttft_s for o in outs]
+            runs[kind] = dict(tokens=[o.tokens for o in outs], fed=fed.fed,
+                              hits=st.prefix_hits,
+                              hit_tokens=st.prefix_hit_tokens)
+            print(f"pipeline {kind} {layout}: {fed.fed} fed tokens, "
+                  f"{kernel} launches {launches[kernel]} = {cfg.n_layers} "
+                  f"layers x {fed.fed}, the other kernels 0; prefix hits "
+                  f"{st.prefix_hits} ({st.prefix_hit_tokens} tokens), "
+                  f"{st.prefill_chunks} chunk passes, {ticks} ticks, "
+                  f"{wall / ticks * 1e3:.3f} ms a tick on average, "
+                  f"{n * PIPE_STREAM_TOKENS / wall:.1f} tokens/s over "
+                  f"{wall:.2f} s; TTFT s request 0 {ttft[0]:.3f}, the rest "
+                  f"median {statistics.median(ttft[1:]):.3f} [{card}]")
+            del llm
+            torch.cuda.empty_cache()
+        plain, streamed = runs["plain"], runs["streamed"]
+        same = sum(int(a == b) for t, u in zip(streamed["tokens"],
+                                               plain["tokens"])
+                   for a, b in zip(t, u))
+        print(f"pipeline streamed {layout}: greedy tokens equal to the plain "
+              f"serve's: {same}/{n * PIPE_STREAM_TOKENS}; phase wall "
+              f"{time.perf_counter() - t_phase:.2f} s")
+        if streamed["tokens"] != plain["tokens"]:
+            raise AssertionError(f"pipeline streamed {layout}: tokens differ "
+                                 f"from the plain serve's")
+        hits = streamed["hits"]
+        if layout == "paged" and (
+                hits < n - 1 or streamed["fed"] != plain["fed"]
+                - streamed["hit_tokens"]):
+            raise AssertionError(f"pipeline streamed paged: {hits} hits "
+                                 f"({streamed['hit_tokens']} tokens), "
+                                 f"{streamed['fed']} fed against "
+                                 f"{plain['fed']}")
+        if layout == "contiguous" and (hits or streamed["fed"]
+                                       != plain["fed"]):
+            raise AssertionError(f"pipeline streamed contiguous: {hits} "
+                                 f"hits, {streamed['fed']} fed against "
+                                 f"{plain['fed']}")
+        out[layout] = cfg.n_layers * streamed["fed"]
     return out
 
 
@@ -2264,6 +2735,8 @@ def main():
                     or "spill" in line:
                 print(f"build:   {line.strip()[:140]}")
 
+    d256_instances(built.logs)
+
     worst = {"paged_attention": check_paged(pa),
              "decode_attention": check_ring(da)}
     worst["rglru_scan"] = check_rglru(rs)
@@ -2302,6 +2775,41 @@ def main():
         # 1 x 4096 x 10 x 256 bf16 q and out, 2 x 2 MB of K/V: 46 MB a set
         "flash_attention hybrid": time_flash(
             fa, card, heads=(10, 1, 256), window=HYBRID_WINDOW, n_sets=3),
+        # the pipeline's streamed serves: contexts of up to 80 keys
+        "decode_attention pipeline streamed": time_decode(
+            da, card, PIPE_STREAM_MAX_LEN, c=PIPE_STREAM_MAX_LEN, n_sets=64,
+            slots=1),
+        "paged_attention pipeline streamed": time_paged(
+            pa, card, 1, PIPE_STREAM_MAX_LEN, slots=1, n_sets=64),
+        # the dense configs' serves: 4 slots x 512 keys at their heads;
+        # gemma2-2b's 2 slots x 4608 keys (a global layer) and its local
+        # layers' wrapped 4096-key window ring, softcap 50
+        **{f"{kind} {arch}": timer(heads, sets_past_l2(SLOTS * MAX_LEN
+                                                       * heads[1] * heads[2]
+                                                       * 4))
+           for arch, heads in (("starcoder2-7b", (36, 4, 128)),
+                               ("qwen1.5-32b", (40, 40, 128)),
+                               ("pixtral-12b", (32, 8, 128)))
+           for kind, timer in (
+               ("paged_attention", lambda h, n: time_paged(
+                   pa, card, 1, heads=h, n_sets=n)),
+               ("decode_attention", lambda h, n: time_decode(
+                   da, card, MAX_LEN, heads=h, c=MAX_LEN, n_sets=n)))},
+        "paged_verify_attention starcoder2-7b": time_paged(
+            pa, card, SPEC_K, heads=(36, 4, 128),
+            n_sets=sets_past_l2(SLOTS * MAX_LEN * 4 * 128 * 4)),
+        "paged_attention gemma2-2b": time_paged(
+            pa, card, 1, GEMMA_LEN, slots=2, heads=(8, 4, 256),
+            softcap=GEMMA_SOFTCAP),
+        "decode_attention gemma2-2b": time_decode(
+            da, card, GEMMA_WINDOW, heads=(8, 4, 256), c=GEMMA_WINDOW,
+            slots=2, window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP,
+            wrap_pos=GEMMA_LEN - 8),
+        "flash_attention gemma2-2b": time_flash(
+            fa, card, heads=(8, 4, 256), window=GEMMA_WINDOW, s=GEMMA_LEN,
+            softcap=GEMMA_SOFTCAP),
+        "flash_attention gemma2-2b global": time_flash(
+            fa, card, heads=(8, 4, 256), s=GEMMA_LEN, softcap=GEMMA_SOFTCAP),
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
@@ -2333,6 +2841,40 @@ def main():
         "flash_attention hybrid": f"{HYBRID} (H=10, KH=1, D=256) 1 x "
                                   f"{SCORE_LEN}, window {HYBRID_WINDOW}, "
                                   f"bf16",
+        "decode_attention pipeline streamed": f"llama2-7b x 1 slot x "
+                                              f"{PIPE_STREAM_MAX_LEN}-key "
+                                              f"ring, full, bf16",
+        "paged_attention pipeline streamed": f"llama2-7b x 1 slot x "
+                                             f"{PIPE_STREAM_MAX_LEN} keys "
+                                             f"bf16",
+        **{f"{kind} {arch}": f"{arch} (H={h}, KH={kh}, D={d}) x {SLOTS} "
+                             f"slots x {MAX_LEN} {what}, bf16"
+           for arch, (h, kh, d) in (("starcoder2-7b", (36, 4, 128)),
+                                    ("qwen1.5-32b", (40, 40, 128)),
+                                    ("pixtral-12b", (32, 8, 128)))
+           for kind, what in (("paged_attention", "keys"),
+                              ("decode_attention", "-key ring, full"))},
+        "paged_verify_attention starcoder2-7b": f"starcoder2-7b (H=36, "
+                                                f"KH=4, D=128) x {SLOTS} "
+                                                f"slots x {MAX_LEN} keys x "
+                                                f"KQ={SPEC_K} (36 rows a "
+                                                f"K/V head), bf16",
+        "paged_attention gemma2-2b": f"gemma2-2b (H=8, KH=4, D=256) x 2 "
+                                     f"slots x {GEMMA_LEN} keys (a global "
+                                     f"layer), softcap {GEMMA_SOFTCAP:g}, "
+                                     f"bf16",
+        "decode_attention gemma2-2b": f"gemma2-2b (H=8, KH=4, D=256) x 2 "
+                                      f"slots x {GEMMA_WINDOW}-key window "
+                                      f"ring wrapped at {GEMMA_LEN - 8}, "
+                                      f"softcap {GEMMA_SOFTCAP:g}, bf16",
+        "flash_attention gemma2-2b": f"gemma2-2b (H=8, KH=4, D=256) 1 x "
+                                     f"{GEMMA_LEN}, window {GEMMA_WINDOW} "
+                                     f"(a local layer), softcap "
+                                     f"{GEMMA_SOFTCAP:g}, bf16",
+        "flash_attention gemma2-2b global": f"gemma2-2b (H=8, KH=4, D=256) "
+                                            f"1 x {GEMMA_LEN}, causal (a "
+                                            f"global layer), softcap "
+                                            f"{GEMMA_SOFTCAP:g}, bf16",
     }
     for m in INT8_M:
         for k, n in INT8_PROJ:
@@ -2344,6 +2886,12 @@ def main():
     for key, t in timing.items():
         timing_line(key.split()[0], shapes[key], t, card)
 
+    def done(what):
+        """The script's wall so far, at the end of a phase."""
+        print(f"chip_smoke: {what} done at {time.perf_counter() - t_start:.1f}"
+              f" s")
+
+    done("kernel checks and timings")
     int8_launches = int8_path(i8, wrappers, card)
     model = Model()
     paged = serve_paged(model, pa, card)
@@ -2351,7 +2899,12 @@ def main():
     spec = serve_spec(model, pa, da, card, paged["tokens"])
     streamed = serve_streamed(model, wrappers, card)
     scored = score(model, wrappers, card)
+    done("the int8 op path and llama2-7b's serves and score")
     pipe = serve_pipeline(model, wrappers, card)
+    done("the pipeline phase")
+    pipe_spec = serve_pipeline_spec(model, wrappers, card, pipe)
+    pipe_streamed = serve_pipeline_streamed(model, wrappers, card)
+    done("the pipeline's spec and streamed serves")
     fleet = serve_fleet(model, pa, da, card)
     del model                       # 13.48 GB of llama2-7b weights
     gc.collect()
@@ -2359,12 +2912,16 @@ def main():
     serve_launcher(card)
     gc.collect()
     torch.cuda.empty_cache()
+    done("the fleet and the launcher")
+    dense = serve_dense(wrappers, card)
+    done("the dense configs")
     model = Model(HYBRID, HYBRID_PROMPT_LENS)
     hybrid = serve_hybrid(model, pa, da, rs, card)
     hybrid_scored = score(model, wrappers, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    done("the hybrid")
     train_phase(fa, card)
 
     def entry(key, name, source, replaces, launches):
@@ -2422,6 +2979,33 @@ def main():
         entry("flash_attention", "flash_attention@pipeline",
               "flash_attention.cu", "flash_attention.py:86",
               pipe["flash_attention"]),
+        # the pipeline's spec serve (one draft a tick) and its streamed
+        # serves (the prefix cache and chunks on the paged layout, chunks
+        # on the contiguous one)
+        entry("paged_attention pipeline", "paged_attention@pipeline spec",
+              "paged_attention.cu", "decode_attention.py:201", pipe_spec),
+        entry("paged_attention pipeline streamed",
+              "paged_attention@pipeline streamed", "paged_attention.cu",
+              "decode_attention.py:201", pipe_streamed["paged"]),
+        entry("decode_attention pipeline streamed",
+              "decode_attention@pipeline streamed", "decode_attention.cu",
+              "decode_attention.py:153", pipe_streamed["contiguous"]),
+        # the dense configs on both layouts, starcoder2-7b's verify and
+        # gemma2-2b's score
+        *(entry(f"{kind} {arch}", f"{kind}@{arch}", source,
+                f"decode_attention.py:{line}", dense[arch][layout]["launches"])
+          for arch in ("gemma2-2b", "starcoder2-7b", "qwen1.5-32b",
+                       "pixtral-12b")
+          for kind, source, line, layout in (
+              ("paged_attention", "paged_attention.cu", 201, "paged"),
+              ("decode_attention", "decode_attention.cu", 153,
+               "contiguous"))),
+        entry("paged_verify_attention starcoder2-7b",
+              "paged_verify_attention@starcoder2-7b", "paged_attention.cu",
+              "decode_attention.py:256", dense["starcoder2-7b"]["spec"]),
+        entry("flash_attention gemma2-2b", "flash_attention@gemma2-2b",
+              "flash_attention.cu", "flash_attention.py:86",
+              dense["gemma2-2b"]["score"]),
         # the op's entry point: one llama2-7b layer's projections in bf16
         entry("int8_matmul M=4 4096x4096 bfloat16", "int8_matmul",
               "int8_matmul.cu", "int8_matmul.py:41", int8_launches["decode"]),

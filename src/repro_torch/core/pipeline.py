@@ -247,19 +247,43 @@ def _mb_view(cache: Dict[str, torch.Tensor],
     return {k: t[mb:mb + 1] for k, t in cache.items()}
 
 
-def reset_slot(state: PipelineDecodeState, slot: int) -> None:
+def reset_slot(state: PipelineDecodeState, slot: int, start: int = 0) -> None:
     """Fresh caches for micro-batch ``slot``, in place: ring rows as
     ``init_caches`` makes them; on the paged layout the slot's ring view
-    only (the host returns its blocks), the pools untouched."""
+    only (the host returns its blocks), the pools untouched.
+
+    ``start > 0`` is a streamed admission over an adopted shared prefix
+    (paged only): ring slot equals absolute position under the prefix gate
+    (no window), so the rows below ``start`` are marked live with their
+    own positions and decoding resumes at ``start``."""
     for cache in state.caches:
         if "k_pool" in cache:
-            cache["key_pos"][slot] = -1
-            cache["pos"][slot] = 0
+            kp = cache["key_pos"][slot]
+            row = torch.arange(kp.shape[0], dtype=kp.dtype, device=kp.device)
+            kp.copy_(torch.where(row < start, row, -1))
+            cache["pos"][slot] = start
         else:
+            if start:
+                raise ValueError("reset_slot: an adopted start needs the "
+                                 "paged layout")
             for key, t in cache.items():
                 t[slot] = -1 if key == "key_pos" else 0
     state.logits_out[slot] = 0.
     state.token_ready[slot] = False
+
+
+def rollback_slot(state: PipelineDecodeState, slot: int, new_pos: int) -> None:
+    """Speculative rejection, in place: drop micro-batch ``slot``'s keys at
+    positions ``>= new_pos`` from every paged layer (``key_pos`` rows to -1)
+    and resume its decode at ``new_pos``.  Ring slot equals absolute
+    position under the spec gate, so the ``key_pos`` values are the
+    positions.  No pool tensor and no other slot is touched; the rejected
+    keys stay in their blocks, masked, until decode overwrites them."""
+    for cache in state.caches:
+        if "k_pool" in cache:
+            kp = cache["key_pos"][slot]
+            kp.masked_fill_(kp >= new_pos, -1)
+            cache["pos"][slot] = new_pos
 
 
 def kill_slot(state: PipelineDecodeState, slot: int) -> None:

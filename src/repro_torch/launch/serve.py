@@ -25,6 +25,10 @@ are random, made from ``--seed``.  Two modes:
     python -m repro_torch.launch.serve --arch llama2-7b --mode pipeline \
         --stages 4 --impl cuda --batch 8 --prompt-len 64 --varlen --gen 32 \
         --max-len 128
+    python -m repro_torch.launch.serve --arch llama2-7b --mode pipeline \
+        --stages 4 --impl cuda --cache-layout paged --batch 8 \
+        --prompt-len 96 --shared-prefix 48 --prefix-cache --prefill-chunk 16 \
+        --gen 32 --max-len 128 --spec-k 4 --expect-prefix-hits
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --impl cuda \
         --cache-layout paged --batch 6 --slots 4 --prompt-len 256 --varlen \
         --gen 32 --max-len 4096
@@ -40,10 +44,11 @@ are random, made from ``--seed``.  Two modes:
 It runs on the GPU unless ``--device cpu`` is given, and raises when no GPU
 is present.  The hybrid recurrentgemma-2b serves on both layouts, and the
 pipeline mode raises for it (its 26 layers are no whole number of 3-layer
-periods).  In pipeline mode ``--spec-k``, ``--prefix-cache``,
-``--prefill-chunk`` and ``--inject-faults`` stop the launcher: the
-pipeline's speculative verify, prefix cache and streamed admission arrive
-with later slices, and fault injection wraps the single tp-mode backend.
+periods).  ``--spec-k``, ``--prefix-cache`` and ``--prefill-chunk`` work in
+both modes: on the contiguous layout spec serves plain decode and the
+prefix cache is ignored, each with a note.  ``--inject-faults`` stops the
+launcher in pipeline mode: fault injection wraps the single tp-mode
+backend.
 The reference's ``--kvint8`` (the int8 KV cache) and ``--devices`` (its
 fake-XLA-device count) have no flag here yet.
 
@@ -168,15 +173,6 @@ def main(argv=None):
         ap.error("--policy edf orders by deadlines: pass --ttft-slo and/or "
                  "--e2e-slo (steps from arrival); --priority alone only "
                  "affects --policy priority")
-    if args.mode == "pipeline":
-        for flag, on in (("--spec-k", args.spec_k >= 2),
-                         ("--prefix-cache", args.prefix_cache),
-                         ("--prefill-chunk", args.prefill_chunk)):
-            if on:
-                ap.error(f"{flag} is not available in --mode pipeline: the "
-                         f"pipeline's speculative verify, prefix cache and "
-                         f"streamed admission arrive with later slices of "
-                         f"the port; use --mode tp")
 
     import numpy as np
     import torch
@@ -214,7 +210,12 @@ def main(argv=None):
 
     kv_kw = dict(max_len=args.max_len, impl=args.impl,
                  cache_layout=args.cache_layout, block_size=args.block_size,
-                 num_blocks=args.kv_blocks or None, device=dev)
+                 num_blocks=args.kv_blocks or None,
+                 prefix_cache=args.prefix_cache, device=dev)
+    serve_kw = dict(seed=args.seed, min_bucket=args.min_bucket,
+                    prefill_chunk=args.prefill_chunk or None,
+                    policy=args.policy, spec_k=args.spec_k, draft=args.draft,
+                    max_retries=args.max_retries)
     if args.mode == "pipeline":
         # planner -> backend -> serving in one call: the DP chooses the
         # (possibly uneven) stage layout over a homogeneous cluster profile
@@ -224,24 +225,16 @@ def main(argv=None):
             Workload(prompt_len=args.prompt_len, gen_tokens=args.gen,
                      dtype_bytes=2),
             objective="throughput", kind="pipeline", params=params,
-            n_slots=args.slots or None, seed=args.seed,
-            min_bucket=args.min_bucket, policy=args.policy,
-            max_retries=args.max_retries, **kv_kw)
+            n_slots=args.slots or None, **kv_kw, **serve_kw)
         print(f"planned stages (periods per stage): "
               f"{llm.backend.spec.periods_per_stage}")
     else:
         backend = TensorBackend(cfg, params,
-                                n_slots=args.slots or args.batch,
-                                prefix_cache=args.prefix_cache, **kv_kw)
+                                n_slots=args.slots or args.batch, **kv_kw)
         if args.inject_faults:
             backend = FaultInjectionBackend(backend, args.inject_faults,
                                             seed=args.seed)
-        llm = LLM.from_backend(backend, seed=args.seed,
-                               min_bucket=args.min_bucket,
-                               prefill_chunk=args.prefill_chunk or None,
-                               policy=args.policy, spec_k=args.spec_k,
-                               draft=args.draft,
-                               max_retries=args.max_retries)
+        llm = LLM.from_backend(backend, **serve_kw)
 
     # every user-passed flag that ends up inert gets one explicit line
     def _inert(flag, why):

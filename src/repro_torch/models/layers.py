@@ -97,6 +97,14 @@ def apply_mlp(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def embed_tokens(params: Dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
+    """Integer tokens -> embeddings.  A frontend's float inputs (the
+    reference's stub vision/audio embeddings) arrive with
+    ``models/frontends.py`` in a later slice, and raise here."""
+    if tokens.is_floating_point():
+        raise ValueError(
+            f"{cfg.name}: float inputs {tuple(tokens.shape)} (frontend "
+            f"embeddings) arrive with models/frontends.py in a later slice; "
+            f"this slice serves integer tokens")
     x = params["embedding"][tokens]
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)

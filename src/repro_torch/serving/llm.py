@@ -113,10 +113,12 @@ class LLM:
         unless ``"cpu"`` is asked for.
 
         The other keywords are :meth:`from_backend`'s and
-        :func:`~repro_torch.runtime.factory.from_deployment`'s.  The
-        pipeline serves plain decode with monolithic admission for now: it
-        reports ``spec_decode=False`` (``spec_k`` then warns and serves
-        normally) and raises for ``prefix_cache=True``.
+        :func:`~repro_torch.runtime.factory.from_deployment`'s.  On the
+        paged layout the pipeline verifies ``spec_k`` drafts and, with
+        ``prefix_cache=True``, adopts cached prompt prefixes; on the
+        contiguous layout it reports ``spec_decode=False`` (``spec_k`` then
+        serves plain decode) and ignores the prefix cache.  ``prefill_chunk``
+        streams admissions on both layouts.
         """
         from repro_torch.core.planner import plan_deployment
         from repro_torch.core.profile import Workload

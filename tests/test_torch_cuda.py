@@ -4,8 +4,11 @@ versions, the wrappers' checks, the served models through the kernels
 against the ref paths, with and without speculative decoding, with
 streamed admission (prefix cache and chunked prefill) and for the hybrid
 recurrentgemma on both layouts, the train mode (the forward through the flash kernel,
-gradients on the ref path), and the no-bubbles stage pipeline (its served
-tokens and its microbatched forward through the kernels).
+gradients on the ref path), the no-bubbles stage pipeline (its served
+tokens, with spec verify and streamed admission too, and its microbatched
+forward through the kernels), and the dense configs' shapes (starcoder2's
+group of 9, qwen1.5's 40-head MHA, gemma2's D=256 with softcap and a
+wrapped 4096-key window) in the kernels and in reduced served models.
 Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
 CPU or interpret mode).  The file imports no jax, so it runs on the GPU
 machine:
@@ -30,7 +33,8 @@ from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.runtime import (PipelineBackend, TensorBackend,  # noqa: E402
                                  TorchTensorBackend)
-from repro_torch.serving import LLM, SamplingParams  # noqa: E402
+from repro_torch.serving import (LLM, ContinuousBatcher,  # noqa: E402
+                                 Request, SamplingParams)
 from repro_torch.serving.spec import OracleDraft  # noqa: E402
 from repro_torch.training import TrainConfig, adamw_init  # noqa: E402
 from repro_torch.training import make_train_step  # noqa: E402
@@ -734,3 +738,177 @@ def test_pipeline_forward_on_gpu(gpu):
                                   impl="cuda")
     assert FA.flash_attention.launches - before == cfg.n_layers * 2
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------------------------- #
+# the dense configs' shapes: starcoder2-7b's group of 9 (36 verify rows in
+# row chunks of 16, 16 and 4), qwen1.5-32b's MHA at 40 heads, gemma2-2b's
+# D=256 with softcap 50 over a wrapped 4096-key window
+# --------------------------------------------------------------------------- #
+
+DENSE_PAGED_CASES = [
+    # paged_case arguments, its keywords, the kernel options
+    ((4, 36, 4, 128, 16, 32, (512, 300, 17, 129), 1, 80), {}, {}),
+    ((4, 36, 4, 128, 16, 32, (509, 300, 17, 129), 4, 81), {}, {}),
+    ((4, 40, 40, 128, 16, 32, (512, 300, 17, 129), 1, 82), {}, {}),
+    ((2, 8, 4, 256, 16, 256, (4096, 700), 1, 83), dict(last=4600),
+     dict(window=4096, softcap=50.0)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("args,kw,opts", DENSE_PAGED_CASES,
+                         ids=["g9", "g9-kq4", "g1-h40", "d256-softcap-window"])
+def test_paged_dense_config_shapes(gpu, dtype, args, kw, opts):
+    """The paged kernel at the dense configs' shapes against its plain
+    version; two calls bit-identical; unread pool rows poisoned with NaN
+    change nothing."""
+    x = paged_case(*args[:-1], seed=args[-1], **kw)
+    t, bad = (_on(c, gpu, getattr(torch, dtype))
+              for c in (x, poison_unread(x, opts.get("window"))))
+    if args[7] == 1:
+        t["q"], bad["q"] = t["q"][:, 0], bad["q"][:, 0]
+    before = PA.paged_attention.launches
+    got = PA.paged_attention(**t, **opts)
+    want = PA.paged_attention_plain(**t, **opts)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(PA.paged_attention(**t, **opts), got)
+    assert torch.equal(PA.paged_attention(**bad, **opts), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_verify_row_equals_decode_at_g9(gpu, dtype):
+    """starcoder2-7b's group of 9 at KQ=4: 36 rows a K/V head in chunks of
+    16, 16 and 4, the chunk boundaries inside draft tokens' groups; row i
+    gives the bits of the KQ=1 call (one block of 9 rows) at pos + i."""
+    t = _on(paged_case(4, 36, 4, 128, 16, 32, (509, 300, 17, 129), 4,
+                       seed=84), gpu, getattr(torch, dtype))
+    four = PA.paged_attention(**t)
+    for i in range(4):
+        one = PA.paged_attention(t["q"][:, i].contiguous(), t["k_pool"],
+                                 t["v_pool"], t["bt"], t["key_pos"],
+                                 t["pos"] + i)
+        assert torch.equal(four[:, i], one), i
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_gemma2_shape(gpu, dtype):
+    """The contiguous-ring kernel at gemma2-2b's local layers: D=256,
+    softcap 50, a 4096-key window ring wrapped at 4600 (row 0), a fully
+    masked row; two calls bit-identical."""
+    x = ring_case(2, 8, 4, 256, 4096, (4096, 700), 85, wrap_pos=4600)
+    t = _on(x, gpu, getattr(torch, dtype))
+    opts = dict(window=4096, softcap=50.0)
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(**t, **opts)
+    want = DA.decode_attention_plain(**t, **opts)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(DA.decode_attention(**t, **opts), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [4096, None], ids=["local", "global"])
+def test_flash_gemma2_shape(gpu, dtype, window):
+    """The flash kernel at gemma2-2b's score: 1 x 4608, H=8, KH=4, D=256,
+    softcap 50, a local layer's 4096 window or a global layer; in bfloat16
+    within one bf16 step of the float64 arithmetic."""
+    g = torch.Generator(device=gpu).manual_seed(86)
+    q, k, v = (torch.randn(shape, generator=g, device=gpu).to(
+        getattr(torch, dtype)) for shape in ((1, 4608, 8, 256),
+                                             (1, 4608, 4, 256),
+                                             (1, 4608, 4, 256)))
+    opts = dict(window=window, softcap=50.0)
+    got = FA.flash_attention(q, k, v, **opts)
+    want = FA.flash_attention_plain(q, k, v, **opts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(FA.flash_attention(q, k, v, **opts), got)
+    if dtype == "bfloat16":
+        assert bf16_steps_apart(got, flash_attention_f64(q, k, v,
+                                                         **opts)) == 0
+
+
+#: the dense configs reduced by hand, keeping their group and head width:
+#: (query heads, K/V heads, head_dim)
+DENSE_GROUPS = {"gemma2-2b": (2, 1, 256), "starcoder2-7b": (9, 1, 128),
+                "qwen1.5-32b": (5, 5, 128), "pixtral-12b": (4, 1, 128)}
+
+
+def _dense(arch, gpu):
+    import dataclasses
+    h, kh, d = DENSE_GROUPS[arch]
+    cfg = dataclasses.replace(get_config(arch).reduced(n_layers=4),
+                              n_heads=h, n_kv_heads=kh, head_dim=d)
+    return cfg, init_params(cfg, torch.Generator(device=gpu).manual_seed(0),
+                            gpu)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("arch", sorted(DENSE_GROUPS))
+def test_served_dense_config_tokens_kernel_equals_ref(gpu, arch, layout):
+    """Each dense config reduced by hand, in float32 on the card, prompts
+    longer than gemma2's reduced window of 16: greedy tokens through the
+    kernels equal the ref path's; starcoder2 also verifies 4 drafts a step
+    (36 rows) on the paged layout."""
+    cfg, params = _dense(arch, gpu)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (23, 19, 26, 17, 21)]
+    sp = SamplingParams(max_tokens=10)
+    toks = {}
+    for impl in ("ref", "cuda"):
+        be = TensorBackend(cfg, params, n_slots=3, max_len=48, impl=impl,
+                           cache_layout=layout, block_size=8)
+        toks[impl] = [o.tokens for o in LLM.from_backend(be).generate(
+            prompts, sp)]
+    assert toks["cuda"] == toks["ref"]
+    if arch == "starcoder2-7b" and layout == "paged":
+        be = TensorBackend(cfg, params, n_slots=3, max_len=48, impl="cuda",
+                           cache_layout=layout, block_size=8)
+        llm = LLM.from_backend(be, spec_k=4)
+        assert [o.tokens for o in llm.generate(prompts, sp)] == toks["ref"]
+        assert llm.stats.spec_drafted > 0
+
+
+def test_pipeline_spec_and_streamed_on_gpu(gpu):
+    """Reduced llama2-7b in float32 on the card: the paged stage pipeline
+    with spec_k=4 and an oracle draft, and with the prefix cache and
+    chunks of 8, serves the plain pipeline's greedy tokens; the paged
+    kernel launches once a layer and fed token, and the prefix hits cut
+    the fed tokens by the adopted ones."""
+    cfg = get_config("llama2-7b").reduced(n_layers=4)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32)]) for n in (5, 9, 3, 12, 7)]
+    sp = SamplingParams(max_tokens=8)
+
+    def serve(**kw):
+        be = PipelineBackend(cfg, params, PL.PipelineSpec(3, (0, 3, 1)),
+                             n_slots=3, max_len=64, impl="cuda",
+                             cache_layout="paged", block_size=16,
+                             prefix_cache=kw.pop("prefix_cache", False))
+        before = PA.paged_attention.launches
+        b = ContinuousBatcher(be, **kw)
+        for uid, p in enumerate(prompts):
+            b.submit(Request(p, sp, uid=uid))
+        done = b.run()
+        return ([done[u].generated for u in range(len(prompts))], b.stats,
+                PA.paged_attention.launches - before)
+
+    plain, plain_stats, plain_launches = serve()
+    fed = sum(len(p) + sp.max_tokens - 1 for p in prompts)
+    assert plain_launches == cfg.n_layers * fed
+    oracle = OracleDraft(dict(enumerate(plain)), accept_prob=0.75, seed=0,
+                         vocab_size=cfg.vocab_size)
+    got, st, _ = serve(spec_k=4, draft=oracle)
+    assert got == plain and st.spec_accepted > 0
+    assert st.decode_steps < plain_stats.decode_steps
+    got, st, launches = serve(prefix_cache=True, prefill_chunk=8)
+    assert got == plain and st.prefix_hits > 0
+    assert launches == cfg.n_layers * (fed - st.prefix_hit_tokens)

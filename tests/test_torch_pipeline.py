@@ -16,6 +16,9 @@ reduced to 6 layers with two query heads per KV head (GQA).
 - a free slot's caches bit for bit unchanged across dead ticks;
 - ``from_deployment``'s three kinds, ``from_plan`` and the launcher's
   ``--mode pipeline``.
+
+Speculative verify and streamed admission on the pipeline are held in
+``tests/test_torch_pipeline_spec.py``.
 """
 import dataclasses
 
@@ -309,7 +312,9 @@ def test_greedy_tokens_equal_tensor_backends(arch, layout, sizes, num_blocks):
     if num_blocks is not None:
         assert llm.stats.preemptions > 0 and llm.stats.resumes > 0
         assert be.pager.free_blocks == be.pager.total_blocks
-    assert be.info.spec_decode is False and be.info.prefix_caching is False
+    # spec verify rides the paged pool; no prefix cache was asked for
+    assert be.info.spec_decode is (layout == "paged")
+    assert be.info.prefix_caching is False and be.info.supports_extend
     assert be.info.attn_impl == "plain"
 
 
@@ -344,19 +349,20 @@ def test_pool_exhausted_before_any_mutation():
 def test_unsupported_configurations_raise():
     _, tcfg, _, tparams = _model("qwen3-0.6b")
     spec = PL.PipelineSpec(2, (3, 3))
-    with pytest.raises(ValueError, match="prefix cache"):
-        PipelineBackend(tcfg, tparams, spec, max_len=16, cache_layout="paged",
-                        prefix_cache=True, device="cpu")
     with pytest.raises(ValueError, match="micro-batch slots"):
         PipelineBackend(tcfg, tparams, spec, n_slots=1, max_len=16,
                         device="cpu")
+    with pytest.raises(ValueError, match="cache_layout"):
+        PipelineBackend(tcfg, tparams, spec, max_len=16, cache_layout="ring",
+                        device="cpu")
+    # the contiguous ring takes no verify (spec rides the paged pool) and
+    # no chunk for a slot that did not start a stream
     be = PipelineBackend(tcfg, tparams, spec, max_len=16, device="cpu")
+    assert not be.info.spec_decode and not be.info.prefix_caching
     for call in (lambda: be.verify_step({0: np.array([1, 2])}),
-                 lambda: be.accept({0: 1}),
-                 lambda: be.start_stream(0, np.array([1, 2])),
                  lambda: be.prefill_chunk([0], np.array([[1]]), [1], [0],
                                           [True])):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(AssertionError):
             call()
     hybrid = get_config("recurrentgemma-2b").reduced(n_layers=4)
     hparams = init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
@@ -450,7 +456,13 @@ def test_serve_launcher_pipeline_equals_tp(capsys):
     assert "planned stages (periods per stage): (0, 1, 1, 0)" in pipe
     assert "served 5 requests" in pipe
     assert tokens(pipe) == tokens(tp) and len(tokens(tp)) == 4
+    # spec on the contiguous layout serves plain decode, with a note
+    main(argv + ["--mode", "pipeline", "--spec-k", "4"])
+    spec = capsys.readouterr().out
+    assert "note: --spec-k has no effect" in spec
+    assert tokens(spec) == tokens(tp)
     with pytest.raises(SystemExit):
-        main(argv + ["--mode", "pipeline", "--spec-k", "4"])
-    assert "--spec-k is not available in --mode pipeline" in \
+        main(argv + ["--mode", "pipeline", "--inject-faults",
+                     "transient@decode_step:5x2"])
+    assert "--inject-faults wraps the single tp-mode backend" in \
         capsys.readouterr().err
