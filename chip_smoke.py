@@ -130,6 +130,22 @@ exits non-zero and prints no result line; no phase catches its own failure.
    1 x 4608 tokens (26 flash launches at D=256 with softcap 50, windowed
    on the local layers).  The kernels phase holds every kernel at these
    configs' shapes against its plain version and times it;
+   then the mixers, one model at a time: granite-moe-1b-a400m at full
+   width and depth (24 layers of 32 experts top-8) on both layouts, the
+   MoE's host reads of its group sizes counted (one a layer call) and
+   timed, its score (24 flash launches at D=64); the held comparisons in
+   float32 weights (in bf16 the reference's expert init amplifies the two
+   read paths' rounding, measured and printed): teacher-forced logits and
+   the score against ``impl="ref"`` with the ref run replaying the kernel
+   run's expert choices, ``train_loss``'s aux against ref's, its planned
+   pipeline against the ``TensorBackend``; kimi-k2-1t-a32b at full width
+   and 1 of its 61 layers, paged (64 query heads over 8, 384 experts top-8
+   and the shared expert, peak memory); xlstm-1.3b at full width and depth
+   (42 mLSTM and 6 sLSTM blocks, no kernel) on both layouts with a
+   2100-token prompt, the paged serve's tokens bit for bit the contiguous
+   one's, its prefill wave split into mLSTM and sLSTM time, its planned
+   pipeline on both layouts against ``decode_step`` at one slot, and in
+   float32 each mLSTM block's parallel form against its recurrence;
 5. hybrid  -- recurrentgemma-2b at full width and depth (18 RG-LRU and 8
    local-attention layers, window 2048), random weights from a seed,
    ``max_len`` 4096, six greedy requests over four slots, one prompt of
@@ -232,6 +248,29 @@ DENSE_CONFIGS = (
 )
 DENSE_TOKENS = 16
 GEMMA_WINDOW, GEMMA_SOFTCAP, GEMMA_LEN = 4096, 50.0, 4608
+# the mixers phase: granite-moe at full width and depth (the llama serve's
+# six prompts over four slots, 16 tokens; its score; its planned pipeline,
+# four requests of 16-48 tokens x 8); kimi-k2 at full width and 1 of its 61
+# layers (one layer's 384 experts are 34 GB of bf16, two layers would not
+# leave room for a cache on an 80 GB card), four prompts of 16-256 tokens
+# x 8; xlstm-1.3b at full width and depth, the six prompts and one of 2100
+# tokens x 16, its planned pipeline as granite-moe's; its parallel prefill
+# held to its own recurrence over a 128-token prompt
+MOE_ARCH, KIMI_ARCH, XLSTM_ARCH = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                   "xlstm-1.3b")
+MIXER_TOKENS, MIXER_PIPE_REQUESTS = 16, 4
+KIMI_LAYERS, KIMI_PROMPT_LENS, KIMI_TOKENS = 1, (16, 64, 128, 256), 8
+XLSTM_PROMPT_LENS = PROMPT_LENS + (2100,)
+XLSTM_RECURRENT_LEN = 128
+# the reference's own parallel-equals-recurrent tolerance
+# (tests/test_models.py::test_mlstm_parallel_equals_recurrent), float32
+RECURRENT_TOL = dict(rtol=2e-4, atol=2e-4)
+# train_loss's load-balance aux (24 layers' Switch terms, ~1 each) through
+# the kernels against impl="ref", in float32 weights: the two paths'
+# hidden states differ by the attention's rounding, which can move a
+# token's top expert (each move shifts a layer's term by about 1/8192 of
+# an expert's share); 1% of the sum
+AUX_RTOL = 1e-2
 # the fleet phase: two paged replicas of llama2-7b (4 slots each) over one
 # set of weights, bursty_trace's 24 requests (prompts of 8-48 tokens) with
 # 32 greedy tokens each, fault free and with a crash of the second replica
@@ -379,6 +418,12 @@ PAGED_CASES = [
      f"slot 0 wrapped at {GEMMA_LEN - 8}",
      (2, 8, 4, 256, 16, GEMMA_WINDOW // 16, (4096, 700), 1),
      dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP, last=GEMMA_LEN - 8)),
+    # the MoE configs' groups: granite-moe's 2 query heads a K/V head at
+    # D=64, kimi-k2's 64 query heads over 8 K/V heads at D=128
+    ("granite-moe g=2 D=64", (4, 16, 8, 64, 16, 32, (512, 300, 17, 129), 1),
+     {}),
+    ("kimi-k2 g=8 H=64 D=128", (4, 64, 8, 128, 16, 32, (264, 136, 72, 24),
+                                1), {}),
 ]
 # row i of a KQ=4 call must equal the KQ=1 call at pos + i, bit for bit
 VERIFY_DECODE_CASES = ("llama2-7b g=1 KQ=4", "qwen3-0.6b g=2 KQ=4 softcap",
@@ -417,6 +462,9 @@ RING_CASES = [
     (f"gemma2-2b g=2 D=256 softcap {GEMMA_SOFTCAP:g} window {GEMMA_WINDOW}, "
      f"row 0 wrapped", (2, 8, 4, 256, GEMMA_WINDOW, (4096, 700)),
      dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP)),
+    # granite-moe's contiguous serve: g=2 at D=64 over 512-key rings
+    ("granite-moe g=2 D=64 C=512 per-row",
+     (4, 16, 8, 64, 512, (512, 300, 17, 129)), {}),
 ]
 # the ring position a case with this window has wrapped to
 RING_WRAP = {50: 200, 40: 1000, HYBRID_WINDOW: 2130,
@@ -452,6 +500,8 @@ FLASH_CASES = [
        (1, GEMMA_LEN, 8, 4, 256), dict(window=w, softcap=GEMMA_SOFTCAP))
       for kind, w in ((f"local window {GEMMA_WINDOW}", GEMMA_WINDOW),
                       ("global", None))),
+    # granite-moe's score: 2 x 4096 at D=64, GQA group 2
+    ("granite-moe score D=64", (SCORE_BATCH, SCORE_LEN, 16, 8, 64), {}),
 ]
 
 
@@ -1257,19 +1307,23 @@ def teacher_forced_verify(backend, prompts, tokens, n_tokens=MAX_TOKENS):
     return np.concatenate(rows)
 
 
-def compare_logits(what, got, card, sides=("cuda", "ref")):
+def compare_logits(what, got, card, sides=("cuda", "ref"), held=True):
     """``got`` maps each of the two ``sides`` to logits of one shape; the
-    first must be finite and within ``LOGITS_ATOL`` of the second."""
+    first must be finite and within ``LOGITS_ATOL`` of the second.  With
+    ``held`` False the difference is measured and printed only."""
     (name_a, name_b), (a, b) = sides, (got[k] for k in sides)
     diff = np.abs(a - b)
-    if not np.isfinite(a).all() or diff.max() > LOGITS_ATOL:
+    if not np.isfinite(a).all() or (held and diff.max() > LOGITS_ATOL):
         raise AssertionError(f"{what} logits {name_a} vs {name_b}: max abs "
-                             f"diff {diff.max():.4g} > {LOGITS_ATOL}")
+                             f"diff {diff.max():.4g} > {LOGITS_ATOL} (mean "
+                             f"{diff.mean():.3g}, |logits| max "
+                             f"{np.abs(b).max():.3g})")
     agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    bound = f"atol {LOGITS_ATOL}" if held else "measured, not held"
     print(f"serve: teacher-forced {what} logits {list(a.shape)}, "
           f"{name_a} vs {name_b} max abs diff {diff.max():.4g} (mean "
           f"{diff.mean():.3g}, |logits| max {np.abs(b).max():.3g}; "
-          f"atol {LOGITS_ATOL}), argmax agreement "
+          f"{bound}), argmax agreement "
           f"{agree}/{diff.shape[0] * diff.shape[1]} [{card}]")
 
 
@@ -1290,10 +1344,11 @@ def run_requests(llm, prompts, sp):
 
 class Model:
     """A model at full width with random weights from SEED (by default
-    llama2-7b), at full depth or its first ``n_layers`` layers, and its
-    requests."""
+    llama2-7b), at full depth or its first ``n_layers`` layers, in its
+    config's dtype or ``dtype``, and its requests."""
 
-    def __init__(self, arch=ARCH, prompt_lens=PROMPT_LENS, n_layers=None):
+    def __init__(self, arch=ARCH, prompt_lens=PROMPT_LENS, n_layers=None,
+                 dtype=None):
         import dataclasses
 
         from repro_torch.bridge import init_params
@@ -1301,6 +1356,8 @@ class Model:
         self.cfg = get_config(arch)
         if n_layers is not None:
             self.cfg = dataclasses.replace(self.cfg, n_layers=n_layers)
+        if dtype is not None:
+            self.cfg = dataclasses.replace(self.cfg, dtype=dtype)
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(SEED)
         t0 = time.perf_counter()
@@ -1889,6 +1946,615 @@ def serve_dense(kernels, card):
     return result
 
 
+# --------------------------------------------------------------------------- #
+# the mixers phase: the MoE and xLSTM configs
+# --------------------------------------------------------------------------- #
+
+class GroupSizeReads:
+    """The MoE's host reads of its group sizes (``models/moe.py``'s
+    ``_group_sizes``, once a layer call) while installed: the sizes read,
+    and the host's wait in each on the host clock; per decode step of the
+    backends it watches, how many and how long."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.own = moe, moe._group_sizes
+        self.sizes, self.waits = [], []
+        self.step_counts, self.step_waits = [], []
+
+    def __enter__(self):
+        self.moe._group_sizes = self._read
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._group_sizes = self.own
+
+    def _read(self, ids, e):
+        t0 = time.perf_counter()
+        sizes = self.own(ids, e)
+        self.waits.append((time.perf_counter() - t0) * 1e3)
+        self.sizes.append(sizes)
+        return sizes
+
+    def watch(self, backend):
+        inner = backend.decode_step
+
+        def counted(feeds):
+            n = len(self.waits)
+            out = inner(feeds)
+            if feeds:
+                self.step_counts.append(len(self.waits) - n)
+                self.step_waits.append(sum(self.waits[n:]))
+            return out
+        backend.decode_step = counted
+
+    def reset(self):
+        for log in (self.sizes, self.waits, self.step_counts,
+                    self.step_waits):
+            log.clear()
+
+    def summary(self, step_ms):
+        wait = statistics.median(self.step_waits)
+        return (f"{sum(self.step_counts)} host reads of the MoE group sizes "
+                f"in {len(self.step_counts)} decode steps "
+                f"({sorted(set(self.step_counts))} a step), the host "
+                f"waiting in them {wait:.3f} ms a step (median), "
+                f"{wait / step_ms:.1%} of the step median {step_ms:.3f} ms")
+
+
+def mixer_serve(model, kernels, card, label, layout, max_len, n_tokens,
+                slots=SLOTS):
+    """One greedy serve of ``model.prompts`` x ``n_tokens`` over ``slots``
+    on ``layout`` through ``TensorBackend(impl="cuda")``: the paged or the
+    ring kernel once per attention layer and decode step, every other
+    kernel never (none at all for a model without attention).  Returns the
+    tokens, the launches, the step clock and the MoE's reads."""
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = model.cfg
+    be = model.backend("cuda", layout, max_len, n_slots=slots)
+    n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
+    kernel = "paged_attention" if layout == "paged" and n_attn \
+        else "decode_attention"
+    clock = StepClock(be)
+    llm = LLM.from_backend(be, seed=SEED)
+    with GroupSizeReads() as reads:
+        reads.watch(be)
+        llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=2))
+        clock.reset()
+        reads.reset()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs = llm.generate(model.prompts,
+                            SamplingParams(max_tokens=n_tokens))
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    steps = len(clock.decode_ms)
+    want = {k: n_attn * steps if k == kernel else 0 for k in kernels}
+    if launches != want or not steps:
+        raise AssertionError(f"{label} {layout}: launches {launches}, "
+                             f"expected {want}")
+    for o in outs:
+        if o.n_generated != n_tokens or o.finish_reason != "length" \
+                or not all(0 <= t < cfg.vocab_size for t in o.tokens):
+            raise AssertionError(f"{label} request {o.uid}: {o.n_generated}"
+                                 f" tokens, {o.finish_reason}")
+    total = sum(o.n_generated for o in outs)
+    what = f"{kernel} launches {launches[kernel]} = {n_attn} attention " \
+        f"layers x {steps} steps, the other kernels 0" if n_attn else \
+        "no kernel launched (no attention layer)"
+    print(f"{label} {layout}: {len(outs)} requests "
+          f"{[len(p) for p in model.prompts]} prompt tokens x {n_tokens} "
+          f"over {slots} slots: {len(clock.prefill_ms)} prefills, {steps} "
+          f"decode steps, {what}; {clock.summary()}, {total / wall:.1f} "
+          f"tokens/s over {wall:.2f} s [{card}]")
+    return dict(tokens=[o.tokens for o in outs], launches=launches[kernel],
+                clock=clock, reads=reads, llm=llm, be=be)
+
+
+class RouteReplay:
+    """The MoE router's expert choices of one run, replayed by a second.
+
+    A top-k choice is discontinuous.  In bf16 the router's logits are
+    rounded to 8 significant bits, so a token whose k-th and (k+1)-th
+    logits round close trades its k-th expert on a one-ulp change upstream,
+    and the kernels and ``impl="ref"`` differ upstream by their attention's
+    rounding.  One trade moves the token's FFN output by an expert's share,
+    and the later layers carry it to the logits.  So to hold the kernels'
+    numerics to the ref path's, the second run takes the first run's
+    choices, weighted by its own router's probabilities over them; the
+    token routings its own choice would have changed are counted."""
+
+    def __init__(self, active=True):
+        from repro_torch.models import moe
+        self.moe, self.own = moe, moe.router_topk
+        self.active, self.recorded, self.at = active, [], None
+        self.tokens = self.changed = 0
+
+    def record(self):
+        self.at = None
+
+    def replay(self):
+        self.at = 0
+
+    def __enter__(self):
+        if self.active:
+            self.moe.router_topk = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.own
+
+    def _route(self, router_w, x, moe):
+        probs, ids, aux = self.own(router_w, x, moe)
+        if self.at is None:
+            self.recorded.append(ids)
+            return probs, ids, aux
+        want = self.recorded[self.at]
+        self.at += 1
+        if want.shape != ids.shape:
+            raise AssertionError(f"route replay: call {self.at} routes "
+                                 f"{tuple(ids.shape)}, recorded "
+                                 f"{tuple(want.shape)}")
+        self.tokens += ids.shape[0]
+        self.changed += int((ids.sort(-1).values != want.sort(-1).values)
+                            .any(-1).sum())
+        full = torch.softmax((x @ router_w).float(), dim=-1)
+        top = full.gather(-1, want)
+        return (top / top.sum(-1, keepdim=True)).to(x.dtype), want, aux
+
+    def summary(self):
+        return (f"ref took the kernel run's expert choices: its own would "
+                f"have changed {self.changed} of {self.tokens} token "
+                f"routings ({self.changed / max(self.tokens, 1):.2%}; the "
+                f"pad rows of left-padded waves, re-zeroed after each "
+                f"block, included)")
+
+
+def mixer_logits(model, card, label, layout, max_len, tokens, n_tokens,
+                 slots=SLOTS, held=True):
+    """Teacher-forced decode logits of ``impl="cuda"`` against
+    ``impl="ref"`` on ``layout``, fed a serve's own tokens; an MoE model's
+    ref run replays the cuda run's expert choices (:class:`RouteReplay`)."""
+    got = {}
+    moe = any(s.moe is not None for s in model.cfg.layer_specs())
+    with RouteReplay(moe) as route:
+        for impl in ("cuda", "ref"):
+            route.record() if impl == "cuda" else route.replay()
+            got[impl] = teacher_forced(model.backend(impl, layout, max_len,
+                                                     n_slots=slots),
+                                       model.prompts, tokens, slots,
+                                       n_tokens)
+            torch.cuda.empty_cache()
+    compare_logits(f"{label} {layout} decode", got, card, held=held)
+    if moe:
+        print(f"{label} {layout}: {route.summary()}")
+
+
+def mixer_pipeline(model, kernels, card, label, layouts, recurrent=False):
+    """``LLM.from_plan`` over the paper's testbed on each of ``layouts``:
+    ``MIXER_PIPE_REQUESTS`` requests of 16-48 tokens x ``PIPE_TOKENS``; the
+    decode kernel once per attention layer and fed token (none without
+    attention); the logits that chose each token within ``LOGITS_ATOL`` of
+    the contiguous TensorBackend's, fed the same tokens, or with
+    ``recurrent`` of ``transformer.decode_step`` at one slot fed every
+    token from a fresh state, the pipeline's own teacher forcing.  Returns
+    each layout's launches."""
+    from repro_torch.serving import SamplingParams
+    cfg = model.cfg
+    n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
+    prompts = pipeline_prompts(cfg, MIXER_PIPE_REQUESTS)
+    fed = sum(len(p) + PIPE_TOKENS - 1 for p in prompts)
+    sp = SamplingParams(max_tokens=PIPE_TOKENS)
+    out = {}
+    for layout in layouts:
+        t0 = time.perf_counter()
+        llm = plan_pipeline(model, layout)
+        be = llm.backend
+        m = be.n_slots
+        logits, tick = {}, be.decode_step
+
+        def recorded(feeds, tick=tick, llm=llm):
+            events = tick(feeds)
+            for ev in events:
+                uid = llm.batcher._slot_req[ev.slot].uid
+                logits.setdefault(uid, []).append(ev.logits)
+            return events
+
+        be.decode_step = recorded
+        for fn in kernels.values():
+            fn.launches = 0
+        ticks = be.state.tick
+        t_serve = time.perf_counter()
+        outs = run_requests(llm, prompts, sp)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+        ticks = be.state.tick - ticks
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        kernel = "paged_attention" if layout == "paged" and n_attn \
+            else "decode_attention"
+        want = {n: n_attn * fed if n == kernel else 0 for n in kernels}
+        if launches != want:
+            raise AssertionError(f"{label} pipeline {layout}: launches "
+                                 f"{launches}, expected {want}")
+        tokens = [o.tokens for o in outs]
+        got = np.stack([np.stack(logits[i]) for i in range(len(prompts))])
+        print(f"{label} pipeline {layout}: LLM.from_plan(paper_testbed()) "
+              f"{be.spec.n_stages} stages, periods "
+              f"{be.spec.periods_per_stage}, {m} slots; "
+              f"{len(prompts)} requests {[len(p) for p in prompts]} x "
+              f"{PIPE_TOKENS}: {ticks} ticks in {serve_s:.2f} s "
+              f"({serve_s / ticks * 1e3:.3f} ms a tick), {kernel} launches "
+              f"{launches[kernel]} = {n_attn} attention layers x {fed} fed "
+              f"tokens [{card}]")
+        del llm, be, logits
+        torch.cuda.empty_cache()
+        if recurrent:
+            ref = np.stack([decode_logits(model.cfg, model.params, p, t)
+                            for p, t in zip(prompts, tokens)])
+        else:
+            ref = teacher_forced(
+                model.backend("cuda", "contiguous", PIPE_MAX_LEN,
+                              n_slots=len(prompts)),
+                prompts, tokens, len(prompts), PIPE_TOKENS, first=True)
+        other = "decode_step" if recurrent else "TensorBackend"
+        compare_logits(f"{label} pipeline {layout}",
+                       {"pipeline": got, other: ref}, card,
+                       sides=("pipeline", other))
+        print(f"{label} pipeline {layout}: phase wall "
+              f"{time.perf_counter() - t0:.1f} s")
+        out[layout] = launches[kernel]
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_granite(kernels, card):
+    """granite-moe-1b-a400m at full width and depth: 24 attention layers,
+    each with 32 experts top-8 (the MoE's host read of its group sizes once
+    a layer call).  In bf16: serves on both layouts (launches, tokens, the
+    reads, step times) and its score through the flash kernel at D=64,
+    their logits against ``impl="ref"`` measured.  In float32 weights, the
+    held checks: the teacher-forced logits and the score against
+    ``impl="ref"``, ``train_loss``'s aux against ref's, and the planned
+    pipeline on the contiguous layout against the TensorBackend.  In bf16
+    the reference's init (an expert tensor scaled by ``1/sqrt(E)``, not by
+    its fan-in) makes every layer amplify a difference upstream, and the
+    kernels and the ref path differ upstream by their attention's
+    rounding."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import SamplingParams
+    from repro_torch.training.adamw import tree_leaves
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(MOE_ARCH, PROMPT_LENS)
+    cfg = model.cfg
+    moe = cfg.pattern[0].moe
+    n_params = sum(t.numel() for t in tree_leaves(model.params))
+    print(f"mixers {MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}"
+          f", H={cfg.n_heads} KH={cfg.n_kv_heads} D={cfg.resolved_head_dim},"
+          f" {moe.num_experts} experts top-{moe.top_k} of width "
+          f"{moe.d_expert}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+          f"parameters of {cfg.dtype} from seed {SEED} in "
+          f"{model.init_s:.1f} s")
+    out, served = {}, {}
+    for layout in ("contiguous", "paged"):
+        r = mixer_serve(model, kernels, card, f"mixers {MOE_ARCH}", layout,
+                        MAX_LEN, MIXER_TOKENS)
+        step = statistics.median(r["clock"].decode_ms)
+        print(f"mixers {MOE_ARCH} {layout}: {r['reads'].summary(step)} "
+              f"[{card}]")
+        reads = r["reads"].step_counts
+        if any(c != cfg.n_layers for c in reads):
+            raise AssertionError(f"{MOE_ARCH}: group-size reads a step "
+                                 f"{reads}, expected {cfg.n_layers}")
+        if layout == "paged":
+            device_share(f"mixers {MOE_ARCH} paged",
+                         f"{SLOTS} requests x 8 tokens",
+                         lambda llm=r["llm"]: llm.generate(
+                             model.prompts[:SLOTS],
+                             SamplingParams(max_tokens=8)), card)
+        del r["llm"], r["be"]
+        torch.cuda.empty_cache()
+        mixer_logits(model, card, f"mixers {MOE_ARCH} bf16", layout, MAX_LEN,
+                     r["tokens"], MIXER_TOKENS, held=False)
+        out[layout] = r["launches"]
+        served[layout] = r["tokens"]
+    out["score"] = score(model, kernels, card, held=False)["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = Model(MOE_ARCH, PROMPT_LENS, dtype="float32")
+    for layout in ("contiguous", "paged"):
+        mixer_logits(model, card, f"mixers {MOE_ARCH} float32", layout,
+                     MAX_LEN, served[layout], MIXER_TOKENS)
+    score(model, kernels, card)
+    rng = np.random.default_rng(SEED + 1)
+    tokens, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SCORE_BATCH, SCORE_LEN))).to(DEVICE)
+        for _ in range(2))
+    parts = {}
+    with torch.no_grad():
+        for impl in ("cuda", "ref"):
+            _, parts[impl] = T.train_loss(model.cfg, model.params, tokens,
+                                          labels, impl=impl)
+    aux = {k: float(v["aux"]) for k, v in parts.items()}
+    ce = {k: float(v["ce"]) for k, v in parts.items()}
+    if not all(np.isfinite(list(aux.values()) + list(ce.values()))) \
+            or abs(aux["cuda"] - aux["ref"]) > AUX_RTOL * abs(aux["ref"]):
+        raise AssertionError(f"{MOE_ARCH} train_loss: aux {aux}, ce {ce}")
+    print(f"mixers {MOE_ARCH} float32: train_loss over {SCORE_BATCH} x "
+          f"{SCORE_LEN} tokens: aux cuda {aux['cuda']:.6g} ref "
+          f"{aux['ref']:.6g} (rtol {AUX_RTOL}), ce cuda {ce['cuda']:.6g} "
+          f"ref {ce['ref']:.6g} [{card}]")
+    # the pipeline and the TensorBackend run other batch shapes, so no
+    # run's expert choices can be replayed in the other (RouteReplay)
+    out["pipeline"] = mixer_pipeline(model, kernels, card,
+                                     f"mixers {MOE_ARCH} float32",
+                                     ("contiguous",))["contiguous"]
+    print(f"mixers {MOE_ARCH}: peak device memory {peak:.2f} GB in bf16; "
+          f"model wall {time.perf_counter() - t_model:.1f} s [{card}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_kimi(kernels, card):
+    """kimi-k2-1t-a32b at full width, 1 of its 61 layers: 64 query heads
+    over 8 K/V heads at D=128, 384 experts top-8 beside the shared expert,
+    its 163840-word vocabulary; paged, four slots."""
+    from repro_torch.training.adamw import tree_leaves
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(KIMI_ARCH, KIMI_PROMPT_LENS, KIMI_LAYERS)
+    cfg = model.cfg
+    moe = cfg.pattern[0].moe
+    n_params = sum(t.numel() for t in tree_leaves(model.params))
+    print(f"mixers {KIMI_ARCH}: {cfg.n_layers} of 61 layers (one layer's "
+          f"experts are {3 * moe.num_experts * cfg.d_model * moe.d_expert * 2 / 1e9:.1f}"
+          f" GB of bf16), d_model {cfg.d_model}, H={cfg.n_heads} "
+          f"KH={cfg.n_kv_heads} D={cfg.resolved_head_dim}, "
+          f"{moe.num_experts} experts top-{moe.top_k} + "
+          f"{moe.num_shared_experts} shared, vocab {cfg.vocab_size}: "
+          f"{n_params / 1e9:.3f} B parameters of {cfg.dtype} from seed "
+          f"{SEED} in {model.init_s:.1f} s")
+    r = mixer_serve(model, kernels, card, f"mixers {KIMI_ARCH}", "paged",
+                    MAX_LEN, KIMI_TOKENS)
+    step = statistics.median(r["clock"].decode_ms)
+    print(f"mixers {KIMI_ARCH} paged: {r['reads'].summary(step)} [{card}]")
+    sizes = r["reads"].sizes
+    used = [sum(1 for n in g if n) for g in sizes]
+    rows = [sum(g) for g in sizes]
+    print(f"mixers {KIMI_ARCH}: the dispatch over {moe.num_experts} experts: "
+          f"{len(sizes)} MoE calls; experts with rows per call "
+          f"{used[:6]}...{used[-2:]} for {rows[:6]}...{rows[-2:]} rows "
+          f"(top-{moe.top_k} of each token); the largest group "
+          f"{max(max(g) for g in sizes)} rows; the shared expert on every "
+          f"row")
+    del r["llm"], r["be"]
+    torch.cuda.empty_cache()
+    mixer_logits(model, card, f"mixers {KIMI_ARCH}", "paged", MAX_LEN,
+                 r["tokens"], KIMI_TOKENS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"mixers {KIMI_ARCH}: peak device memory {peak:.2f} GB; model wall "
+          f"{time.perf_counter() - t_model:.1f} s [{card}]")
+    launches = r["launches"]
+    del model, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(paged=launches)
+
+
+def decode_logits(cfg, params, prompt, tokens=()):
+    """Logits [len(tokens) + 1, V] (float32, numpy) of one slot fed
+    ``prompt`` and then ``tokens[:-1]`` one ``transformer.decode_step`` a
+    token from a fresh state: after the prompt's last token, then after
+    each fed-back token."""
+    from repro_torch.models import transformer as T
+    dt = next(iter(params["final_norm"].values())).dtype
+    feed = np.concatenate([prompt, np.asarray(tokens[:-1], prompt.dtype)])
+    feed = torch.from_numpy(feed).to(DEVICE, torch.long)
+    with torch.no_grad():
+        caches = T.init_caches(cfg, 1, len(feed), dt, DEVICE)
+        rows = [T.decode_step(cfg, params, feed[t:t + 1], caches)[0][0]
+                for t in range(len(feed))]
+    return torch.stack(rows[len(prompt) - 1:]).float().cpu().numpy()
+
+
+def parallel_vs_recurrent(cfg, params, prompt):
+    """The logits of ``prompt``'s parallel prefill against one recurrent
+    decode step a token from a fresh state: the largest difference at the
+    last position, and at every 16th position."""
+    from repro_torch.models import transformer as T
+    dt = next(iter(params["final_norm"].values())).dtype
+    tokens = torch.from_numpy(prompt).to(DEVICE, torch.long)[None]
+    with torch.no_grad():
+        caches = T.init_caches(cfg, 1, len(prompt), dt, DEVICE)
+        par, _ = T.forward(cfg, params, tokens, caches)
+        caches = T.init_caches(cfg, 1, len(prompt), dt, DEVICE)
+        rec = torch.stack([T.decode_step(cfg, params, tokens[:, t], caches)[0]
+                           for t in range(len(prompt))], 1)
+    diff = (par[0].float() - rec[0].float()).abs().amax(-1)
+    if not bool(torch.isfinite(par).all() and torch.isfinite(rec).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return diff[-1].item(), [round(v, 6) for v in diff[::16].tolist()]
+
+
+def mlstm_blocks_parallel_vs_recurrent(cfg, params, prompt):
+    """Every mLSTM block of the model on its own input (the hidden states
+    the parallel forward hands it): the block's parallel form against its
+    recurrence from a fresh state, token by token, within the reference's
+    own ``RECURRENT_TOL`` (its ``test_mlstm_parallel_equals_recurrent``).
+    Returns the blocks checked and the largest difference."""
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    tokens = torch.from_numpy(prompt).to(DEVICE, torch.long)[None]
+    positions = torch.arange(len(prompt), dtype=torch.int32, device=DEVICE)
+    worst, n = 0.0, 0
+    with torch.no_grad():
+        x = embed_tokens(params, cfg, tokens)
+        for spec, p in zip(cfg.layer_specs(), params["layers"]):
+            if spec.kind == "mlstm":
+                h = apply_norm(p["norm1"], x, cfg.norm)
+                par, _ = xlstm.apply_mlstm_seq(p["mixer"], cfg, h)
+                state = KV.init_block_cache(cfg, spec, 1, len(prompt),
+                                            h.dtype, DEVICE)
+                rec = torch.cat([xlstm.apply_mlstm_decode(
+                    p["mixer"], cfg, h[:, t:t + 1], state)[0]
+                    for t in range(len(prompt))], 1)
+                bad = (par - rec).abs() > RECURRENT_TOL["atol"] \
+                    + RECURRENT_TOL["rtol"] * rec.abs()
+                if bool(bad.any()) or not bool(torch.isfinite(par).all()):
+                    raise AssertionError(
+                        f"{cfg.name} mLSTM block {n}: parallel vs recurrent "
+                        f"{int(bad.sum())} outputs beyond {RECURRENT_TOL}, "
+                        f"max abs diff {(par - rec).abs().max().item():.3g}")
+                worst = max(worst, (par - rec).abs().max().item())
+                n += 1
+            x, _ = T._apply_block(cfg, spec, p, x, positions, "train", None,
+                                  "ref")
+    return n, worst
+
+
+def serve_xlstm(kernels, card):
+    """xlstm-1.3b at full width and depth: 42 mLSTM and 6 sLSTM blocks, no
+    attention layer, so no kernel runs.  The contiguous serve and the paged
+    one (an empty pool: the contiguous machinery), tokens bit for bit
+    equal; the prefill wave's time split into mLSTM and sLSTM blocks; the
+    planned pipeline on both layouts against ``decode_step`` at one slot;
+    in float32 weights each mLSTM block's parallel form against its
+    recurrence, and the whole model's parallel prefill against its
+    recurrence measured in bf16 and float32."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import SamplingParams
+    from repro_torch.training.adamw import tree_leaves
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(XLSTM_ARCH, XLSTM_PROMPT_LENS)
+    cfg = model.cfg
+    kinds = [s.kind for s in cfg.layer_specs()]
+    n_params = sum(t.numel() for t in tree_leaves(model.params))
+    print(f"mixers {XLSTM_ARCH}: {kinds.count('mlstm')} mLSTM and "
+          f"{kinds.count('slstm')} sLSTM blocks, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab_size}: "
+          f"{n_params / 1e9:.3f} B parameters of {cfg.dtype} from seed "
+          f"{SEED} in {model.init_s:.1f} s")
+    served = {}
+    for layout in ("contiguous", "paged"):
+        r = mixer_serve(model, kernels, card, f"mixers {XLSTM_ARCH}", layout,
+                        HYBRID_MAX_LEN, MIXER_TOKENS)
+        info = r["be"].info
+        if layout == "paged":
+            print(f"mixers {XLSTM_ARCH} paged: BackendInfo block_size "
+                  f"{info.block_size}, total_blocks {info.total_blocks}, "
+                  f"max_ctx_blocks {info.max_ctx_blocks}, bytes_per_block "
+                  f"{info.bytes_per_block}: an empty pool; "
+                  f"{info.cache_bytes / 2 ** 20:.1f} MiB of recurrent state")
+            if info.total_blocks or info.spec_decode \
+                    or info.supports_extend:
+                raise AssertionError(f"{XLSTM_ARCH} paged: {info}")
+        served[layout] = r["tokens"]
+        if layout == "contiguous":
+            device_share(f"mixers {XLSTM_ARCH} contiguous",
+                         f"{SLOTS} requests x 8 tokens",
+                         lambda llm=r["llm"]: llm.generate(
+                             model.prompts[:SLOTS],
+                             SamplingParams(max_tokens=8)), card)
+            be = r["be"]
+            wave = [5, 6]                    # the 256- and 2100-token prompts
+            width = max(len(model.prompts[i]) for i in wave)
+            padded = np.zeros((len(wave), width), np.int32)
+            for j, i in enumerate(wave):
+                padded[j, width - len(model.prompts[i]):] = model.prompts[i]
+            lens = [len(model.prompts[i]) for i in wave]
+            wave_ms = max(r["clock"].prefill_ms)     # the 2100-token wave
+            split = {"mlstm": 0.0, "slstm": 0.0}
+            saved = dict(T._RECURRENT)
+
+            def synced(kind, fn):
+                def run(*a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    y = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    split[kind] += (time.perf_counter() - t) * 1e3
+                    return y
+                return run
+
+            for kind in split:
+                T._RECURRENT[kind] = (synced(kind, saved[kind][0]),
+                                      saved[kind][1])
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                be.prefill([0, 1], padded, lens)
+                synced_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                T._RECURRENT.update(saved)
+            print(f"mixers {XLSTM_ARCH}: the serve's prefill wave with the "
+                  f"{width}-token prompt {wave_ms:.1f} ms; a wave of {lens} "
+                  f"tokens (padded to {SLOTS} x {width}) with a sync "
+                  f"around each block {synced_ms:.1f} ms, of which "
+                  f"{kinds.count('mlstm')} mLSTM blocks {split['mlstm']:.1f} "
+                  f"ms and {kinds.count('slstm')} sLSTM blocks "
+                  f"{split['slstm']:.1f} ms ({width} steps each) [{card}]")
+            del be
+        # no cuda-against-ref logits: the model runs no kernel, so both
+        # impls run the same code
+        del r["llm"], r["be"]
+        torch.cuda.empty_cache()
+    same = sum(int(a == b) for t, u in zip(served["paged"],
+                                           served["contiguous"])
+               for a, b in zip(t, u))
+    total = len(model.prompts) * MIXER_TOKENS
+    if same != total:
+        raise AssertionError(f"{XLSTM_ARCH}: the paged serve's tokens equal "
+                             f"the contiguous serve's {same}/{total}")
+    print(f"mixers {XLSTM_ARCH}: the paged serve's tokens equal the "
+          f"contiguous serve's bit for bit: {same}/{total}")
+
+    # the pipeline teacher-forces each prompt through the recurrence, one
+    # token a tick from a fresh state: held to decode_step doing the same
+    mixer_pipeline(model, kernels, card, f"mixers {XLSTM_ARCH}",
+                   ("contiguous", "paged"), recurrent=True)
+
+    # parallel prefill against the recurrence.  Held block by block on the
+    # mLSTM blocks in float32, the scope of the reference's own test; over
+    # the whole model measured in bf16 and float32: the reference's init
+    # scales the sLSTM's recurrent tensors [h, dh, dh] by 1/sqrt(h), 11x
+    # their fan-in's scale at dh=512, so its recurrence grows any
+    # difference of its inputs from step to step
+    prompt = model.prompts[-1][:XLSTM_RECURRENT_LEN]
+    last, every16 = parallel_vs_recurrent(cfg, model.params, prompt)
+    print(f"mixers {XLSTM_ARCH} bf16: the whole model's parallel prefill vs "
+          f"{len(prompt)} recurrent decode steps: last logits max abs diff "
+          f"{last:.4g} (measured, not held); at positions 0, 16, ...: "
+          f"{every16}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(XLSTM_ARCH, XLSTM_PROMPT_LENS, dtype="float32")
+    n, worst = mlstm_blocks_parallel_vs_recurrent(model.cfg, model.params,
+                                                  prompt)
+    print(f"mixers {XLSTM_ARCH} float32: each of {n} mLSTM blocks on its "
+          f"own input, parallel vs {len(prompt)} recurrent steps: max abs "
+          f"diff {worst:.3g} within {RECURRENT_TOL}")
+    last, every16 = parallel_vs_recurrent(model.cfg, model.params, prompt)
+    print(f"mixers {XLSTM_ARCH} float32: the whole model's parallel prefill "
+          f"vs recurrent decode: last logits max abs diff {last:.4g} "
+          f"(measured, not held); at positions 0, 16, ...: {every16}")
+    print(f"mixers {XLSTM_ARCH}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; model wall "
+          f"{time.perf_counter() - t_model:.1f} s [{card}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def fleet_replicas(model, faults=""):
     """Two paged TensorBackends of the fleet phase over the same parameter
     tensors (the weights stay on the card once), each under a StepClock;
@@ -2052,11 +2718,13 @@ def serve_launcher(card):
           f"{wall:.1f} s with the weights' set-up [{card}]")
 
 
-def score(model, kernels, card, batch=SCORE_BATCH, length=SCORE_LEN):
+def score(model, kernels, card, batch=SCORE_BATCH, length=SCORE_LEN,
+          held=True):
     """The train-mode forward of ``batch`` x ``length`` seeded tokens under
     ``torch.no_grad``: ``impl="cuda"`` launches the flash kernel once per
     attention layer and the scan once per RG-LRU layer, and no decode
-    kernel; its logits agree with ``impl="ref"``'s.  ``kernels`` maps each
+    kernel; its logits agree with ``impl="ref"``'s (with ``held`` False the
+    difference is measured only).  ``kernels`` maps each
     kernel's name to its wrapper; returns the launches of the cuda run."""
     from repro_torch.models import transformer as T
     cfg = model.cfg
@@ -2067,8 +2735,10 @@ def score(model, kernels, card, batch=SCORE_BATCH, length=SCORE_LEN):
     want = dict(flash_attention=cfg.n_layers - n_scan, rglru_scan=n_scan,
                 decode_attention=0, paged_attention=0, int8_matmul=0)
     logits, secs = {}, {}
-    with torch.no_grad():
+    moe = any(s.moe is not None for s in cfg.layer_specs())
+    with torch.no_grad(), RouteReplay(moe) as route:
         for impl in ("cuda", "ref"):
+            route.record() if impl == "cuda" else route.replay()
             for fn in kernels.values():
                 fn.launches = 0
             torch.cuda.synchronize()
@@ -2089,15 +2759,18 @@ def score(model, kernels, card, batch=SCORE_BATCH, length=SCORE_LEN):
             raise AssertionError(f"score {cfg.name}: non-finite logits")
         diff = max(diff, (got - ref).abs().max().item())
         agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
-    if diff > LOGITS_ATOL:
+    if held and diff > LOGITS_ATOL:
         raise AssertionError(f"score {cfg.name}: logits cuda vs ref max abs "
                              f"diff {diff:.4g} > {LOGITS_ATOL}")
-    print(f"score {cfg.name}: forward(mode='train') over {batch} x "
-          f"{length} tokens, logits {list(logits['cuda'].shape)}: impl "
-          f"cuda vs ref max abs diff {diff:.4g} (atol {LOGITS_ATOL}), argmax "
+    bound = f"atol {LOGITS_ATOL}" if held else "measured, not held"
+    print(f"score {cfg.name} {cfg.dtype}: forward(mode='train') over "
+          f"{batch} x {length} tokens, logits {list(logits['cuda'].shape)}: "
+          f"impl cuda vs ref max abs diff {diff:.4g} ({bound}), argmax "
           f"agreement {agree}/{batch * length}; launches "
           f"{launches}; {secs['cuda'] * 1e3:.1f} ms cuda, "
           f"{secs['ref'] * 1e3:.1f} ms ref [{card}]")
+    if moe:
+        print(f"score {cfg.name}: {route.summary()}")
     del logits
     torch.cuda.empty_cache()
     return launches
@@ -2810,6 +3483,20 @@ def main():
             softcap=GEMMA_SOFTCAP),
         "flash_attention gemma2-2b global": time_flash(
             fa, card, heads=(8, 4, 256), s=GEMMA_LEN, softcap=GEMMA_SOFTCAP),
+        # the mixers phase's attention: granite-moe's 4 slots x 512 keys
+        # (g=2, D=64) on both layouts and its score's 1 x 4096 at D=64;
+        # kimi-k2's 4 slots x 512 keys (64 query heads over 8 K/V heads)
+        "paged_attention granite-moe": time_paged(
+            pa, card, 1, heads=(16, 8, 64),
+            n_sets=sets_past_l2(SLOTS * MAX_LEN * 8 * 64 * 4)),
+        "decode_attention granite-moe": time_decode(
+            da, card, MAX_LEN, heads=(16, 8, 64), c=MAX_LEN,
+            n_sets=sets_past_l2(SLOTS * MAX_LEN * 8 * 64 * 4)),
+        "flash_attention granite-moe": time_flash(
+            fa, card, heads=(16, 8, 64), n_sets=4),
+        "paged_attention kimi-k2": time_paged(
+            pa, card, 1, heads=(64, 8, 128),
+            n_sets=sets_past_l2(SLOTS * MAX_LEN * 8 * 128 * 4)),
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
@@ -2875,6 +3562,15 @@ def main():
                                             f"1 x {GEMMA_LEN}, causal (a "
                                             f"global layer), softcap "
                                             f"{GEMMA_SOFTCAP:g}, bf16",
+        "paged_attention granite-moe": f"{MOE_ARCH} (H=16, KH=8, D=64) x "
+                                       f"{SLOTS} slots x {MAX_LEN} keys bf16",
+        "decode_attention granite-moe": f"{MOE_ARCH} (H=16, KH=8, D=64) x "
+                                        f"{SLOTS} slots x {MAX_LEN}-key "
+                                        f"ring, full, bf16",
+        "flash_attention granite-moe": f"{MOE_ARCH} (H=16, KH=8, D=64) 1 x "
+                                       f"{SCORE_LEN}, causal, bf16",
+        "paged_attention kimi-k2": f"{KIMI_ARCH} (H=64, KH=8, D=128) x "
+                                   f"{SLOTS} slots x {MAX_LEN} keys bf16",
     }
     for m in INT8_M:
         for k, n in INT8_PROJ:
@@ -2915,6 +3611,10 @@ def main():
     done("the fleet and the launcher")
     dense = serve_dense(wrappers, card)
     done("the dense configs")
+    granite = serve_granite(wrappers, card)
+    kimi = serve_kimi(wrappers, card)
+    serve_xlstm(wrappers, card)
+    done("the mixers")
     model = Model(HYBRID, HYBRID_PROMPT_LENS)
     hybrid = serve_hybrid(model, pa, da, rs, card)
     hybrid_scored = score(model, wrappers, card)
@@ -3006,6 +3706,21 @@ def main():
         entry("flash_attention gemma2-2b", "flash_attention@gemma2-2b",
               "flash_attention.cu", "flash_attention.py:86",
               dense["gemma2-2b"]["score"]),
+        # the mixers phase: granite-moe on both layouts and its score;
+        # kimi-k2's paged serve (xlstm-1.3b runs none; granite-moe's
+        # pipeline, in float32, is counted in its phase)
+        entry("paged_attention granite-moe", f"paged_attention@{MOE_ARCH}",
+              "paged_attention.cu", "decode_attention.py:201",
+              granite["paged"]),
+        entry("decode_attention granite-moe", f"decode_attention@{MOE_ARCH}",
+              "decode_attention.cu", "decode_attention.py:153",
+              granite["contiguous"]),
+        entry("flash_attention granite-moe", f"flash_attention@{MOE_ARCH}",
+              "flash_attention.cu", "flash_attention.py:86",
+              granite["score"]),
+        entry("paged_attention kimi-k2", f"paged_attention@{KIMI_ARCH}",
+              "paged_attention.cu", "decode_attention.py:201",
+              kimi["paged"]),
         # the op's entry point: one llama2-7b layer's projections in bf16
         entry("int8_matmul M=4 4096x4096 bfloat16", "int8_matmul",
               "int8_matmul.cu", "int8_matmul.py:41", int8_launches["decode"]),

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import Device, resolve_device, torch_dtype
-from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.config import BlockSpec, ModelConfig, MoEConfig
 
 
 def _to_torch(tree: Any, device: torch.device,
@@ -150,8 +150,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Device = None,
                 dtype: Optional[torch.dtype] = None) -> Dict:
     """Seeded weights with the shapes and scales of the reference's
-    ``ParamBuilder.add``: normal leaves scaled by ``1/sqrt(fan_in)``
-    (``d_model**-0.5`` for the embedding), norm scales 1, biases 0.
+    ``ParamBuilder.add``: normal leaves scaled by ``1/sqrt(shape[0])``
+    (``d_model**-0.5`` for the embedding), norm scales 1, biases 0 (the
+    mLSTM and sLSTM forget-gate biases 1).  ``shape[0]`` is the fan-in of a
+    matrix, but the expert count of an expert tensor ``[E, d, f]`` and the
+    head count of an sLSTM recurrent tensor ``[h, dh, dh]``, as in the
+    reference.  Every leaf is drawn in ``dtype`` on ``device``: a bf16
+    expert tensor is never held in float32.
 
     ``generator`` must live on ``device`` (a CUDA generator for a CUDA
     device).  The numbers differ from ``jax.random``'s for the same seed;
@@ -166,11 +171,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         x = torch.randn(shape, generator=generator, device=dev, dtype=dt)
         return x.mul_(s)
 
-    def ones(n: int) -> torch.Tensor:
-        return torch.ones(n, device=dev, dtype=dt)
+    def ones(*shape: int) -> torch.Tensor:
+        return torch.ones(shape, device=dev, dtype=dt)
 
-    def zeros(n: int) -> torch.Tensor:
-        return torch.zeros(n, device=dev, dtype=dt)
+    def zeros(*shape: int) -> torch.Tensor:
+        return torch.zeros(shape, device=dev, dtype=dt)
 
     def norm() -> Dict[str, torch.Tensor]:
         out = {"scale": ones(cfg.d_model)}
@@ -196,20 +201,55 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "w_a": normal(d, r), "w_x": normal(d, r),
                 "lam": normal(r, scale=0.5), "w_out": normal(r, d)}
 
+    def mlstm() -> Dict[str, torch.Tensor]:
+        # init_mlstm_block of the reference
+        d, h = cfg.d_model, cfg.n_heads
+        dp = int(d * cfg.mlstm_proj_factor)
+        return {"w_up": normal(d, dp), "w_gate": normal(d, dp),
+                "wq": normal(dp, dp), "wk": normal(dp, dp),
+                "wv": normal(dp, dp), "w_i": normal(dp, h),
+                "w_f": normal(dp, h), "b_i": zeros(h), "b_f": ones(h),
+                "w_down": normal(dp, d)}
+
+    def slstm() -> Dict[str, torch.Tensor]:
+        # init_slstm_block of the reference
+        d, h = cfg.d_model, cfg.n_heads
+        dp = int(d * cfg.slstm_proj_factor)
+        out = {}
+        for g in ("i", "f", "z", "o"):
+            out[f"w_{g}"] = normal(d, d)
+            out[f"r_{g}"] = normal(h, d // h, d // h)
+            out[f"b_{g}"] = ones(d) if g == "f" else zeros(d)
+        out.update(w_up=normal(d, dp), w_down=normal(dp, d))
+        return out
+
+    def moe(m: MoEConfig) -> Dict[str, torch.Tensor]:
+        # init_moe of the reference
+        d, f, e = cfg.d_model, m.d_expert, m.num_experts
+        out = {"router": normal(d, e), "w_gate": normal(e, d, f),
+               "w_up": normal(e, d, f), "w_down": normal(e, f, d)}
+        if m.num_shared_experts:
+            s = m.num_shared_experts * f
+            out.update(s_gate=normal(d, s), s_up=normal(d, s),
+                       s_down=normal(s, d))
+        return out
+
+    mixers = {"attn": attention, "rglru": recurrent, "mlstm": mlstm,
+              "slstm": slstm}
+
     def block(spec: BlockSpec) -> Dict:
-        if spec.kind not in ("attn", "rglru") or spec.moe is not None:
-            raise ValueError(f"block kind={spec.kind!r} arrives with its "
-                             f"mixer in a later slice")
-        mixer = attention() if spec.kind == "attn" else recurrent()
+        if spec.kind not in mixers:
+            raise ValueError(f"unknown block kind {spec.kind!r}")
         d = cfg.d_model
-        out: Dict[str, Any] = {"norm1": norm(), "mixer": mixer}
+        out: Dict[str, Any] = {"norm1": norm(), "mixer": mixers[spec.kind]()}
         if cfg.post_norm:
             out["post_norm1"] = norm()
-        if spec.mlp != "none":
+        if spec.moe is not None or spec.mlp != "none":
             f = cfg.d_ff
             out["norm2"] = norm()
-            out["ffn"] = {"w_gate": normal(d, f), "w_up": normal(d, f),
-                          "w_down": normal(f, d)}
+            out["ffn"] = moe(spec.moe) if spec.moe is not None else {
+                "w_gate": normal(d, f), "w_up": normal(d, f),
+                "w_down": normal(f, d)}
             if cfg.post_norm:
                 out["post_norm2"] = norm()
         return out

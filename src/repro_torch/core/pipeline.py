@@ -138,8 +138,9 @@ def _run_stage(cfg: ModelConfig, params: Dict, layers: range,
                caches: Optional[List[Dict]], impl: str) -> torch.Tensor:
     specs = cfg.layer_specs()
     for l in layers:
-        x = T._apply_block(cfg, specs[l], params["layers"][l], x, positions,
-                           mode, None if caches is None else caches[l], impl)
+        x, _ = T._apply_block(cfg, specs[l], params["layers"][l], x,
+                              positions, mode,
+                              None if caches is None else caches[l], impl)
     return x
 
 
@@ -191,7 +192,9 @@ class PipelineDecodeState:
     """The ring's state.  ``caches`` are per layer, over every micro-batch:
     ring caches with one row per micro-batch, or paged caches whose pools
     are shared and whose ``bt``/``key_pos``/``pos`` have one row per
-    micro-batch (one block table, shared by every layer).  A micro-batch is
+    micro-batch (one block table, shared by every attention layer); a
+    recurrent layer's state (RG-LRU, mLSTM, sLSTM) has one row per
+    micro-batch on both layouts.  A micro-batch is
     one request stream (one lane: several lanes a slot arrive with the
     batcher that fills them).  The ring itself rides on the
     host: ``buf[s]`` is the activation entering stage s (``None`` where no
@@ -219,8 +222,12 @@ def init_pipeline_decode_state(cfg: ModelConfig, spec: PipelineSpec,
     if cache_layout == "paged":
         caches = T.init_paged_caches(cfg, m, max_len, num_blocks, block_size,
                                      dtype, device)
-        for cache in caches[1:]:            # one table for every layer
-            cache["bt"] = caches[0]["bt"]
+        pools = [c for c in caches if "k_pool" in c]
+        if not pools:
+            raise ValueError(f"{cfg.name} has no attention layer to page: "
+                             f"use the contiguous layout")
+        for cache in pools[1:]:             # one table for every pool
+            cache["bt"] = pools[0]["bt"]
     elif cache_layout == "contiguous":
         caches = T.init_caches(cfg, m, max_len, dtype, device)
     else:
@@ -248,9 +255,10 @@ def _mb_view(cache: Dict[str, torch.Tensor],
 
 
 def reset_slot(state: PipelineDecodeState, slot: int, start: int = 0) -> None:
-    """Fresh caches for micro-batch ``slot``, in place: ring rows as
-    ``init_caches`` makes them; on the paged layout the slot's ring view
-    only (the host returns its blocks), the pools untouched.
+    """Fresh caches for micro-batch ``slot``, in place: ring rows and
+    recurrent state rows as ``init_caches`` makes them; on the paged layout
+    the slot's ring view only (the host returns its blocks), the pools
+    untouched.
 
     ``start > 0`` is a streamed admission over an adopted shared prefix
     (paged only): ring slot equals absolute position under the prefix gate

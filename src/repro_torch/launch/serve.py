@@ -44,7 +44,11 @@ are random, made from ``--seed``.  Two modes:
 It runs on the GPU unless ``--device cpu`` is given, and raises when no GPU
 is present.  The hybrid recurrentgemma-2b serves on both layouts, and the
 pipeline mode raises for it (its 26 layers are no whole number of 3-layer
-periods).  ``--spec-k``, ``--prefix-cache`` and ``--prefill-chunk`` work in
+periods).  The mixture-of-experts granite-moe-1b-a400m and kimi-k2-1t-a32b
+serve in both modes; xlstm-1.3b (no attention layer) serves on both
+layouts, the paged one with an empty pool, and in pipeline mode at its
+full 48 layers (six 8-block periods; its 4-block ``--smoke`` stack is no
+whole period, which the pipeline mode refuses, as the reference's does).  ``--spec-k``, ``--prefix-cache`` and ``--prefill-chunk`` work in
 both modes: on the contiguous layout spec serves plain decode and the
 prefix cache is ignored, each with a note.  ``--inject-faults`` stops the
 launcher in pipeline mode: fault injection wraps the single tp-mode

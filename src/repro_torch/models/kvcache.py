@@ -11,12 +11,16 @@ paged block pool.  Port of the attention part of ``repro.models.kvcache``.
 - rglru: the RG-LRU block's dense state, ``h [B, R]`` float32 whatever
   the cache dtype, ``conv [B, W-1, R]`` (the causal conv's last inputs) in
   the cache dtype, and ``pos [B]``.
+- mlstm: the matrix memory ``C [B, h, hd, hd]``, its normalizer ``n [B, h,
+  hd]`` and stabilizer ``m [B, h]``, float32 whatever the cache dtype, and
+  ``pos [B]``.
+- slstm: ``c``, ``n``, ``h``, ``m`` ``[B, d]`` float32, and ``pos [B]``.
 
 Caches are plain dicts of tensors, one dict per layer.  Unlike the
 reference's immutable pytrees, the port updates them in place.  In the
-paged layout only attention layers page: a hybrid's RG-LRU layers keep
-their dense per-slot state beside the pools (``init_paged_caches``).  The
-xLSTM states arrive with their mixers.
+paged layout only attention layers page: recurrent layers (a hybrid's
+RG-LRU, the xLSTM blocks) keep their dense per-slot state beside the pools
+(``init_paged_caches``).
 """
 from __future__ import annotations
 
@@ -135,20 +139,30 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      max_len: int, dtype: torch.dtype = torch.bfloat16,
                      device=None) -> Dict[str, torch.Tensor]:
     """Contiguous cache for one layer: the attention ring (also the paged
-    backend's prefill workspace, sized by the bucketed prompt length) or
-    the RG-LRU state."""
+    backend's prefill workspace, sized by the bucketed prompt length) or a
+    recurrent block's state."""
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if spec.kind == "rglru":
         r = cfg.rnn_dim
         return {
-            "h": torch.zeros((batch, r), dtype=torch.float32, device=device),
+            "h": torch.zeros((batch, r), **f32),
             "conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=dtype,
                                 device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "pos": pos,
         }
+    if spec.kind == "mlstm":
+        h = cfg.n_heads
+        hd = int(cfg.d_model * cfg.mlstm_proj_factor) // h
+        return {"C": torch.zeros((batch, h, hd, hd), **f32),
+                "n": torch.zeros((batch, h, hd), **f32),
+                "m": torch.zeros((batch, h), **f32), "pos": pos}
+    if spec.kind == "slstm":
+        d = cfg.d_model
+        return {**{k: torch.zeros((batch, d), **f32)
+                   for k in ("c", "n", "h", "m")}, "pos": pos}
     if spec.kind != "attn":
-        raise ValueError(
-            f"{spec.kind!r} caches arrive with the xLSTM recurrent mixers in "
-            f"a later slice")
+        raise ValueError(f"unknown block kind {spec.kind!r}")
     _check_kv_dtype(cfg)
     c = attn_cache_len(spec, max_len)
     shape = (batch, c, cfg.n_kv_heads, cfg.resolved_head_dim)

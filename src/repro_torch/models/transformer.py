@@ -1,5 +1,6 @@
-"""Decoder-only transformer over attention and RG-LRU blocks: the train-mode
-forward and its losses, prefill, decode and speculative verify.
+"""Decoder-only transformer over attention, RG-LRU, mLSTM and sLSTM blocks,
+with dense or mixture-of-experts FFNs: the train-mode forward and its
+losses, prefill, decode and speculative verify.
 
 Port of the entry points of ``repro.models.transformer``:
 
@@ -22,19 +23,22 @@ Parameters are the reference's tree with the layer stack unrolled (see
 
 and caches are one dict per layer.  A Python loop over layers replaces the
 reference's ``lax.scan`` over stacked parameters, and the caches update in
-place (``index_put_``) where the reference rebuilt them.  Attention and
-RG-LRU (the hybrid recurrentgemma) blocks run here; xLSTM and MoE blocks
-arrive with their mixers in later slices, so the auxiliary (load-balance)
-loss of :func:`train_loss` is always 0.
+place (``index_put_``) where the reference rebuilt them.  A block's mixer
+is attention, RG-LRU (the hybrid recurrentgemma), mLSTM or sLSTM (xLSTM);
+its FFN is dense, a mixture of experts (granite-moe, kimi-k2; see
+:mod:`repro_torch.models.moe`) or absent.  The MoE blocks' load-balance
+losses sum over layers into the auxiliary loss of :func:`forward_hidden`
+and :func:`train_loss`.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import rglru
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru, xlstm
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.kvcache import (DEFAULT_BLOCK_SIZE, init_block_cache,
                                         init_paged_block_cache)
@@ -47,12 +51,21 @@ FORWARD_MODES = ("train", "prefill")
 Caches = List[Dict[str, torch.Tensor]]
 
 
+#: the block kinds whose mixers the port runs
+BLOCK_KINDS = ("attn", "rglru", "mlstm", "slstm")
+
+#: the sequence and decode functions of each recurrent mixer
+_RECURRENT = {
+    "rglru": (rglru.apply_rglru_seq, rglru.apply_rglru_decode),
+    "mlstm": (xlstm.apply_mlstm_seq, xlstm.apply_mlstm_decode),
+    "slstm": (xlstm.apply_slstm_seq, xlstm.apply_slstm_decode),
+}
+
+
 def _check_block(spec: BlockSpec) -> None:
-    if spec.kind not in ("attn", "rglru") or spec.moe is not None:
-        raise ValueError(
-            f"block kind={spec.kind!r} moe={spec.moe is not None} arrives "
-            f"with its mixer in a later slice; the port runs dense "
-            f"attention and RG-LRU blocks")
+    if spec.kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {spec.kind!r}: expected one "
+                         f"of {BLOCK_KINDS}")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -83,14 +96,16 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
                  cache: Optional[Dict], impl: str,
                  write_mask: Optional[torch.Tensor] = None,
                  seq_valid: Optional[torch.Tensor] = None,
-                 verify_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block; ``cache`` updates in place (``None`` in train mode).
-    ``seq_valid`` ([B, S], masked prefill and verify) re-zeroes pad
+                 verify_lens: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """One block -> (x, its aux loss: the MoE load-balance term, a float32
+    scalar tensor, or 0.0 for a dense FFN); ``cache`` updates in place
+    (``None`` in train mode).  ``seq_valid`` ([B, S], masked prefill and verify) re-zeroes pad
     activations on exit so they cannot leak into later layers; recurrent
     blocks treat its pad steps as state-preserving no-ops.  Decode reads an
     attention cache by its kind: a paged cache holds a block pool
-    (``k_pool``), a ring cache ``k``.  Verify needs attention caches, as in
-    the reference."""
+    (``k_pool``), a ring cache ``k``.  Extend and verify need attention
+    caches, as in the reference."""
     _check_block(spec)
     if mode in ("extend", "verify") and spec.kind != "attn":
         raise ValueError(
@@ -98,13 +113,18 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
             f"attention caches; got {spec.kind!r} -- gate via "
             f"kvcache.prefix_sharing_supported")
     h = apply_norm(params["norm1"], x, cfg.norm)
-    if spec.kind == "rglru" and mode in ("train", "prefill"):
-        mix, _ = rglru.apply_rglru_seq(params["mixer"], cfg, h, cache, impl,
-                                       seq_valid=seq_valid)
-    elif spec.kind == "rglru" and mode == "decode":
-        mix, _ = rglru.apply_rglru_decode(params["mixer"], cfg, h, cache)
-    elif spec.kind == "rglru":
-        raise ValueError(f"unknown mode {mode!r}")
+    if spec.kind in _RECURRENT:
+        seq_fn, decode_fn = _RECURRENT[spec.kind]
+        if mode == "decode":
+            mix, _ = decode_fn(params["mixer"], cfg, h, cache)
+        elif mode not in ("train", "prefill"):
+            raise ValueError(f"unknown mode {mode!r}")
+        elif spec.kind == "rglru":
+            mix, _ = seq_fn(params["mixer"], cfg, h, cache, impl,
+                            seq_valid=seq_valid)
+        else:
+            mix, _ = seq_fn(params["mixer"], cfg, h, cache,
+                            seq_valid=seq_valid)
     elif mode == "train":
         mix = attn.attend_full(params["mixer"], cfg, spec, h, positions, impl)
     elif mode == "prefill":
@@ -127,15 +147,19 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
     if cfg.post_norm:
         mix = apply_norm(params["post_norm1"], mix, cfg.norm)
     x = x + mix
-    if spec.mlp != "none":
-        ffn = apply_mlp(params["ffn"], apply_norm(params["norm2"], x, cfg.norm),
-                        spec.mlp)
+    aux = 0.0
+    if spec.moe is not None or spec.mlp != "none":
+        h2 = apply_norm(params["norm2"], x, cfg.norm)
+        if spec.moe is not None:
+            ffn, aux = moe_mod.apply_moe(params["ffn"], cfg, spec.moe, h2)
+        else:
+            ffn = apply_mlp(params["ffn"], h2, spec.mlp)
         if cfg.post_norm:
             ffn = apply_norm(params["post_norm2"], ffn, cfg.norm)
         x = x + ffn
     if seq_valid is not None:
         x = torch.where(seq_valid[..., None], x, 0)
-    return x
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
@@ -179,8 +203,8 @@ def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
     if seq_valid is not None:
         x = torch.where(seq_valid[..., None], x, 0)
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
-        x = _apply_block(cfg, spec, p, x, positions, "prefill", cache, impl,
-                         seq_valid=seq_valid)
+        x, _ = _apply_block(cfg, spec, p, x, positions, "prefill", cache,
+                            impl, seq_valid=seq_valid)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x), caches
 
@@ -189,14 +213,17 @@ def forward_hidden(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
                    impl: str = "ref") -> Tuple[torch.Tensor, torch.Tensor]:
     """The train-mode forward up to the final normalized hidden state
     [B, S, d] (no logits: :func:`chunked_xent` computes them blockwise),
-    and the auxiliary loss (float32 zeros: no MoE block runs here)."""
+    and the auxiliary loss: the MoE blocks' load-balance terms summed over
+    layers (float32 zeros for a model without MoE blocks)."""
     s = inputs.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=inputs.device)
     x = embed_tokens(params, cfg, inputs)
+    aux_total = torch.zeros((), dtype=torch.float32, device=inputs.device)
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x = _apply_block(cfg, spec, p, x, positions, "train", None, impl)
+        x, aux = _apply_block(cfg, spec, p, x, positions, "train", None, impl)
+        aux_total = aux_total + aux
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=inputs.device)
+    return x, aux_total
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor,
@@ -245,15 +272,19 @@ def train_loss(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     """(total, {"ce", "aux"}): the cross entropy of ``labels`` under the
     train-mode forward of ``tokens``, through :func:`chunked_xent` when
     ``xent_chunk`` is set (which ignores ``mask``, as in the reference).
-    ``aux`` is 0 and ``total`` is ``ce``: the port runs no MoE block, the
-    only source of the reference's load-balance term."""
+    ``total`` is ``ce + load_balance_weight * aux``, the weight read from
+    the pattern's (last) MoE spec; without MoE blocks ``aux`` is 0."""
     hidden, aux = forward_hidden(cfg, params, tokens, impl)
     if xent_chunk:
         ce = chunked_xent(cfg, params, hidden, labels, xent_chunk)
     else:
         ce = cross_entropy_loss(cfg, lm_logits(params, cfg, hidden), labels,
                                 mask)
-    return ce, {"ce": ce, "aux": aux}
+    lb_weight = 0.0
+    for spec in cfg.pattern:
+        if spec.moe is not None:
+            lb_weight = spec.moe.load_balance_weight
+    return ce + lb_weight * aux, {"ce": ce, "aux": aux}
 
 
 def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
@@ -274,8 +305,8 @@ def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
         raise ValueError("write_mask applies to paged caches only")
     x = embed_tokens(params, cfg, inputs[:, None])
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
-        x = _apply_block(cfg, spec, p, x, None, "decode", cache, impl,
-                         write_mask=write_mask)
+        x, _ = _apply_block(cfg, spec, p, x, None, "decode", cache, impl,
+                            write_mask=write_mask)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x)[:, 0], caches
 
@@ -305,8 +336,8 @@ def extend_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens)
     x = torch.where(seq_valid[..., None], x, 0)
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
-        x = _apply_block(cfg, spec, p, x, positions, "extend", cache, impl,
-                         seq_valid=seq_valid)
+        x, _ = _apply_block(cfg, spec, p, x, positions, "extend", cache,
+                            impl, seq_valid=seq_valid)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x), caches
 
@@ -332,7 +363,7 @@ def verify_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens)
     x = torch.where(seq_valid[..., None], x, 0)
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
-        x = _apply_block(cfg, spec, p, x, None, "verify", cache, impl,
-                         seq_valid=seq_valid, verify_lens=lens)
+        x, _ = _apply_block(cfg, spec, p, x, None, "verify", cache, impl,
+                            seq_valid=seq_valid, verify_lens=lens)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x), caches

@@ -82,8 +82,6 @@ class PipelineBackend(InferenceBackend):
             raise ValueError(f"need >= {spec.n_stages} micro-batch slots for "
                              f"no bubbles, got {m}")
         nbs = KV.max_ctx_blocks(cfg, max_len, block_size)
-        if nbs == 0:
-            raise ValueError(f"{cfg.name} has no attention layers")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -98,6 +96,10 @@ class PipelineBackend(InferenceBackend):
         self.block_size = block_size
         self._m = m
         paged = cache_layout == "paged"
+        # an attention-free model has nothing to page: it keeps the
+        # contiguous machinery and reports an (empty) paged pool, as the
+        # tensor backend does
+        self._paged_exec = paged and nbs > 0
         self.num_blocks = 0
         self.pager: Optional[SlotPager] = None
         if paged:
@@ -107,7 +109,8 @@ class PipelineBackend(InferenceBackend):
         # prefix sharing and spec decode ride the paged pool with absolute
         # ring positions: all-attention, no effective window at max_len
         # (one lane a slot, so the reference's lanes term is always met)
-        self._spec_ok = paged and KV.prefix_sharing_supported(cfg, max_len)
+        self._spec_ok = self._paged_exec and \
+            KV.prefix_sharing_supported(cfg, max_len)
         self._prefix_on = bool(prefix_cache) and self._spec_ok
         self.prefix: Optional[PrefixCache] = None
         if self._prefix_on:
@@ -115,8 +118,9 @@ class PipelineBackend(InferenceBackend):
         self._prefix_hits = 0
         self._prefix_hit_tokens = 0
         self.state = PL.init_pipeline_decode_state(
-            cfg, spec, m, max_len, self.cache_dtype, cache_layout,
-            self.num_blocks, block_size, self.device)
+            cfg, spec, m, max_len, self.cache_dtype,
+            "paged" if self._paged_exec else "contiguous", self.num_blocks,
+            block_size, self.device)
         self._bt_dirty = False
 
         self._prompts: Dict[int, np.ndarray] = {}       # slot -> [plen]
@@ -268,7 +272,8 @@ class PipelineBackend(InferenceBackend):
         return None                                 # stalled (no fresh token)
 
     def _push_table(self) -> None:
-        self.state.caches[0]["bt"].copy_(
+        pool = next(c for c in self.state.caches if "k_pool" in c)
+        pool["bt"].copy_(
             torch.from_numpy(self.pager.table).to(self.device))
         self._bt_dirty = False
 
@@ -276,7 +281,7 @@ class PipelineBackend(InferenceBackend):
         slot = self.state.tick % self._m
         feed = self._feed_for(slot, feeds)
         valid = feed is not None
-        if valid and self.pager is not None:
+        if valid and self._paged_exec:
             # this tick writes position base + rounds[slot] (base = the
             # adopted shared-prefix length); grow the slot's block table
             # first, raising BEFORE any bookkeeping so the scheduler can

@@ -40,7 +40,10 @@ conv window, ``pos``) per slot -- beside the rings, or beside the
 attention layers' block pools -- and a prefill wave writes it into the
 wave's slot rows whole, so a freed, preempted or resumed slot carries no
 stale recurrent state into its next occupant.  Speculative verify and
-streamed admission need all-attention layers, as in the reference.
+streamed admission need all-attention layers, as in the reference.  A model
+with no attention layer at all (xlstm-1.3b: mLSTM and sLSTM blocks) has
+nothing to page: on the paged layout it keeps the contiguous machinery and
+reports an empty pool, as the reference does.
 
 Streamed admission (``start_stream`` + ``prefill_chunk``): where ring slot
 == position -- the paged layout with no effective window
@@ -89,8 +92,6 @@ class TensorBackend(InferenceBackend):
             raise ValueError(f"cache_layout={cache_layout!r}: expected "
                              f"'contiguous' or 'paged'")
         nbs = KV.max_ctx_blocks(cfg, max_len, block_size)
-        if nbs == 0:
-            raise ValueError(f"{cfg.name} has no attention layers")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -103,12 +104,16 @@ class TensorBackend(InferenceBackend):
         self.cache_layout = cache_layout
         self.block_size = block_size
         paged = cache_layout == "paged"
+        # an attention-free model has nothing to page: it keeps the
+        # contiguous machinery and reports an (empty) paged pool
+        self._paged_exec = paged and nbs > 0
         self.num_blocks = 0
         self.pager: Optional[SlotPager] = None
         if paged:
             self.num_blocks = num_blocks if num_blocks is not None \
                 else n_slots * nbs
             self.pager = SlotPager(n_slots, self.num_blocks, block_size, nbs)
+        if self._paged_exec:
             self.caches = T.init_paged_caches(cfg, n_slots, max_len,
                                               self.num_blocks, block_size,
                                               self.cache_dtype, self.device)
@@ -124,7 +129,8 @@ class TensorBackend(InferenceBackend):
         # back exactly, a shared block is never rewritten): the paged layout
         # with no effective window.  Other deployments silently keep
         # monolithic prefill (the --prefix-cache "contiguous ignore" rule).
-        self._extend_ok = paged and KV.prefix_sharing_supported(cfg, max_len)
+        self._extend_ok = self._paged_exec and \
+            KV.prefix_sharing_supported(cfg, max_len)
         self._spec_ok = self._extend_ok
         self._prefix_on = bool(prefix_cache) and self._extend_ok
         self.prefix: Optional[PrefixCache] = None
@@ -418,7 +424,7 @@ class TensorBackend(InferenceBackend):
             else np.asarray(prompt_lens, np.int32)
         assert lens.shape == (k,) and np.all(lens >= 1) \
             and np.all(lens <= prompts.shape[1]), (lens, prompts.shape)
-        paged = self.pager is not None
+        paged = self._paged_exec
         if paged:
             # atomic: on exhaustion nothing mutates and the scheduler can
             # retry the wave after preempting.  Blocks cover each slot's
@@ -471,7 +477,7 @@ class TensorBackend(InferenceBackend):
             tokens[s] = t
         live = [s for s in sorted(feeds) if self._active[s]]
         mask = None
-        if self.pager is not None:
+        if self._paged_exec:
             need = sum(self.pager.blocks_needed(s, int(self._pos[s]))
                        for s in live)
             if need > self.pager.free_blocks:  # raise BEFORE any mutation

@@ -1,9 +1,10 @@
 """The port's config registry and its dense configs against the JAX package.
 
-- each config of ``repro_torch.configs`` (gemma2-2b, starcoder2-7b,
-  qwen1.5-32b, pixtral-12b and the older five) and ``shapes.SHAPES`` equal
-  the reference's field for field, pattern included; ``apply_variant``
-  builds the reference's variants and refuses unknown ones;
+- each config of ``repro_torch.configs`` (every one of the reference's but
+  musicgen-large, whose audio frontend is not ported) and
+  ``shapes.SHAPES`` equal the reference's field for field, pattern
+  included; ``apply_variant`` builds the reference's variants and refuses
+  unknown ones;
 - each new config, reduced by hand so that it keeps its attention group and
   head width (``ModelConfig.reduced`` caps heads at 4 and makes the K/V
   heads equal to them, which would hide every group): prefill logits at
@@ -59,15 +60,19 @@ def test_registry_and_shapes_equal_reference():
         {k: dataclasses.asdict(v) for k, v in JC.SHAPES.items()}
     assert TC.get_shape("decode_32k") == TC.SHAPES["decode_32k"]
     assert TC.SWA_WINDOW == JC.SWA_WINDOW
+    assert set(TC.ASSIGNED) == set(JC.ASSIGNED) - {"musicgen-large"}
+    assert set(TC.PAPER_MODELS) == set(JC.PAPER_MODELS)
+    assert set(TC.CONFIGS) == set(JC.CONFIGS) - {"musicgen-large"}
     with pytest.raises(KeyError, match="unknown arch"):
-        TC.get_config("granite-moe-1b-a400m")
+        TC.get_config("musicgen-large")
     with pytest.raises(KeyError, match="unknown shape"):
         TC.get_shape("train_8k")
 
 
 @pytest.mark.parametrize("variant", ["swa", "kvint8", "swa+kvint8"])
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "gemma2-2b",
-                                  "recurrentgemma-2b", "starcoder2-7b"])
+                                  "recurrentgemma-2b", "starcoder2-7b",
+                                  "granite-moe-1b-a400m", "xlstm-1.3b"])
 def test_apply_variant_equals_reference(name, variant):
     got = TC.get_config(name, variant=variant)
     assert dataclasses.asdict(got) == \

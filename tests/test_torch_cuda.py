@@ -6,9 +6,11 @@ streamed admission (prefix cache and chunked prefill) and for the hybrid
 recurrentgemma on both layouts, the train mode (the forward through the flash kernel,
 gradients on the ref path), the no-bubbles stage pipeline (its served
 tokens, with spec verify and streamed admission too, and its microbatched
-forward through the kernels), and the dense configs' shapes (starcoder2's
+forward through the kernels), the dense configs' shapes (starcoder2's
 group of 9, qwen1.5's 40-head MHA, gemma2's D=256 with softcap and a
-wrapped 4096-key window) in the kernels and in reduced served models.
+wrapped 4096-key window) and the MoE configs' (granite-moe's g=2 at D=64,
+kimi-k2's 64 heads over 8) in the kernels, and reduced served models of
+each (xlstm-1.3b's too, which runs no kernel).
 Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
 CPU or interpret mode).  The file imports no jax, so it runs on the GPU
 machine:
@@ -912,3 +914,96 @@ def test_pipeline_spec_and_streamed_on_gpu(gpu):
     got, st, launches = serve(prefix_cache=True, prefill_chunk=8)
     assert got == plain and st.prefix_hits > 0
     assert launches == cfg.n_layers * (fed - st.prefix_hit_tokens)
+
+
+# --------------------------------------------------------------------------- #
+# the MoE configs' attention shapes: granite-moe's 2 query heads a K/V head
+# at D=64, kimi-k2's 64 query heads over 8 K/V heads at D=128; and the
+# reduced MoE configs served through the kernels
+# --------------------------------------------------------------------------- #
+
+MOE_PAGED_CASES = [
+    ((4, 16, 8, 64, 16, 32, (512, 300, 17, 129), 1, 90), {}, {}),
+    ((4, 64, 8, 128, 16, 32, (264, 136, 72, 24), 1, 91), {}, {}),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("args,kw,opts", MOE_PAGED_CASES,
+                         ids=["granite-g2-d64", "kimi-g8-h64"])
+def test_paged_moe_config_shapes(gpu, dtype, args, kw, opts):
+    """The paged kernel at the MoE configs' shapes, as
+    ``test_paged_dense_config_shapes`` holds the dense configs'."""
+    test_paged_dense_config_shapes(gpu, dtype, args, kw, opts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_granite_shape(gpu, dtype):
+    """The contiguous-ring kernel at granite-moe's heads (16, 8, 64) over
+    512-key rings, per-row valid lengths; two calls bit-identical."""
+    t = _on(ring_case(4, 16, 8, 64, 512, (512, 300, 17, 129), 92), gpu,
+            getattr(torch, dtype))
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(**t)
+    want = DA.decode_attention_plain(**t)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(DA.decode_attention(**t), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_granite_shape(gpu, dtype):
+    """The flash kernel at granite-moe's score heads: 2 x 1024, H=16,
+    KH=8, D=64, causal; in bfloat16 within one bf16 step of the float64
+    arithmetic."""
+    g = torch.Generator(device=gpu).manual_seed(93)
+    q, k, v = (torch.randn(shape, generator=g, device=gpu).to(
+        getattr(torch, dtype)) for shape in ((2, 1024, 16, 64),
+                                             (2, 1024, 8, 64),
+                                             (2, 1024, 8, 64)))
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(FA.flash_attention(q, k, v), got)
+    if dtype == "bfloat16":
+        assert bf16_steps_apart(got, flash_attention_f64(q, k, v)) == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                  "xlstm-1.3b"])
+def test_served_mixer_config_tokens_kernel_equals_ref(gpu, arch, layout):
+    """The reduced MoE and xLSTM configs (xlstm at 8 layers, its sLSTM
+    block kept) in float32 on the card: greedy tokens through the kernels
+    equal the ref path's, and the attention kernel launches once a layer
+    and decode step (none for xlstm)."""
+    cfg = get_config(arch).reduced(n_layers=8 if arch == "xlstm-1.3b"
+                                   else 2)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0),
+                         gpu)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (23, 19, 26, 17, 21)]
+    sp = SamplingParams(max_tokens=10)
+    n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
+    toks = {}
+    for impl in ("ref", "cuda"):
+        be = TensorBackend(cfg, params, n_slots=3, max_len=48, impl=impl,
+                           cache_layout=layout, block_size=8)
+        kernel = PA.paged_attention if layout == "paged" \
+            else DA.decode_attention
+        steps, step = [], be.decode_step
+
+        def counted(feeds, step=step, steps=steps):
+            steps.append(bool(feeds))
+            return step(feeds)
+
+        be.decode_step = counted
+        before = kernel.launches
+        toks[impl] = [o.tokens for o in LLM.from_backend(be).generate(
+            prompts, sp)]
+        if impl == "cuda":
+            assert kernel.launches - before == n_attn * sum(steps)
+    assert toks["cuda"] == toks["ref"]

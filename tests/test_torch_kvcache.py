@@ -81,9 +81,19 @@ def test_initial_caches_match(arch):
 
 
 def test_unported_cache_kinds_raise():
+    """A block kind the port does not know raises, as does the int8 KV
+    cache; the xLSTM kinds, ported since, equal the reference's."""
     cfg = get_config("llama2-7b").reduced()
-    rec = dataclasses.replace(cfg.pattern[0], kind="mlstm")
-    with pytest.raises(ValueError, match="recurrent"):
+    jcfg = jax_get_config("llama2-7b").reduced()
+    for kind in ("mlstm", "slstm"):
+        _same_tree(TKV.init_block_cache(
+            cfg, dataclasses.replace(cfg.pattern[0], kind=kind), 2, 8,
+            torch.float32),
+            JKV.init_block_cache(
+                jcfg, dataclasses.replace(jcfg.pattern[0], kind=kind), 2, 8,
+                jnp.float32))
+    rec = dataclasses.replace(cfg.pattern[0], kind="mamba")
+    with pytest.raises(ValueError, match="unknown block kind"):
         TKV.init_block_cache(cfg, rec, 1, 8)
     with pytest.raises(ValueError, match="int8"):
         TKV.init_paged_block_cache(dataclasses.replace(cfg, kv_dtype="int8"),

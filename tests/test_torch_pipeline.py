@@ -466,3 +466,165 @@ def test_serve_launcher_pipeline_equals_tp(capsys):
                      "transient@decode_step:5x2"])
     assert "--inject-faults wraps the single tp-mode backend" in \
         capsys.readouterr().err
+
+
+# --------------------------------------------------------------------------- #
+# the MoE and xLSTM configs on the stage pipeline
+# --------------------------------------------------------------------------- #
+
+#: reduced with ``cfg.reduced``: granite-moe at 4 layers (four stages of
+#: one), kimi-k2 at 2 (stages (0, 1, 1, 0)), xlstm at 8 (one period, with
+#: its sLSTM block, on one stage of four)
+MIXER_LAYERS = {"granite-moe-1b-a400m": 4, "kimi-k2-1t-a32b": 2,
+                "xlstm-1.3b": 8}
+MIXER_LENS = (6, 11, 4, 9, 13)
+
+_REFERENCE_PIPELINE_SCRIPT = """
+import dataclasses, json, sys
+import jax, numpy as np
+from repro.configs import get_config
+from repro.core.devices import tpu_pod_cluster
+from repro.core.profile import Workload
+from repro.models import transformer as T
+from repro.serving import LLM, SamplingParams
+out = {}
+for name, n in json.loads(sys.argv[1]).items():
+    cfg = get_config(name).reduced(n_layers=n)
+    params, _ = T.init_params(cfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, k).astype(np.int32)
+               for k in json.loads(sys.argv[2])]
+    for layout in ("contiguous", "paged"):
+        llm = LLM.from_plan(cfg, tpu_pod_cluster(n_chips=4),
+                            Workload(dtype_bytes=2), objective="throughput",
+                            kind="pipeline", params=params, max_len=40,
+                            cache_layout=layout, block_size=8, impl="xla")
+        info = dataclasses.asdict(llm.backend.info)
+        toks = [o.tokens for o in llm.generate(prompts,
+                                               SamplingParams(max_tokens=6))]
+        out[name + "/" + layout] = {
+            "tokens": toks, "info": info,
+            "stages": list(llm.backend.spec.periods_per_stage)}
+print(json.dumps(out))
+"""
+
+_REFERENCE_PIPELINE = {}
+
+
+def _reference_pipeline():
+    """The reference's ``PipelineBackend`` under ``LLM.from_plan`` for the
+    three configs on both layouts, in one interpreter that fakes the four
+    XLA devices its stage mesh needs (the flag must be set before jax
+    initializes, so not in this process)."""
+    if not _REFERENCE_PIPELINE:
+        import json
+        import os
+        import subprocess
+        import sys
+        env = dict(os.environ,
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                   JAX_PLATFORMS="cpu", PYTHONDONTWRITEBYTECODE="1",
+                   PYTHONPATH=os.path.join(
+                       os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))), "src"))
+        r = subprocess.run(
+            [sys.executable, "-c", _REFERENCE_PIPELINE_SCRIPT,
+             json.dumps(MIXER_LAYERS), json.dumps(MIXER_LENS)],
+            capture_output=True, text=True, env=env, timeout=600)
+        assert r.returncode == 0, r.stderr[-4000:]
+        _REFERENCE_PIPELINE.update(json.loads(r.stdout.splitlines()[-1]))
+    return _REFERENCE_PIPELINE
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("arch", list(MIXER_LAYERS))
+def test_from_plan_mixers_equal_reference_pipeline(arch, layout):
+    """MoE blocks on the ring at one token a stage, the xLSTM's recurrent
+    state per micro-batch (zeroed on admission), and xlstm's paged layout
+    with an empty pool: the planned stages, ``BackendInfo`` (but for
+    ``attn_impl``: the reference runs its ``xla`` path, shard_map over
+    faked CPU devices; and for the byte counts of its padded stage stacks)
+    and greedy tokens equal the reference's
+    ``PipelineBackend``'s, with more requests than slots."""
+    want = _reference_pipeline()[f"{arch}/{layout}"]
+    n = MIXER_LAYERS[arch]
+    jcfg = jax_get_config(arch).reduced(n_layers=n)
+    tcfg = get_config(arch).reduced(n_layers=n)
+    jparams, _ = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                device="cpu")
+    llm = LLM.from_plan(tcfg, tpu_pod_cluster(n_chips=4),
+                        Workload(dtype_bytes=2), objective="throughput",
+                        kind="pipeline", params=tparams, max_len=40,
+                        cache_layout=layout, block_size=8, impl="cuda",
+                        device="cpu")
+    assert list(llm.backend.spec.periods_per_stage) == want["stages"]
+    info = dataclasses.asdict(llm.backend.info)
+    assert info.pop("attn_impl") == "plain"
+    assert want["info"].pop("attn_impl") == "xla"
+    # the reference pads every stage to the longest one's periods for
+    # shard_map and counts the padding in its byte counts (the port
+    # restacks nothing), and keeps its block table out of the state whose
+    # bytes it counts (the port counts its one shared table: 4 bytes a
+    # column)
+    assert info.pop("param_bytes") <= want["info"].pop("param_bytes")
+    assert info.pop("cache_bytes_per_slot") <= \
+        want["info"].pop("cache_bytes_per_slot") + 4 * info["max_ctx_blocks"]
+    assert info == want["info"]
+    got = llm.generate(_prompts(tcfg, MIXER_LENS),
+                       SamplingParams(max_tokens=6))
+    assert [o.tokens for o in got] == want["tokens"]
+    assert len({t for ts in want["tokens"] for t in ts}) > 4
+
+
+def test_xlstm_paged_pipeline_keeps_no_pool():
+    """An attention-free model on the paged layout holds no table and no
+    pool; its recurrent state rows are zeroed when a slot is re-admitted."""
+    tcfg = get_config("xlstm-1.3b").reduced(n_layers=8)
+    tparams = init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    be = PipelineBackend(tcfg, tparams, PL.PipelineSpec(2, (1, 0)),
+                         max_len=32, cache_layout="paged", device="cpu")
+    assert not any("k_pool" in c or "bt" in c for c in be.state.caches)
+    assert be.info.total_blocks == 0 and not be.info.spec_decode
+    be.prefill([0], np.arange(1, 5, dtype=np.int32)[None])
+    for _ in range(8):
+        be.decode_step({})
+    assert be.state.caches[0]["C"][0].any()
+    be.free_slot(0)
+    be.prefill([0], np.arange(1, 3, dtype=np.int32)[None])
+    for cache in be.state.caches:
+        for key, t in cache.items():
+            assert not t[0].any(), key
+    with pytest.raises(ValueError, match="no attention layer to page"):
+        PL.init_pipeline_decode_state(tcfg, PL.PipelineSpec(2, (1, 0)), 2,
+                                      32, torch.float32, "paged", 4, 8,
+                                      "cpu")
+
+
+def test_serve_launcher_takes_the_mixer_archs(capsys):
+    """``--arch`` takes the three new names in both modes; xlstm's smoke
+    stack (4 mLSTM blocks of an 8-block period) is no whole period, so the
+    pipeline mode refuses it, as the reference's does."""
+    from repro_torch.launch.serve import main
+    common = ["--smoke", "--device", "cpu", "--batch", "4", "--varlen",
+              "--prompt-len", "10", "--gen", "5", "--impl", "cuda"]
+
+    def tokens(out):
+        return [line.split(")", 1)[1] for line in out.splitlines()
+                if line.startswith("  req ")]
+
+    for arch in ("granite-moe-1b-a400m", "kimi-k2-1t-a32b"):
+        main(["--arch", arch] + common)
+        tp = capsys.readouterr().out
+        main(["--arch", arch] + common + ["--mode", "pipeline", "--stages",
+                                          "2"])
+        pipe = capsys.readouterr().out
+        assert "served 4 requests" in tp and "served 4 requests" in pipe
+        assert tokens(pipe) == tokens(tp) and len(tokens(tp)) == 4
+    main(["--arch", "xlstm-1.3b"] + common)
+    contiguous = capsys.readouterr().out
+    main(["--arch", "xlstm-1.3b"] + common + ["--cache-layout", "paged"])
+    paged = capsys.readouterr().out
+    assert tokens(paged) == tokens(contiguous) and len(tokens(paged)) == 4
+    with pytest.raises(AssertionError, match="whole periods"):
+        main(["--arch", "xlstm-1.3b"] + common + ["--mode", "pipeline"])

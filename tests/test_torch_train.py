@@ -8,7 +8,10 @@ Models: the reduced llama2-7b (MHA, untied head) and qwen3-0.6b (GQA,
 qk-norm, tied embeddings), two layers each, and the reduced
 recurrentgemma-2b with five layers (one stacked period of rglru, rglru,
 local attention with window 16, and a tail of two rglru blocks).  S = 24
-crosses the window.  Tolerances: 2e-4 (float32 products and sums taken in
+crosses the window.  The mixture-of-experts configs (granite-moe,
+kimi-k2) and xlstm-1.3b (8 layers, with its sLSTM block) are held for the
+loss with its load-balance term (1e-5), its gradients and one AdamW
+update.  Tolerances: 2e-4 (float32 products and sums taken in
 another order by another library; the reference's RG-LRU block test's
 tolerance), AdamW and its schedule 1e-6, data and checkpoints exact.
 ``impl="ref"`` is held against the reference's ``"xla"`` path and
@@ -195,6 +198,95 @@ def test_train_loss_gradients(model):
     it = iter(grads)
     tgrads = TA.tree_map(lambda _: next(it), tparams)
     _same_tree(params_to_numpy(tcfg, tgrads), jgrads, **TOL)
+
+
+# --------------------------------------------------------------------------- #
+# the MoE and xLSTM configs: the aux term, its gradient, AdamW on expert
+# tensors
+# --------------------------------------------------------------------------- #
+
+#: reduced with ``cfg.reduced``; xlstm at 8 layers keeps its sLSTM block
+MIXER_ARCHS = {"granite-moe-1b-a400m": 2, "kimi-k2-1t-a32b": 2,
+               "xlstm-1.3b": 8}
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _mixer_model(arch):
+    n = MIXER_ARCHS[arch]
+    jcfg = jax_get_config(arch).reduced(n_layers=n)
+    tcfg = get_config(arch).reduced(n_layers=n)
+    jparams, _ = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+@pytest.mark.parametrize("arch", list(MIXER_ARCHS))
+def test_mixer_train_loss(arch):
+    """``train_loss``'s total, ``ce`` and ``aux``: the load-balance term is
+    summed over the MoE layers and weighted into the total, and is 0 for
+    xLSTM."""
+    jcfg, tcfg, jparams, tparams = _mixer_model(arch)
+    tokens, labels = _batch(tcfg, seed=5)
+    jtot, jparts = JT.train_loss(jcfg, jparams, jnp.asarray(tokens),
+                                 jnp.asarray(labels))
+    with torch.no_grad():
+        ttot, tparts = TT.train_loss(tcfg, tparams, _t(tokens), _t(labels))
+    for got, want in ((ttot, jtot), (tparts["ce"], jparts["ce"]),
+                      (tparts["aux"], jparts["aux"])):
+        np.testing.assert_allclose(float(got), float(want), **LOSS_TOL)
+    is_moe = tcfg.pattern[0].moe is not None
+    assert (float(tparts["aux"]) > 0) == is_moe
+    if is_moe:
+        w = tcfg.pattern[0].moe.load_balance_weight
+        np.testing.assert_allclose(
+            float(ttot), float(tparts["ce"]) + w * float(tparts["aux"]),
+            rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", list(MIXER_ARCHS))
+def test_mixer_train_loss_gradients(arch):
+    """torch autograd of ``train_loss`` (aux term included) against
+    ``jax.grad``, every leaf: the expert tensors, the router, the mLSTM and
+    sLSTM weights."""
+    jcfg, tcfg, jparams, tparams = _mixer_model(arch)
+    tokens, labels = _batch(tcfg, seed=6, s=12)
+    jgrads = jax.grad(lambda p: JT.train_loss(
+        jcfg, p, jnp.asarray(tokens), jnp.asarray(labels))[0])(jparams)
+    leaves = TA.tree_leaves(tparams)
+    for p in leaves:
+        p.requires_grad_(True)
+    total, _ = TT.train_loss(tcfg, tparams, _t(tokens), _t(labels))
+    grads = torch.autograd.grad(total, leaves)
+    it = iter(grads)
+    _same_tree(params_to_numpy(tcfg, TA.tree_map(lambda _: next(it),
+                                                 tparams)), jgrads, **TOL)
+
+
+@pytest.mark.parametrize("arch", list(MIXER_ARCHS))
+def test_mixer_adamw_update_matches(arch):
+    """One ``adamw_update`` on the same numpy gradients: the stacked expert
+    tensors (rank 4 in the reference's tree) and the sLSTM recurrent
+    tensors are decayed as the reference decays them."""
+    jcfg, tcfg, jparams, tparams = _mixer_model(arch)
+    ndim = reference_ndim(tcfg, tparams)
+    if tcfg.pattern[0].moe is not None:
+        assert ndim["layers"][0]["ffn"]["w_gate"] == 4
+    else:
+        assert ndim["layers"][7]["mixer"]["r_i"] == 4
+        assert ndim["layers"][0]["mixer"]["b_f"] == 2
+    ocfg = dict(lr=1e-2, weight_decay=0.5, warmup_steps=0, total_steps=10)
+    rng = np.random.default_rng(7)
+    g = jax.tree.map(
+        lambda p: rng.standard_normal(p.shape).astype(np.float32),
+        jax.tree.map(np.asarray, jparams))
+    jparams, jopt, _ = JTR.adamw_update(JTR.AdamWConfig(**ocfg), g,
+                                        JTR.adamw_init(jparams), jparams)
+    tparams, topt, _ = TA.adamw_update(
+        TA.AdamWConfig(**ocfg), params_from_numpy(tcfg, g, "cpu"),
+        TA.adamw_init(tparams), tparams, ndim)
+    _same_tree(params_to_numpy(tcfg, tparams), jparams, **OPT_TOL)
+    _same_tree(params_to_numpy(tcfg, topt.nu), jopt.nu, **OPT_TOL)
 
 
 def test_forward_train_refuses_caches_and_unknown_modes():
