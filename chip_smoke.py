@@ -35,9 +35,12 @@ exits non-zero and prints no result line; no phase catches its own failure.
    whose valid keys sit in one split, a fully masked row through the merge,
    llama2-70b's g=8 at B=1 over 4096 keys; each case also called twice
    (bit-identical) and with its masked ring rows poisoned (never read), and
-   its split count printed.  The RG-LRU scan in float32 at R = 2560 and 200
-   (ragged), S = 1, 7 and 4096, with and without h0, and left-pad identity
-   steps that must leave h bit for bit.  The flash-attention kernel in
+   its split count printed.  The RG-LRU scan in float32 at R = 2560, 200
+   (ragged) and 199 (R % 4 != 0: the kernel's 4-byte copies), S = 1, 7 and
+   4096, with and without h0, with bases one float past 16-byte alignment,
+   and at S = 150 (three 48 KB stages), each with its launch plan printed;
+   and left-pad identity steps that must leave h bit for bit, at R = 2560,
+   199 and a misaligned base.  The flash-attention kernel in
    float32 and bfloat16 over the cases of the JAX kernel tests (MHA, GQA
    with a ragged S, MQA at D=128, S below one tile; windows 16, 64 and 128
    with and without softcap), and every shape a main path gives it: the
@@ -712,55 +715,110 @@ def check_flash(fa):
     return worst
 
 
-def scan_inputs(b, s, r, seed, h0=True):
-    """Seeded scan inputs on the card: log_a = -|N(0, 1)|, b = N(0, 1)."""
+def scan_inputs(b, s, r, seed, h0=True, offset=0):
+    """Seeded scan inputs on the card: log_a = -|N(0, 1)|, b = N(0, 1).
+    ``offset`` floats: log_a and b are contiguous views that far into a
+    buffer of their own, so a base may miss 16-byte alignment."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    x = dict(log_a=-torch.randn((b, s, r), generator=gen, device=DEVICE)
-             .abs(),
-             b=torch.randn((b, s, r), generator=gen, device=DEVICE))
+
+    def at_offset(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, device=DEVICE)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+    x = dict(log_a=at_offset(-torch.randn((b, s, r), generator=gen,
+                                          device=DEVICE).abs()),
+             b=at_offset(torch.randn((b, s, r), generator=gen,
+                                     device=DEVICE)))
     x["h0"] = torch.randn((b, r), generator=gen, device=DEVICE) if h0 \
         else None
     return x
 
 
+# the scan's checks, (B, S, R, h0, offset): the serve's width, a ragged
+# strip (200) and R % 4 != 0 (199: the kernel's 4-byte copies), each at
+# S = 1, 7 and 4096, with and without h0; then bases one float past 16-byte
+# alignment (the 4-byte copies at R % 4 == 0); last, three stages of ring
+# (S = 150: 48 KB, which with the barriers needs the shared-memory opt-in)
+RGLRU_CASES = [(4, s, r, h0, 0) for r in (2560, 200, 199)
+               for s in (1, 7, 4096) for h0 in (True, False)] + [
+    (4, 300, 2560, True, 1), (4, 4096, 2560, False, 1), (2, 33, 256, True, 1),
+    (2, 150, 2560, True, 0)]
+# left pads (R, offset): at the serve's width, at R % 4 != 0, and misaligned
+RGLRU_PAD_CASES = [(2560, 0), (199, 0), (2560, 1)]
+RGLRU_PADS = (0, 37, 150, 299)
+
+
+def rglru_case_inputs(i):
+    b, s, r, h0, offset = RGLRU_CASES[i]
+    return scan_inputs(b, s, r, seed=500 + i, h0=h0, offset=offset)
+
+
+def rglru_pad_inputs(k):
+    """A masked prefill's left pads, RGLRU_PADS steps in rows 0-3 of
+    4 x 300 x R (``RGLRU_PAD_CASES[k]``): log_a = 0, b = 0."""
+    r, offset = RGLRU_PAD_CASES[k]
+    x = scan_inputs(4, 300, r, seed=520 + 20 * k, offset=offset)
+    for row, p in enumerate(RGLRU_PADS):
+        x["log_a"][row, :p] = 0.0
+        x["b"][row, :p] = 0.0
+    return x
+
+
+def plan_note(rs, x):
+    """The scan kernel's plan for inputs ``x``: strips, stages and steps,
+    copy width and copy warps."""
+    from repro_torch.kernels._launch import sm_count
+    plan = rs.scan_plan(x["log_a"].shape, x["log_a"].data_ptr() % 16 == 0
+                        and x["b"].data_ptr() % 16 == 0,
+                        sm_count(x["log_a"].device))
+    return (f"plan {plan.grid[0]} strips x {plan.grid[1]} slots, "
+            f"{plan.stages} stages of {plan.steps} steps "
+            f"({plan.smem_bytes // 1024} KB), {4 * plan.vec}-byte copies "
+            f"by {plan.copy_warps} copy warps")
+
+
 def check_rglru(rs):
     """The scan kernel against its plain version in float32 at the serve's
-    width and a ragged one, and left-pad identity steps exact; returns the
-    largest error."""
+    width, ragged ones and misaligned bases, and left-pad identity steps
+    exact; returns the largest error."""
     worst = 0.0
-    for i, (r, s, h0) in enumerate((r, s, h0) for r in (2560, 200)
-                                   for s in (1, 7, 4096)
-                                   for h0 in (True, False)):
-        x = scan_inputs(4, s, r, seed=500 + i, h0=h0)
-        name = f"B=4 S={s} R={r} h0={'yes' if h0 else 'none'}"
+    for i, (b, s, r, h0, offset) in enumerate(RGLRU_CASES):
+        x = rglru_case_inputs(i)
+        name = (f"B={b} S={s} R={r} h0={'yes' if h0 else 'none'}"
+                + (f" base +{offset} float" if offset else ""))
         _, err, _ = compare(name, rs.rglru_scan, rs.rglru_scan_plain, x, {},
                             torch.float32, tol=SCAN_TOL)
         worst = max(worst, err)
         print(f"kernels: rglru_scan {name}: max abs err {err:.3g} "
-              f"(rtol/atol {SCAN_TOL['rtol']:.3g})")
+              f"(rtol/atol {SCAN_TOL['rtol']:.3g}); {plan_note(rs, x)}")
     # a masked prefill's left pads: log_a = 0, b = 0 leave h bit for bit,
     # and the rest equals the scan of the unpadded rows from the same h0
-    x = scan_inputs(4, 300, 2560, seed=520)
-    pads = (0, 37, 150, 299)
-    for row, p in enumerate(pads):
-        x["log_a"][row, :p] = 0.0
-        x["b"][row, :p] = 0.0
-    _, err, _ = compare("left pads", rs.rglru_scan, rs.rglru_scan_plain, x,
-                        {}, torch.float32, tol=SCAN_TOL)
-    worst = max(worst, err)
-    got = rs.rglru_scan(**x)
-    for row, p in enumerate(pads):
-        h0 = x["h0"][row:row + 1]
-        rest = rs.rglru_scan(x["log_a"][row:row + 1, p:].contiguous(),
-                             x["b"][row:row + 1, p:].contiguous(), h0)
-        if not torch.equal(got[row, :p], h0.expand(p, -1)) \
-                or not torch.equal(got[row:row + 1, p:], rest):
-            raise AssertionError(f"rglru_scan: {p} left pad steps of row "
-                                 f"{row} are not the identity, bit for bit")
-    print(f"kernels: rglru_scan B=4 S=300 R=2560 left pads {list(pads)}: max "
-          f"abs err {err:.3g}; pad steps keep h0 bit for bit and the rest "
-          f"equals the unpadded scan bit for bit")
+    for k, (r, offset) in enumerate(RGLRU_PAD_CASES):
+        x = rglru_pad_inputs(k)
+        name = f"B=4 S=300 R={r}" + (f" base +{offset} float" if offset
+                                     else "")
+        _, err, _ = compare(f"left pads {name}", rs.rglru_scan,
+                            rs.rglru_scan_plain, x, {}, torch.float32,
+                            tol=SCAN_TOL)
+        worst = max(worst, err)
+        got = rs.rglru_scan(**x)
+        for row, p in enumerate(RGLRU_PADS):
+            h0 = x["h0"][row:row + 1]
+            rest = rs.rglru_scan(x["log_a"][row:row + 1, p:].contiguous(),
+                                 x["b"][row:row + 1, p:].contiguous(), h0)
+            if not torch.equal(got[row, :p], h0.expand(p, -1)) \
+                    or not torch.equal(got[row:row + 1, p:], rest):
+                raise AssertionError(f"rglru_scan {name}: {p} left pad "
+                                     f"steps of row {row} are not the "
+                                     f"identity, bit for bit")
+        print(f"kernels: rglru_scan {name} left pads {list(RGLRU_PADS)}: "
+              f"max abs err {err:.3g}; pad steps keep h0 bit for bit and "
+              f"the rest equals the unpadded scan bit for bit; "
+              f"{plan_note(rs, x)}")
     return worst
 
 
@@ -944,16 +1002,24 @@ def time_decode(da, card, n_valid, heads=(32, 32, 128),
                 splits=ring_splits(da, x), **bound(n_bytes, n_ops, card))
 
 
-def time_rglru(rs, card, s):
-    """rglru_scan at the hybrid serve's wave: 4 slots x ``s`` steps x
-    R = 2560, float32.  No PyTorch call computes a linear recurrence, so
-    there is no library time."""
-    b, r = SLOTS, 2560
-    n_sets = max(1, -(-200_000_000 // (3 * b * s * r * 4)))   # past the L2
-    sets = [scan_inputs(b, s, r, seed=600 + i) for i in range(n_sets)]
-    err = max(compare(f"rglru_scan timing set {i} S={s}", rs.rglru_scan,
-                      rs.rglru_scan_plain, x, {}, torch.float32,
-                      tol=SCAN_TOL)[1] for i, x in enumerate(sets))
+def rglru_sets(b, s, r=2560):
+    """Seeded scan inputs of ``b`` slots x ``s`` steps x ``r`` that together
+    exceed the L2, so each timed call reads its inputs cold."""
+    n_sets = max(1, -(-200_000_000 // (3 * b * s * r * 4)))
+    return [scan_inputs(b, s, r, seed=600 + i) for i in range(n_sets)]
+
+
+def time_rglru(rs, card, s, b=SLOTS):
+    """rglru_scan at the hybrid serve's wave (4 slots x ``s`` steps) or its
+    score (``b`` = 2 x 4096) at R = 2560, float32.  No PyTorch call
+    computes a linear recurrence, so there is no library time."""
+    r = 2560
+    sets = rglru_sets(b, s, r)
+    n_sets = len(sets)
+    err = max(compare(f"rglru_scan timing set {i} B={b} S={s}",
+                      rs.rglru_scan, rs.rglru_scan_plain, x, {},
+                      torch.float32, tol=SCAN_TOL)[1]
+              for i, x in enumerate(sets))
     ms = time_ms(lambda i: rs.rglru_scan(**sets[i]), n_sets, iters=50)
     plain_ms = time_ms(lambda i: rs.rglru_scan_plain(**sets[i]), n_sets,
                        iters=2, warmup=1, graph=False)
@@ -961,6 +1027,7 @@ def time_rglru(rs, card, s):
     # element
     n_bytes = (3 * b * s * r + b * r) * 4
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                plan=plan_note(rs, sets[0]),
                 **bound(n_bytes, 3 * b * s * r, card, PEAK_F32))
 
 
@@ -1194,6 +1261,8 @@ def timing_line(name, shape, t, card):
         print(f"kernels: {name} at {shape}: blocks of {t['tile_shape'][0]} "
               f"rows walk {t['tiles'][0]} masked and {t['tiles'][1]} "
               f"unmasked key tiles of {t['tile_shape'][1]}")
+    if "plan" in t:
+        print(f"kernels: {name} at {shape}: {t['plan']}")
     if "splits" in t:
         print(f"kernels: {name} at {shape}: each slot's keys split "
               f"S={t['splits'][0]} ways of L={t['splits'][1]} keys")
@@ -3444,6 +3513,7 @@ def main():
                                             n_sets=16),
         "rglru_scan": time_rglru(rs, card, HYBRID_MAX_LEN),
         "rglru_scan short": time_rglru(rs, card, 256),
+        "rglru_scan score": time_rglru(rs, card, SCORE_LEN, b=SCORE_BATCH),
         "flash_attention": time_flash(fa, card),
         # 1 x 4096 x 10 x 256 bf16 q and out, 2 x 2 MB of K/V: 46 MB a set
         "flash_attention hybrid": time_flash(
@@ -3523,6 +3593,8 @@ def main():
                                  f"{FLEET_MAX_LEN} keys bf16",
         "rglru_scan": f"{HYBRID} {SLOTS} x {HYBRID_MAX_LEN} x 2560 f32",
         "rglru_scan short": f"{HYBRID} {SLOTS} x 256 x 2560 f32",
+        "rglru_scan score": f"{HYBRID} {SCORE_BATCH} x {SCORE_LEN} x 2560 "
+                            f"f32 (the score)",
         "flash_attention": f"llama2-7b (H=KH=32, D=128) 1 x {SCORE_LEN}, "
                            f"causal, bf16",
         "flash_attention hybrid": f"{HYBRID} (H=10, KH=1, D=256) 1 x "
@@ -3653,6 +3725,10 @@ def main():
         # paged kernel at g=10, D=256 over the 2048-key window
         entry("rglru_scan", f"rglru_scan@{HYBRID} paged", "rglru_scan.cu",
               "rglru_scan.py:36", hybrid["paged_scans"]),
+        # the hybrid's score: 2 x 4096 tokens, one scan a RG-LRU layer
+        entry("rglru_scan score", f"rglru_scan@{HYBRID} score",
+              "rglru_scan.cu", "rglru_scan.py:36",
+              hybrid_scored["rglru_scan"]),
         entry("paged_attention hybrid", f"paged_attention@{HYBRID}",
               "paged_attention.cu", "decode_attention.py:201",
               hybrid["paged"]),

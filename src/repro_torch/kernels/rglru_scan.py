@@ -11,6 +11,10 @@ Port of ``repro.kernels.rglru_scan.rglru_scan_pallas`` behind the
 - :func:`rglru_scan` -- the wrapper.  On CUDA tensors it launches the kernel
   in ``csrc/rglru_scan.cu`` (or raises); it takes the plain version only
   for tensors on the CPU.  ``rglru_scan.launches`` counts kernel launches.
+- :func:`scan_plan` -- the kernel's launch plan (channels a block, steps a
+  stage, stages, copy width, copy warps, grid, shared memory) from the
+  shapes, the inputs' alignment and the SM count only; the wrapper passes
+  it to the C entry as it is.
 - :func:`rglru_scan_plain` -- the plain version: the sequential recurrence
   of ``repro.kernels.ref.rglru_scan_ref``, a loop over S.
 
@@ -20,13 +24,59 @@ doubling scan instead (``repro_torch.models.rglru.rglru_scan``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import Entry, on_cpu
+from repro_torch.kernels._launch import Entry, on_cpu, sm_count
 
-_launch = Entry("rglru_scan_launch", n_tensors=4, n_ints=3, scalars=())
+_launch = Entry("rglru_scan_launch", n_tensors=4, n_ints=8, scalars=())
+
+#: channels a block: the chain warp's 32 lanes, one 128-byte row of a step
+STRIP = 32
+#: the launch plan by the blocks an SM holds (the grid's blocks over the SM
+#: count) and the steps: (more blocks an SM than, at least S, steps a
+#: stage, stages, copy warps), the first row that applies.  With more than
+#: one block an SM the SM's issue slots are shared by every block's warps,
+#: and short stages with few copy warps do best (two from 512 steps; at
+#: 256 steps three fill the ring sooner); with one block
+#: an SM or fewer, long stages and many copy warps keep each chain fed
+#: (NVIDIA H100 80GB HBM3, 700 W: PERF.md §6, row 5, from
+#: ``scripts/ab_rglru_scan.py --plans``).
+PLAN_TABLE = ((2.0, 512, 32, 4, 2), (1.5, 1, 32, 4, 3), (0.9, 1, 64, 4, 5),
+              (0.0, 1, 128, 3, 7))
+
+
+class ScanPlan(NamedTuple):
+    """How ``csrc/rglru_scan.cu`` runs one call: ``strip`` channels a
+    block, ``stages`` shared-memory stages of ``steps`` steps each,
+    ``copy_warps`` warps beside the chain warp that fill them.  ``vec`` is
+    the floats a copy moves: 4 (16-byte ``cp.async``) or 1 (4-byte, when
+    R % 4 != 0 or a base is not 16-byte aligned).  ``grid`` is (strips,
+    slots); ``smem_bytes`` the ring's dynamic shared memory."""
+    strip: int
+    steps: int
+    stages: int
+    vec: int
+    copy_warps: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+
+def scan_plan(shape: Sequence[int], aligned: bool, n_sm: int) -> ScanPlan:
+    """The launch plan of a call on ``log_a``/``b`` of ``shape`` [B, S, R]
+    on a card of ``n_sm`` SMs; ``aligned``: both bases lie on 16 bytes.
+    Shapes, alignment and the SM count only, so a call needs no host sync
+    and can be captured in a CUDA graph."""
+    b, s, r = shape
+    grid = (-(-r // STRIP), b)
+    per_sm = grid[0] * grid[1] / n_sm
+    steps, stages, copy_warps = next(row[2:] for row in PLAN_TABLE
+                                     if per_sm > row[0] and s >= row[1])
+    stages = min(stages, -(-s // steps))
+    vec = 4 if aligned and r % 4 == 0 else 1
+    return ScanPlan(STRIP, steps, stages, vec, copy_warps, grid,
+                    stages * 2 * steps * STRIP * 4)
 
 
 def rglru_scan_plain(log_a: torch.Tensor, b: torch.Tensor,
@@ -69,9 +119,12 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(log_a)
     if out.numel() == 0:
         return out
+    plan = scan_plan(log_a.shape, log_a.data_ptr() % 16 == 0
+                     and b.data_ptr() % 16 == 0, sm_count(log_a.device))
     _launch(log_a.device, log_a.data_ptr(), b.data_ptr(),
             None if h0 is None else h0.data_ptr(),   # NULL: zeros
-            out.data_ptr(), bb, s, r)
+            out.data_ptr(), bb, s, r, plan.strip, plan.steps, plan.stages,
+            plan.vec, plan.copy_warps)
     rglru_scan.launches += 1
     return out
 

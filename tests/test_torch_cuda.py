@@ -351,18 +351,37 @@ def test_served_tokens_contiguous_and_spec(gpu, arch):
     assert 0 < llm.stats.spec_accepted < llm.stats.spec_drafted
 
 
-RGLRU_CASES = [(4, 7, 2560), (2, 33, 200), (3, 1, 200), (1, 300, 128)]
+# (B, S, R, offset): ragged strips, S=1, R % 4 != 0 (199: the kernel's
+# 4-byte copies), and contiguous inputs whose base lies ``offset`` floats
+# past 16-byte alignment (the 4-byte copies at R % 4 == 0)
+RGLRU_CASES = [(4, 7, 2560, 0), (2, 33, 200, 0), (3, 1, 200, 0),
+               (1, 300, 128, 0), (2, 33, 199, 0), (2, 70, 256, 1),
+               (4, 130, 2560, 1)]
 
 
-@pytest.mark.parametrize("b,s,r", RGLRU_CASES)
+def _at_offset(t, offset):
+    """``t`` copied into a contiguous view ``offset`` floats into a buffer
+    of its own."""
+    if not offset:
+        return t
+    view = torch.empty(t.numel() + offset, device=t.device)[offset:] \
+        .view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset % 16
+    return view
+
+
+@pytest.mark.parametrize("b,s,r,offset", RGLRU_CASES)
 @pytest.mark.parametrize("with_h0", [True, False])
-def test_rglru_kernel_matches_plain_on_gpu(gpu, b, s, r, with_h0):
+def test_rglru_kernel_matches_plain_on_gpu(gpu, b, s, r, offset, with_h0):
     """The scan kernel against its plain version on the card (ragged R,
-    S=1, with and without h0), and left-pad identity steps exact."""
+    S=1, with and without h0, R % 4 != 0, misaligned bases), and left-pad
+    identity steps exact."""
     rng = np.random.default_rng(60)
     log_a = -np.abs(rng.standard_normal((b, s, r))).astype(np.float32)
     bb = rng.standard_normal((b, s, r)).astype(np.float32)
-    la, bv = torch.from_numpy(log_a).to(gpu), torch.from_numpy(bb).to(gpu)
+    la = _at_offset(torch.from_numpy(log_a).to(gpu), offset)
+    bv = _at_offset(torch.from_numpy(bb).to(gpu), offset)
     h0 = torch.randn((b, r), device=gpu) if with_h0 else None
     before = RS.rglru_scan.launches
     got = RS.rglru_scan(la, bv, h0)
@@ -376,8 +395,9 @@ def test_rglru_kernel_matches_plain_on_gpu(gpu, b, s, r, with_h0):
     start = torch.zeros((b, r), device=gpu) if h0 is None else h0
     assert torch.equal(padded[:, :pad], start[:, None].expand(b, pad, r))
     if s > pad:
-        tail = RS.rglru_scan(la[:, pad:].contiguous(),
-                             bv[:, pad:].contiguous(), h0)
+        tail = RS.rglru_scan(_at_offset(la[:, pad:].contiguous(), offset),
+                             _at_offset(bv[:, pad:].contiguous(), offset),
+                             h0)
         assert torch.equal(padded[:, pad:], tail)
 
 

@@ -14,6 +14,8 @@ against the reference's ``"xla"`` path, ``impl="cuda"`` against
 GPU: ``tests/test_torch_cuda.py``.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import pytest
 
@@ -127,6 +129,172 @@ def test_scan_pad_steps_leave_h_exact():
     plain = RS.rglru_scan_plain(_t(log_a), _t(bb), _t(h0))
     tail = RS.rglru_scan_plain(_t(log_a[:, 5:]), _t(bb[:, 5:]), _t(h0))
     assert torch.equal(plain[:, 5:], tail)
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's launch plan (shapes and alignment only)
+# --------------------------------------------------------------------------- #
+
+# chip_smoke.py's check and timing shapes (R = 199: the 4-byte copy path;
+# S = 150: three 48 KB stages), tests/test_torch_cuda.py's cases, ragged
+# ones (a strip of one channel, S one past a stage, R under a strip), and
+# the serve's waves of 1-4 slots
+PLAN_SHAPES = [(4, s, r) for r in (2560, 200, 199) for s in (1, 7, 4096)] + [
+    (4, 300, 2560), (4, 256, 2560), (2, 4096, 2560), (2, 33, 256),
+    (2, 150, 2560), (4, 7, 2560), (2, 33, 200), (3, 1, 200), (1, 300, 128),
+    (2, 33, 199), (2, 70, 256), (4, 130, 2560), (1, 65, 33), (3, 129, 4),
+    (1, 1, 1), (5, 64, 31), (1, 4096, 2560), (3, 4096, 2560),
+    (64, 200, 2560)]
+H100_SMS = 132
+# shared memory of an H100 SM, and what the runtime reserves a block
+SM_SMEM, BLOCK_RESERVED = 228 * 1024, 1024
+
+
+def _kernel_source():
+    return (Path(RS.__file__).parent / "csrc" / "rglru_scan.cu").read_text()
+
+
+def _kernel_text(name):
+    """The right-hand side of ``constexpr int <name> = ...;`` in the
+    kernel source."""
+    found = re.findall(rf"constexpr int {name} = ([^;]+);", _kernel_source())
+    assert len(found) == 1, name
+    return found[0]
+
+
+def _kernel_const(name):
+    return eval(_kernel_text(name), {})             # e.g. "48 * 1024"
+
+
+def _smem_limits():
+    """What a block may have (227 KB), what it gets without opting in (48
+    KB, static and dynamic together), and the kernel's static barriers: a
+    full and an empty one for each of its stages at most."""
+    assert _kernel_text("kBarrierBytes") == \
+        "2 * kMaxStages * (int)sizeof(uint64_t)"
+    return (_kernel_const("kSmemLimit"), _kernel_const("kSmemDefault"),
+            2 * _kernel_const("kMaxStages") * 8)
+
+
+@pytest.mark.parametrize("b,s,r", PLAN_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_scan_plan_covers_every_slot_channel_and_step_once(b, s, r,
+                                                           aligned):
+    """The blocks of the grid, as the kernel reads its block index (strip
+    ``r0 = x * strip``, ``min(strip, R - r0)`` channels, slot ``y``), hold
+    every (slot, channel) exactly once; the stages' tiles hold every step
+    once; and the copy threads' pieces hold every (step, channel) of a tile
+    once, none reaching past the strip."""
+    plan = RS.scan_plan((b, s, r), aligned, H100_SMS)
+    assert plan.strip == RS.STRIP == 32
+    seen = np.zeros((b, r), np.int64)
+    for y in range(plan.grid[1]):
+        for x in range(plan.grid[0]):
+            r0 = x * plan.strip
+            width = min(plan.strip, r - r0)
+            assert width > 0
+            seen[y, r0:r0 + width] += 1
+    assert (seen == 1).all()
+    tiles = -(-s // plan.steps)
+    rows = [min(plan.steps, s - k * plan.steps) for k in range(tiles)]
+    assert all(n > 0 for n in rows) and sum(rows) == s
+    assert 1 <= plan.stages <= tiles
+    per_row = plan.strip // plan.vec
+    for width in {min(plan.strip, r - x * plan.strip)
+                  for x in range(plan.grid[0])}:
+        held = np.zeros((plan.steps, plan.strip), np.int64)
+        for p in range(plan.steps * per_row):
+            t, c = p // per_row, p % per_row * plan.vec
+            if c < width:
+                assert c + plan.vec <= width     # no copy past the strip
+                held[t, c:c + plan.vec] += 1
+        assert (held[:, :width] == 1).all() and not held[:, width:].any()
+
+
+@pytest.mark.parametrize("b,s,r", PLAN_SHAPES)
+def test_scan_plan_shared_memory_fits(b, s, r):
+    """The ring's stages fit the 227 KB a block may have beside the
+    barriers, and the grid's blocks are all resident at once, up to 4 an
+    SM (the serve's B = 4 x 80 strips is 2.4)."""
+    plan = RS.scan_plan((b, s, r), True, H100_SMS)
+    limit, _, barriers = _smem_limits()
+    assert plan.smem_bytes == plan.stages * 2 * plan.steps * plan.strip * 4
+    total = plan.smem_bytes + barriers
+    assert total <= limit
+    blocks = plan.grid[0] * plan.grid[1]
+    per_sm = min(SM_SMEM // (total + BLOCK_RESERVED),
+                 2048 // (32 * (1 + plan.copy_warps)), 32)
+    assert per_sm * H100_SMS >= min(blocks, 4 * H100_SMS)
+
+
+def test_scan_plan_opts_in_at_48_kb_of_ring():
+    """Three stages of 64 steps (S in 129..192) make exactly 48 KB of ring:
+    with the static barriers beside it the block needs more than the
+    default, so the entry must opt in, or the launch is refused."""
+    plan = RS.scan_plan((2, 150, 2560), True, H100_SMS)
+    _, default, barriers = _smem_limits()
+    assert (plan.stages, plan.smem_bytes) == (3, default)
+    assert plan.smem_bytes + barriers > default
+    assert re.search(r"if \(smem \+ kBarrierBytes > \(size_t\)kSmemDefault\)"
+                     r" \{[^\n]*\s*const cudaError_t e = "
+                     r"cudaFuncSetAttribute\(", _kernel_source())
+
+
+@pytest.mark.parametrize("b,s,want", [
+    (4, 4096, (32, 4, 2)), (4, 1024, (32, 4, 2)), (4, 256, (32, 4, 3)),
+    (3, 4096, (32, 4, 3)), (2, 4096, (64, 4, 5)), (1, 4096, (128, 3, 7))])
+def test_scan_plan_by_blocks_an_sm(b, s, want):
+    """At R = 2560 (80 strips) on 132 SMs: the serve's 4 slots (2.4 blocks
+    an SM) over long and short waves, 3 (1.8), the score's 2 (1.2) and 1
+    (0.6) take the rows of ``PLAN_TABLE`` measured best for them."""
+    plan = RS.scan_plan((b, s, 2560), True, H100_SMS)
+    assert (plan.steps, plan.stages, plan.copy_warps) == want
+
+
+@pytest.mark.parametrize("r", [2560, 200, 199, 128, 31, 1, 6])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_scan_plan_takes_4_byte_copies_exactly_when_rows_are_unaligned(
+        r, aligned):
+    plan = RS.scan_plan((2, 100, r), aligned, H100_SMS)
+    assert plan.vec == (1 if r % 4 or not aligned else 4)
+
+
+@pytest.mark.parametrize("b,s,r,offset", [(4, 300, 2560, 0), (2, 33, 199, 0),
+                                          (4, 300, 2560, 1), (2, 70, 256, 3),
+                                          (1, 1, 1, 0)])
+def test_wrapper_launches_scan_plan(monkeypatch, b, s, r, offset):
+    """On a (stubbed) card the wrapper passes the C entry exactly the plan
+    ``scan_plan`` gives for the inputs' shape and alignment and the card's
+    SM count -- a base one float past 16 bytes takes the 4-byte copies --
+    and counts one launch."""
+    calls = []
+    monkeypatch.setattr(RS, "on_cpu", lambda name, tensors: False)
+    monkeypatch.setattr(RS, "sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(RS, "_launch", lambda dev, *args: calls.append(args))
+    monkeypatch.setattr(RS.rglru_scan, "launches", 0)
+    n = b * s * r
+    log_a = torch.zeros(n + offset)[offset:].view(b, s, r)
+    bb = torch.zeros((b, s, r))
+    assert log_a.is_contiguous()
+    assert (log_a.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    RS.rglru_scan(log_a, bb, torch.zeros((b, r)))
+    plan = RS.scan_plan((b, s, r), offset % 4 == 0, H100_SMS)
+    assert plan.vec == (4 if offset % 4 == 0 and r % 4 == 0 else 1)
+    (args,) = calls
+    assert args[4:] == (b, s, r, plan.strip, plan.steps, plan.stages,
+                        plan.vec, plan.copy_warps)
+    assert RS.rglru_scan.launches == 1
+
+
+def test_plan_constants_match_the_kernel_source():
+    """The plan's strip is the kernel's, its stages and copy warps within
+    the kernel's, and each step is a product, then a sum, never fused."""
+    assert _kernel_const("kStrip") == RS.STRIP
+    for _, _, steps, stages, copy_warps in RS.PLAN_TABLE:
+        assert stages <= _kernel_const("kMaxStages")
+        assert 1 <= copy_warps <= _kernel_const("kMaxCopyWarps")
+    assert "__fadd_rn(__fmul_rn(a[t * kStrip], h), b[t * kStrip])" in \
+        _kernel_source()
 
 
 # --------------------------------------------------------------------------- #
