@@ -87,6 +87,17 @@ exits non-zero and prints no result line; no phase catches its own failure.
    then the score phase: ``forward(mode="train")`` over 2 x 4096 seeded
    tokens under ``torch.no_grad``, ``impl="cuda"`` (one flash launch per
    layer, no decode kernel) against ``impl="ref"``;
+   then, on the same weights, the int8 KV cache (``kv_dtype="int8"``;
+   the six prompts x 16 tokens at ``max_len`` 512): contiguous, the ring
+   kernel over dequantized rings once per layer and decode step; paged,
+   paged with ``spec_k=4`` and paged streamed (a shared 256-token prefix,
+   the prefix cache, 16-token chunks), each reading the pool by gather as
+   the reference does (``attn_impl`` "ref", no kernel, the warning
+   printed once); each serve's logits within 0.25 of the int8 config's
+   ``impl="ref"``, their distance to the bf16 cache printed, the K/V
+   bytes a cached token from the tensors; and ``impl="chunked"``: a
+   contiguous serve within 0.25 of ref and the 1 x 4096 forward with both
+   peak memories;
    then the pipeline phase, the paper's path: ``LLM.from_plan`` plans
    llama2-7b over the paper's testbed (the throughput DP: 13 uneven
    stages) and serves the plan as the no-bubbles stage pipeline on this
@@ -131,7 +142,15 @@ exits non-zero and prints no result line; no phase catches its own failure.
    layers on token inputs): launches exact, teacher-forced logits within
    0.25 of ``impl="ref"``, peak device memory; gemma2-2b also scored over
    1 x 4608 tokens (26 flash launches at D=256 with softcap 50, windowed
-   on the local layers).  The kernels phase holds every kernel at these
+   on the local layers), pixtral-12b over 1 x 1024 of its vision stub's
+   float embeddings (40 flash launches); then musicgen-large at full width
+   and depth (48 layers, MHA at 32 heads of 64, sinusoidal positions,
+   layernorm, GELU): the six prompts on both layouts as the dense
+   configs, a contiguous int8 serve (the ring kernel over dequantized
+   rings), its score over 2 x 4096 frontend embeddings (48 flash
+   launches), and in float32 weights its planned pipeline, whose tokens
+   must be bit for bit its TensorBackend's (stage 0 adds the sinusoidal
+   positions);  The kernels phase holds every kernel at these
    configs' shapes against its plain version and times it;
    then the mixers, one model at a time: granite-moe-1b-a400m at full
    width and depth (24 layers of 32 experts top-8) on both layouts, the
@@ -143,10 +162,10 @@ exits non-zero and prints no result line; no phase catches its own failure.
    run's expert choices, ``train_loss``'s aux against ref's, its planned
    pipeline against the ``TensorBackend``; kimi-k2-1t-a32b at full width
    and 1 of its 61 layers, paged (64 query heads over 8, 384 experts top-8
-   and the shared expert, peak memory); xlstm-1.3b at full width and depth
-   (42 mLSTM and 6 sLSTM blocks, no kernel) on both layouts with a
-   2100-token prompt, the paged serve's tokens bit for bit the contiguous
-   one's, its prefill wave split into mLSTM and sLSTM time, its planned
+   and the shared expert, peak memory); xlstm-1.3b at full width and 24 of
+   its 48 layers (21 mLSTM and 3 sLSTM blocks, no kernel) on both layouts
+   with a 2100-token prompt, the paged serve's tokens bit for bit the
+   contiguous one's, its prefill wave split into mLSTM and sLSTM time, its planned
    pipeline on both layouts against ``decode_step`` at one slot, and in
    float32 each mLSTM block's parallel form against its recurrence;
 5. hybrid  -- recurrentgemma-2b at full width and depth (18 RG-LRU and 8
@@ -256,14 +275,19 @@ GEMMA_WINDOW, GEMMA_SOFTCAP, GEMMA_LEN = 4096, 50.0, 4608
 # four requests of 16-48 tokens x 8); kimi-k2 at full width and 1 of its 61
 # layers (one layer's 384 experts are 34 GB of bf16, two layers would not
 # leave room for a cache on an 80 GB card), four prompts of 16-256 tokens
-# x 8; xlstm-1.3b at full width and depth, the six prompts and one of 2100
-# tokens x 16, its planned pipeline as granite-moe's; its parallel prefill
-# held to its own recurrence over a 128-token prompt
+# x 8; xlstm-1.3b at full width and XLSTM_LAYERS layers, the six prompts
+# and one of 2100 tokens x 16, its planned pipeline as granite-moe's; its
+# parallel prefill held to its own recurrence over a 128-token prompt
 MOE_ARCH, KIMI_ARCH, XLSTM_ARCH = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b",
                                    "xlstm-1.3b")
 MIXER_TOKENS, MIXER_PIPE_REQUESTS = 16, 4
 KIMI_LAYERS, KIMI_PROMPT_LENS, KIMI_TOKENS = 1, (16, 64, 128, 256), 8
 XLSTM_PROMPT_LENS = PROMPT_LENS + (2100,)
+# xlstm-1.3b's depth in the mixers phase: 24 of its 48 layers (three
+# 8-block periods, so the pipeline keeps whole periods), which halves its
+# sLSTM loops (174 s of the script at full depth, PR 26) and keeps the
+# script inside its time limit with this slice's phases
+XLSTM_LAYERS = 24
 XLSTM_RECURRENT_LEN = 128
 # the reference's own parallel-equals-recurrent tolerance
 # (tests/test_models.py::test_mlstm_parallel_equals_recurrent), float32
@@ -284,6 +308,23 @@ LAUNCHER_ARGV = ["--arch", ARCH, "--impl", "cuda", "--cache-layout", "paged",
                  "--varlen", "--gen", str(MAX_TOKENS), "--max-len", "128",
                  "--policy", "edf", "--ttft-slo", "64", "--inject-faults",
                  "transient@decode_step:5x2", "--max-retries", "3"]
+# the int8 KV cache and the chunked impl on llama2-7b's loaded weights: the
+# llama serve's six prompts x 16 tokens over 4 slots at max_len 512 on both
+# layouts, the paged one also with spec and streamed (4 requests sharing a
+# 256-token prefix plus 16-64 tokens of their own, the prefix cache on,
+# 16-token chunks); the chunked forward over 1 x 4096
+KV8_TOKENS = 16
+KV8_STREAM_REQUESTS, KV8_STREAM_SHARED, KV8_STREAM_TAIL = 4, 256, (16, 64)
+KV8_STREAM_CHUNK = 16
+CHUNKED_LEN = 4096
+# musicgen-large at full width and depth (48 layers, MHA at 32 heads of 64,
+# a 2048-word audio vocabulary): the six prompts x 16 tokens on both
+# layouts and with the int8 cache, its score over 2 x 4096 frontend
+# embeddings, its planned pipeline in float32; pixtral-12b's score over
+# 1 x 1024 of its vision stub's embeddings
+MUSICGEN = "musicgen-large"
+MUSICGEN_TOKENS = 16
+PIXTRAL_FRONTEND_LEN = 1024
 # the int8 matmul: the JAX kernel test's shapes (M, K, N), and llama2-7b's
 # projections (K x N: q/k/v/o, gate/up, down) at a decode step of 4 slots
 # and a prefill of 2 x 4096 tokens
@@ -427,6 +468,9 @@ PAGED_CASES = [
      {}),
     ("kimi-k2 g=8 H=64 D=128", (4, 64, 8, 128, 16, 32, (264, 136, 72, 24),
                                 1), {}),
+    # musicgen-large's MHA at 32 heads of 64: 4 slots x 512 keys
+    ("musicgen-large g=1 H=KH=32 D=64",
+     (4, 32, 32, 64, 16, 32, (512, 300, 17, 129), 1), {}),
 ]
 # row i of a KQ=4 call must equal the KQ=1 call at pos + i, bit for bit
 VERIFY_DECODE_CASES = ("llama2-7b g=1 KQ=4", "qwen3-0.6b g=2 KQ=4 softcap",
@@ -468,6 +512,10 @@ RING_CASES = [
     # granite-moe's contiguous serve: g=2 at D=64 over 512-key rings
     ("granite-moe g=2 D=64 C=512 per-row",
      (4, 16, 8, 64, 512, (512, 300, 17, 129)), {}),
+    # musicgen-large's contiguous serve (bf16 rings, or int8 rings
+    # dequantized): MHA at 32 heads of 64 over 512-key rings
+    ("musicgen-large g=1 H=KH=32 D=64 C=512 per-row",
+     (4, 32, 32, 64, 512, (512, 300, 17, 129)), {}),
 ]
 # the ring position a case with this window has wrapped to
 RING_WRAP = {50: 200, 40: 1000, HYBRID_WINDOW: 2130,
@@ -505,6 +553,8 @@ FLASH_CASES = [
                       ("global", None))),
     # granite-moe's score: 2 x 4096 at D=64, GQA group 2
     ("granite-moe score D=64", (SCORE_BATCH, SCORE_LEN, 16, 8, 64), {}),
+    # musicgen-large's score: MHA at 32 heads of 64, causal
+    ("musicgen-large score D=64", (1, SCORE_LEN, 32, 32, 64), {}),
 ]
 
 
@@ -1438,16 +1488,28 @@ class Model:
                         .astype(np.int32) for n in prompt_lens]
 
     def backend(self, impl, layout="paged", max_len=MAX_LEN,
-                prefix_cache=False, n_slots=SLOTS):
+                prefix_cache=False, n_slots=SLOTS, reports=None):
+        """A TensorBackend whose ``attn_impl`` must be ``reports`` (by
+        default ``impl``: a paged int8 cache under ``"cuda"`` reports
+        ``"ref"``, its gather)."""
         from repro_torch.runtime import TensorBackend
         be = TensorBackend(self.cfg, self.params, n_slots=n_slots,
                            max_len=max_len, impl=impl, cache_layout=layout,
                            block_size=BLOCK_SIZE, device=DEVICE,
                            prefix_cache=prefix_cache)
-        if be.info.attn_impl != impl:
+        if be.info.attn_impl != (reports or impl):
             raise AssertionError(f"backend reports attn_impl="
                                  f"{be.info.attn_impl}, asked for {impl}")
         return be
+
+    def with_config(self, **changes):
+        """This model's weights and prompts under a changed config (the
+        same tensors: no second copy of the weights)."""
+        import copy
+        import dataclasses
+        other = copy.copy(self)
+        other.cfg = dataclasses.replace(self.cfg, **changes)
+        return other
 
 
 def serve_paged(model, pa, card):
@@ -1917,6 +1979,62 @@ def serve_hybrid(model, pa, da, rs, card):
                 paged=result["paged"]["attends"])
 
 
+def serve_layouts(model, kernels, card, label, max_len, slots, n_tokens):
+    """Greedy serves of ``model``'s prompts x ``n_tokens`` over ``slots``
+    on the paged and the contiguous layout with ``impl="cuda"``: the paged
+    kernel or the ring kernel once a layer and decode step and the other
+    kernels never, and the teacher-forced logits within ``LOGITS_ATOL`` of
+    ``impl="ref"``.  Returns each layout's launches and tokens."""
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = model.cfg
+    out = {}
+    for layout in ("paged", "contiguous"):
+        be = model.backend("cuda", layout, max_len, n_slots=slots)
+        kernel = "paged_attention" if layout == "paged" \
+            else "decode_attention"
+        clock = StepClock(be)
+        llm = LLM.from_backend(be, seed=SEED)
+        sp = SamplingParams(max_tokens=n_tokens)
+        llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=2))
+        clock.reset()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs = llm.generate(model.prompts, sp)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        steps = len(clock.decode_ms)
+        want = {k: cfg.n_layers * steps if k == kernel else 0
+                for k in kernels}
+        if launches != want or not steps:
+            raise AssertionError(f"{label} {layout}: launches {launches}, "
+                                 f"expected {want}")
+        for o in outs:
+            if o.n_generated != n_tokens \
+                    or not all(0 <= t < cfg.vocab_size for t in o.tokens):
+                raise AssertionError(f"{label} request {o.uid}: "
+                                     f"{o.n_generated} tokens")
+        total = sum(o.n_generated for o in outs)
+        print(f"{label} {layout}: {len(clock.prefill_ms)} prefills, "
+              f"{steps} decode steps, {kernel} launches "
+              f"{launches[kernel]} = {cfg.n_layers} layers x {steps} "
+              f"steps, the other kernels 0; {clock.summary()}, "
+              f"{total / wall:.1f} tokens/s over {wall:.2f} s [{card}]")
+        del llm, be, clock
+        torch.cuda.empty_cache()
+        tokens = [o.tokens for o in outs]
+        got = {}
+        for impl in ("cuda", "ref"):
+            got[impl] = teacher_forced(
+                model.backend(impl, layout, max_len, n_slots=slots),
+                model.prompts, tokens, slots, n_tokens)
+            torch.cuda.empty_cache()
+        compare_logits(f"{label} {layout} decode", got, card)
+        del got
+        out[layout] = dict(launches=launches[kernel], tokens=tokens)
+    return out
+
+
 def serve_dense(kernels, card):
     """The reference's dense configs on the TensorBackend, one model at a
     time at full width (DENSE_CONFIGS: full depth but qwen1.5-32b's 16 of
@@ -1925,12 +2043,12 @@ def serve_dense(kernels, card):
     layer and decode step and the other never, teacher-forced logits
     within ``LOGITS_ATOL`` of ``impl="ref"``; starcoder2-7b also with
     ``spec_k=4`` (36 verify rows a K/V head), gemma2-2b also scored over
-    1 x 4608 tokens through the flash kernel.  Returns each config's
-    launches by kernel and path."""
+    1 x 4608 tokens through the flash kernel, pixtral-12b over 1 x 1024 of
+    its vision stub's float embeddings.  Returns each config's launches by
+    kernel and path."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.serving import LLM, SamplingParams
     result = {}
     for arch, n_layers, lens, max_len, slots in DENSE_CONFIGS:
         t_model = time.perf_counter()
@@ -1949,51 +2067,8 @@ def serve_dense(kernels, card):
               f"{SEED} in {model.init_s:.1f} s; {len(lens)} requests of "
               f"{list(lens)} tokens x {DENSE_TOKENS} over {slots} slots, "
               f"max_len {max_len}")
-        out = {}
-        for layout in ("paged", "contiguous"):
-            be = model.backend("cuda", layout, max_len, n_slots=slots)
-            kernel = "paged_attention" if layout == "paged" \
-                else "decode_attention"
-            clock = StepClock(be)
-            llm = LLM.from_backend(be, seed=SEED)
-            sp = SamplingParams(max_tokens=DENSE_TOKENS)
-            llm.generate([model.prompts[0][:16]], SamplingParams(max_tokens=2))
-            clock.reset()
-            for fn in kernels.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            outs = llm.generate(model.prompts, sp)
-            wall = time.perf_counter() - t0
-            launches = {k: fn.launches for k, fn in kernels.items()}
-            steps = len(clock.decode_ms)
-            want = {k: cfg.n_layers * steps if k == kernel else 0
-                    for k in kernels}
-            if launches != want or not steps:
-                raise AssertionError(f"dense {arch} {layout}: launches "
-                                     f"{launches}, expected {want}")
-            for o in outs:
-                if o.n_generated != DENSE_TOKENS \
-                        or not all(0 <= t < cfg.vocab_size for t in o.tokens):
-                    raise AssertionError(f"{arch} request {o.uid}: "
-                                         f"{o.n_generated} tokens")
-            total = sum(o.n_generated for o in outs)
-            print(f"dense {arch} {layout}: {len(clock.prefill_ms)} prefills, "
-                  f"{steps} decode steps, {kernel} launches "
-                  f"{launches[kernel]} = {cfg.n_layers} layers x {steps} "
-                  f"steps, the other kernels 0; {clock.summary()}, "
-                  f"{total / wall:.1f} tokens/s over {wall:.2f} s [{card}]")
-            del llm, be, clock
-            torch.cuda.empty_cache()
-            tokens = [o.tokens for o in outs]
-            got = {}
-            for impl in ("cuda", "ref"):
-                got[impl] = teacher_forced(
-                    model.backend(impl, layout, max_len, n_slots=slots),
-                    model.prompts, tokens, slots, DENSE_TOKENS)
-                torch.cuda.empty_cache()
-            compare_logits(f"{arch} {layout} decode", got, card)
-            del got
-            out[layout] = dict(launches=launches[kernel], tokens=tokens)
+        out = serve_layouts(model, kernels, card, f"dense {arch}", max_len,
+                            slots, DENSE_TOKENS)
         if arch == "starcoder2-7b":
             out["spec"] = serve_spec(model, pa, da, card,
                                      out["paged"]["tokens"], DENSE_TOKENS,
@@ -2001,6 +2076,10 @@ def serve_dense(kernels, card):
         if arch == "gemma2-2b":
             out["score"] = score(model, kernels, card, 1, GEMMA_LEN)[
                 "flash_attention"]
+        if arch == "pixtral-12b":
+            out["frontend"] = score(model, kernels, card, 1,
+                                    PIXTRAL_FRONTEND_LEN,
+                                    frontend=True)["flash_attention"]
         same = sum(int(a == b) for t, u in zip(out["paged"]["tokens"],
                                                out["contiguous"]["tokens"])
                    for a, b in zip(t, u))
@@ -2013,6 +2092,339 @@ def serve_dense(kernels, card):
         gc.collect()
         torch.cuda.empty_cache()
     return result
+
+
+# --------------------------------------------------------------------------- #
+# the int8 KV cache, the chunked impl, float inputs and musicgen-large
+# --------------------------------------------------------------------------- #
+
+KV_LEAVES = ("k", "v", "k_scale", "v_scale", "k_pool", "v_pool",
+             "k_scale_pool", "v_scale_pool")
+
+
+def kv_bytes_per_token(backend):
+    """Bytes one cached token takes over every layer, summed from the
+    backend's rings or pools (k, v and an int8 cache's scales) over the
+    tokens they hold."""
+    first = backend.caches[0]
+    held = first["k_pool"].shape[:2] if "k_pool" in first \
+        else first["k"].shape[:2]
+    total = sum(c[k].numel() * c[k].element_size() for c in backend.caches
+                for k in KV_LEAVES if k in c)
+    return total / (held[0] * held[1])
+
+
+def kv8_serve(model, kernels, card, label, layout, kernel, n_tokens,
+              prompts=None, impl="cuda", reports=None, **serve_kw):
+    """One greedy serve of ``prompts`` (the model's by default) x
+    ``n_tokens`` over ``SLOTS`` slots at ``MAX_LEN`` under ``impl``
+    (``attn_impl`` must be ``reports``, by default ``impl``; ``serve_kw``
+    are ``LLM.from_backend``'s, ``draft`` a factory of draft sources):
+    ``kernel`` launches once a layer and decode (or verify) step and every
+    other kernel never (``kernel`` None: none launches).  Returns the
+    outputs, the launches and the step clock."""
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = model.cfg
+    prompts = model.prompts if prompts is None else prompts
+    be = model.backend(impl, layout, MAX_LEN, reports=reports)
+    clock = StepClock(be)
+    draft = serve_kw.pop("draft", None)
+
+    def make():         # a fresh draft a serve: the oracle keys by uid
+        if draft is not None:
+            serve_kw["draft"] = draft()
+        return LLM.from_backend(be, seed=SEED, **serve_kw)
+
+    run_requests(make(), prompts[:1], SamplingParams(max_tokens=2))
+    llm = make()
+    clock.reset()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = run_requests(llm, prompts, SamplingParams(max_tokens=n_tokens))
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    steps = len(clock.decode_ms) + len(clock.verify_ms)
+    want = {k: cfg.n_layers * steps if k == kernel else 0 for k in kernels}
+    if launches != want or not steps:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    what = "verify" if clock.verify_ms else "decode"
+    total = sum(o.n_generated for o in outs)
+    counts = "no kernel launched" if kernel is None else (
+        f"{kernel} launches {launches[kernel]} = {cfg.n_layers} layers x "
+        f"{steps} steps, the other kernels 0")
+    print(f"{label}: {len(outs)} requests x {n_tokens} greedy tokens over "
+          f"{SLOTS} slots, {len(clock.prefill_ms)} prefills, {steps} {what} "
+          f"steps; {counts}; "
+          f"{clock.summary(what)}, {total / wall:.1f} tokens/s over "
+          f"{wall:.2f} s; {kv_bytes_per_token(be):,.0f} bytes of K/V a "
+          f"cached token [{card}]")
+    return outs, launches, llm
+
+
+def serve_kvint8(model, kernels, card):
+    """The int8 KV cache on llama2-7b's loaded weights (its config with
+    ``kv_dtype="int8"``: no second copy of the weights), the llama serve's
+    six prompts x ``KV8_TOKENS`` over 4 slots at max_len 512: contiguous,
+    where ``impl="cuda"`` runs the ring kernel over the dequantized rings,
+    once a layer and decode step; paged, where it reads by gather as the
+    reference does (``attn_impl`` ``"ref"``, zero paged launches, one
+    warning); paged with ``spec_k=4`` and an oracle draft at 0.75; paged
+    streamed (the prefix cache, 16-token chunks over a shared 256-token
+    prefix, through ``extend_cache``'s int8 branch).  Each serve's
+    teacher-forced logits within ``LOGITS_ATOL`` of the int8 config under
+    ``impl="ref"``; their distance to the bf16 cache's printed, not held;
+    bytes a cached token from the tensors beside the bf16 cache's.
+    Returns the ring kernel's launches."""
+    import warnings
+
+    from repro_torch.models import attention as A
+    from repro_torch.serving.spec import OracleDraft
+    t_phase = time.perf_counter()
+    m8 = model.with_config(kv_dtype="int8")
+    cfg = m8.cfg
+    out = {}
+    bf16 = kv_bytes_per_token(model.backend("cuda", "contiguous", MAX_LEN))
+    torch.cuda.empty_cache()
+    ring8 = kv_bytes_per_token(m8.backend("cuda", "contiguous", MAX_LEN))
+    torch.cuda.empty_cache()
+    want8 = cfg.n_layers * 2 * cfg.n_kv_heads * (cfg.resolved_head_dim + 4)
+    itemsize = getattr(torch, cfg.dtype).itemsize
+    if ring8 != want8 or bf16 != cfg.n_layers * 2 * cfg.kv_dim * itemsize:
+        raise AssertionError(f"kvint8: {ring8} and {bf16} bytes a token")
+    print(f"kvint8 {cfg.name}: {ring8:,.0f} bytes of K/V a cached token "
+          f"(int8 k/v and float32 scales, summed from the rings) against "
+          f"{bf16:,.0f} in {cfg.dtype}: x{ring8 / bf16:.3f}")
+
+    def held(label, layout, tokens, reports, n_tokens=KV8_TOKENS,
+             verify=False):
+        got = {}
+        for side, m, impl in (("cuda", m8, "cuda"), ("ref", m8, "ref"),
+                              ("bf16 cache", model, "cuda")):
+            be = m.backend(impl, layout, MAX_LEN,
+                           reports=reports if m is m8 and impl == "cuda"
+                           else None)
+            got[side] = teacher_forced_verify(be, m.prompts, tokens,
+                                              n_tokens) if verify else \
+                teacher_forced(be, m.prompts, tokens, SLOTS, n_tokens)
+            del be
+            torch.cuda.empty_cache()
+        compare_logits(f"{label} int8", got, card)
+        compare_logits(f"{label} int8 against the bf16 cache", got, card,
+                       sides=("cuda", "bf16 cache"), held=False)
+
+    outs, launches, _ = kv8_serve(m8, kernels, card,
+                                  "kvint8 contiguous", "contiguous",
+                                  "decode_attention", KV8_TOKENS)
+    out["contiguous"] = launches["decode_attention"]
+    held("kvint8 contiguous", "contiguous", [o.tokens for o in outs], None)
+
+    A._INT8_CUDA_NOTED = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        outs, _, llm = kv8_serve(m8, kernels, card, "kvint8 paged", "paged",
+                                 None, KV8_TOKENS, reports="ref")
+        paged_tokens = [o.tokens for o in outs]
+        pool8 = kv_bytes_per_token(llm.backend)
+        del llm
+        held("kvint8 paged", "paged", paged_tokens, "ref")
+
+        def oracle():
+            return OracleDraft(dict(enumerate(paged_tokens)),
+                               accept_prob=ACCEPT_PROB, seed=SEED,
+                               vocab_size=cfg.vocab_size)
+        outs, _, llm = kv8_serve(m8, kernels, card, "kvint8 paged spec",
+                                 "paged", None, KV8_TOKENS, reports="ref",
+                                 spec_k=SPEC_K, draft=oracle)
+        st = llm.stats
+        if not 0 < st.spec_accepted < st.spec_drafted:
+            raise AssertionError(f"kvint8 paged spec: drafts accepted "
+                                 f"{st.spec_accepted}/{st.spec_drafted}: no "
+                                 f"rollback ran")
+        same = sum(int(a == b) for o, u in zip(outs, paged_tokens)
+                   for a, b in zip(o.tokens, u))
+        print(f"kvint8 paged spec: drafts accepted {st.spec_accepted}/"
+              f"{st.spec_drafted}; greedy tokens equal to the plain paged "
+              f"serve's: {same}/{len(outs) * KV8_TOKENS} (bf16 verify "
+              f"rounds apart from decode)")
+        del llm
+        held("kvint8 paged spec", "paged", paged_tokens, "ref", verify=True)
+        out["stream"] = kv8_streamed(m8, kernels, card)
+    notes = [str(w.message) for w in caught
+             if issubclass(w.category, RuntimeWarning)
+             and "kv_dtype='int8'" in str(w.message)]
+    if len(notes) != 1:
+        raise AssertionError(f"kvint8: {len(notes)} gather warnings: {notes}")
+    if pool8 != ring8:
+        raise AssertionError(f"kvint8: the pool's {pool8} bytes a token, the "
+                             f"ring's {ring8}")
+    print(f"kvint8 paged: attn_impl 'ref', 0 paged_attention launches; the "
+          f"warning, once: {notes[0]}")
+    print(f"kvint8: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def kv8_streamed(m8, kernels, card):
+    """The int8 paged serve with streamed admission: ``KV8_STREAM_REQUESTS``
+    prompts sharing a ``KV8_STREAM_SHARED``-token prefix, the prefix cache
+    on and chunks of ``KV8_STREAM_CHUNK``, the first request alone so the
+    others can adopt its blocks; the first-token logits (each prompt's
+    last chunk) and greedy tokens under ``impl="cuda"`` and ``"ref"``."""
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, m8.cfg.vocab_size, KV8_STREAM_SHARED)
+    prompts = [np.concatenate([shared, rng.integers(0, m8.cfg.vocab_size, n)])
+               .astype(np.int32) for n in rng.integers(
+                   KV8_STREAM_TAIL[0], KV8_STREAM_TAIL[1] + 1,
+                   KV8_STREAM_REQUESTS)]
+    from repro_torch.serving import LLM, SamplingParams
+    sp = SamplingParams(max_tokens=KV8_TOKENS)
+    first, tokens = {}, {}
+    for impl in ("cuda", "ref"):
+        be = m8.backend(impl, "paged", MAX_LEN, prefix_cache=True,
+                        reports="ref")
+        seen = FirstLogits(be)
+        clock = StepClock(be)
+        llm = LLM.from_backend(be, seed=SEED, prefill_chunk=KV8_STREAM_CHUNK)
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts[:1], sp) + llm.generate(prompts[1:], sp)
+        wall = time.perf_counter() - t0
+        st = llm.stats
+        if any(fn.launches for fn in kernels.values()) \
+                or st.prefix_hits < KV8_STREAM_REQUESTS - 1 \
+                or not st.prefill_chunks:
+            counts = {k: f.launches for k, f in kernels.items()}
+            raise AssertionError(f"kvint8 streamed {impl}: launches "
+                                 f"{counts}, {st}")
+        first[impl] = np.stack([seen.logits[seen.key(p)] for p in prompts])
+        tokens[impl] = [o.tokens for o in outs]
+        if impl == "cuda":
+            print(f"kvint8 paged streamed: {len(prompts)} requests of "
+                  f"{[len(p) for p in prompts]} tokens sharing "
+                  f"{KV8_STREAM_SHARED} x {KV8_TOKENS}, the prefix cache on, "
+                  f"chunks of {KV8_STREAM_CHUNK}: {st.prefix_hits} hits "
+                  f"({st.prefix_hit_tokens} prompt tokens reused), "
+                  f"{st.prefill_chunks} chunk passes, no kernel launched; "
+                  f"ms per chunk call median "
+                  f"{statistics.median(clock.chunk_ms):.3f}, "
+                  f"{clock.summary()}, over {wall:.2f} s [{card}]")
+        del llm, be, seen, clock
+        torch.cuda.empty_cache()
+    if tokens["cuda"] != tokens["ref"]:
+        raise AssertionError("kvint8 streamed: cuda and ref tokens differ")
+    compare_logits("kvint8 paged streamed first-token", {
+        k: v[:, None] for k, v in first.items()}, card)
+    return 0
+
+
+def serve_chunked(model, kernels, card):
+    """``impl="chunked"`` on llama2-7b's loaded weights: a contiguous serve
+    of the six prompts x ``KV8_TOKENS`` (prefill by the online softmax
+    over key blocks, decode by the dense sdpa: no kernel launches), its
+    teacher-forced logits within ``LOGITS_ATOL`` of ``impl="ref"``; and
+    ``forward(mode="train")`` over 1 x ``CHUNKED_LEN`` under both, held
+    the same, with each one's peak memory and time."""
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    outs, _, llm = kv8_serve(model, kernels, card, "chunked contiguous",
+                             "contiguous", None, KV8_TOKENS, impl="chunked")
+    del llm
+    torch.cuda.empty_cache()
+    tokens = [o.tokens for o in outs]
+    got = {impl: teacher_forced(model.backend(impl, "contiguous", MAX_LEN),
+                                model.prompts, tokens, SLOTS, KV8_TOKENS)
+           for impl in ("chunked", "ref")}
+    compare_logits("chunked contiguous", got, card, sides=("chunked", "ref"))
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                      (1, CHUNKED_LEN))).to(DEVICE)
+    logits, peak, secs = {}, {}, {}
+    with torch.no_grad():
+        for impl in ("chunked", "ref"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[impl] = T.forward(model.cfg, model.params, x,
+                                     mode="train", impl=impl)[0][0].float()
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t0
+            peak[impl] = torch.cuda.max_memory_allocated() - base
+    diff = (logits["chunked"] - logits["ref"]).abs().max().item()
+    if not bool(torch.isfinite(logits["chunked"]).all()) or diff > LOGITS_ATOL:
+        raise AssertionError(f"chunked forward: max abs diff {diff:.4g}")
+    print(f"chunked {model.cfg.name}: forward(mode='train') over 1 x "
+          f"{CHUNKED_LEN}: chunked vs ref max abs diff {diff:.4g} (atol "
+          f"{LOGITS_ATOL}); peak memory above the weights "
+          f"{peak['chunked'] / 1e9:.2f} GB chunked, {peak['ref'] / 1e9:.2f} "
+          f"GB ref; {secs['chunked'] * 1e3:.1f} ms chunked, "
+          f"{secs['ref'] * 1e3:.1f} ms ref [{card}]")
+    print(f"chunked: phase wall {time.perf_counter() - t_phase:.1f} s")
+    del logits
+    torch.cuda.empty_cache()
+
+
+def serve_musicgen(kernels, card):
+    """musicgen-large at full width and depth, random weights from SEED:
+    the six prompts (audio tokens below 2048) x ``MUSICGEN_TOKENS`` on both
+    layouts (:func:`serve_layouts`), a contiguous int8 serve (the ring
+    kernel over dequantized rings), the score over 2 x 4096 of its
+    frontend's float embeddings (the flash kernel once a layer), then, in
+    float32 weights, its planned stage pipeline, whose tokens must be bit
+    for bit its TensorBackend's.  Returns the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.adamw import tree_leaves
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(MUSICGEN)
+    cfg = model.cfg
+    n_params = sum(t.numel() for t in tree_leaves(model.params))
+    print(f"musicgen {MUSICGEN}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, H=KH={cfg.n_heads} D={cfg.resolved_head_dim}, "
+          f"{cfg.pattern[0].mlp} MLP, {cfg.norm}, {cfg.pos_emb} positions, "
+          f"vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B parameters "
+          f"(param_count() {get_config(MUSICGEN).param_count() / 1e9:.3f} B,"
+          f" which counts no layernorm bias), "
+          f"{n_params * 2 / 1e9:.2f} GB of bf16 weights from seed {SEED} in "
+          f"{model.init_s:.1f} s")
+    out = serve_layouts(model, kernels, card, f"musicgen {MUSICGEN}",
+                        MAX_LEN, SLOTS, MUSICGEN_TOKENS)
+    out = {k: v["launches"] for k, v in out.items()}
+    m8 = model.with_config(kv_dtype="int8")
+    outs, launches, llm = kv8_serve(m8, kernels, card,
+                                    f"musicgen {MUSICGEN} kvint8 contiguous",
+                                    "contiguous", "decode_attention",
+                                    MUSICGEN_TOKENS)
+    out["kvint8"] = launches["decode_attention"]
+    del llm
+    got = {}
+    for impl in ("cuda", "ref"):
+        got[impl] = teacher_forced(m8.backend(impl, "contiguous", MAX_LEN),
+                                   m8.prompts, [o.tokens for o in outs],
+                                   SLOTS, MUSICGEN_TOKENS)
+        torch.cuda.empty_cache()
+    compare_logits(f"musicgen {MUSICGEN} kvint8 contiguous", got, card)
+    out["score"] = score(model, kernels, card, frontend=True)[
+        "flash_attention"]
+    print(f"musicgen {MUSICGEN}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB in bf16")
+    del model, m8, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(MUSICGEN, dtype="float32")
+    out["pipeline"] = mixer_pipeline(model, kernels, card,
+                                     f"musicgen {MUSICGEN} float32",
+                                     ("contiguous",),
+                                     same_tokens=True)["contiguous"]
+    print(f"musicgen {MUSICGEN}: model wall "
+          f"{time.perf_counter() - t_model:.1f} s [{card}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2200,16 +2612,19 @@ def mixer_logits(model, card, label, layout, max_len, tokens, n_tokens,
         print(f"{label} {layout}: {route.summary()}")
 
 
-def mixer_pipeline(model, kernels, card, label, layouts, recurrent=False):
+def mixer_pipeline(model, kernels, card, label, layouts, recurrent=False,
+                   same_tokens=False):
     """``LLM.from_plan`` over the paper's testbed on each of ``layouts``:
     ``MIXER_PIPE_REQUESTS`` requests of 16-48 tokens x ``PIPE_TOKENS``; the
     decode kernel once per attention layer and fed token (none without
     attention); the logits that chose each token within ``LOGITS_ATOL`` of
     the contiguous TensorBackend's, fed the same tokens, or with
     ``recurrent`` of ``transformer.decode_step`` at one slot fed every
-    token from a fresh state, the pipeline's own teacher forcing.  Returns
-    each layout's launches."""
-    from repro_torch.serving import SamplingParams
+    token from a fresh state, the pipeline's own teacher forcing; with
+    ``same_tokens``, its greedy tokens bit for bit the contiguous
+    TensorBackend's serve of the same requests.  Returns each layout's
+    launches."""
+    from repro_torch.serving import LLM, SamplingParams
     cfg = model.cfg
     n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
     prompts = pipeline_prompts(cfg, MIXER_PIPE_REQUESTS)
@@ -2270,6 +2685,17 @@ def mixer_pipeline(model, kernels, card, label, layouts, recurrent=False):
         compare_logits(f"{label} pipeline {layout}",
                        {"pipeline": got, other: ref}, card,
                        sides=("pipeline", other))
+        if same_tokens:
+            want = [o.tokens for o in run_requests(LLM.from_backend(
+                model.backend("cuda", "contiguous", PIPE_MAX_LEN,
+                              n_slots=len(prompts)), seed=SEED), prompts, sp)]
+            if want != tokens:
+                raise AssertionError(f"{label} pipeline {layout}: tokens "
+                                     f"{tokens} != the TensorBackend's "
+                                     f"{want}")
+            print(f"{label} pipeline {layout}: greedy tokens bit for bit the "
+                  f"contiguous TensorBackend's: "
+                  f"{sum(map(len, tokens))}/{sum(map(len, want))}")
         print(f"{label} pipeline {layout}: phase wall "
               f"{time.perf_counter() - t0:.1f} s")
         out[layout] = launches[kernel]
@@ -2490,7 +2916,8 @@ def mlstm_blocks_parallel_vs_recurrent(cfg, params, prompt):
 
 
 def serve_xlstm(kernels, card):
-    """xlstm-1.3b at full width and depth: 42 mLSTM and 6 sLSTM blocks, no
+    """xlstm-1.3b at full width and ``XLSTM_LAYERS`` of its 48 layers
+    (three whole 8-block periods: 21 mLSTM and 3 sLSTM blocks), no
     attention layer, so no kernel runs.  The contiguous serve and the paged
     one (an empty pool: the contiguous machinery), tokens bit for bit
     equal; the prefill wave's time split into mLSTM and sLSTM blocks; the
@@ -2503,7 +2930,7 @@ def serve_xlstm(kernels, card):
     from repro_torch.training.adamw import tree_leaves
     t_model = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = Model(XLSTM_ARCH, XLSTM_PROMPT_LENS)
+    model = Model(XLSTM_ARCH, XLSTM_PROMPT_LENS, XLSTM_LAYERS)
     cfg = model.cfg
     kinds = [s.kind for s in cfg.layer_specs()]
     n_params = sum(t.numel() for t in tree_leaves(model.params))
@@ -2788,18 +3215,25 @@ def serve_launcher(card):
 
 
 def score(model, kernels, card, batch=SCORE_BATCH, length=SCORE_LEN,
-          held=True):
-    """The train-mode forward of ``batch`` x ``length`` seeded tokens under
+          held=True, frontend=False):
+    """The train-mode forward of ``batch`` x ``length`` seeded tokens (with
+    ``frontend``, the stub frontend's float embeddings from SEED) under
     ``torch.no_grad``: ``impl="cuda"`` launches the flash kernel once per
     attention layer and the scan once per RG-LRU layer, and no decode
     kernel; its logits agree with ``impl="ref"``'s (with ``held`` False the
     difference is measured only).  ``kernels`` maps each
     kernel's name to its wrapper; returns the launches of the cuda run."""
     from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import fake_frontend_embeddings
     cfg = model.cfg
-    rng = np.random.default_rng(SEED)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, length))).to(DEVICE)
+    if frontend:
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED)
+        tokens = fake_frontend_embeddings(cfg, gen, batch, length, DEVICE)
+    else:
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, length))).to(DEVICE)
     n_scan = sum(spec.kind == "rglru" for spec in cfg.layer_specs())
     want = dict(flash_attention=cfg.n_layers - n_scan, rglru_scan=n_scan,
                 decode_attention=0, paged_attention=0, int8_matmul=0)
@@ -2832,8 +3266,9 @@ def score(model, kernels, card, batch=SCORE_BATCH, length=SCORE_LEN,
         raise AssertionError(f"score {cfg.name}: logits cuda vs ref max abs "
                              f"diff {diff:.4g} > {LOGITS_ATOL}")
     bound = f"atol {LOGITS_ATOL}" if held else "measured, not held"
+    what = f"{cfg.frontend} frontend embeddings" if frontend else "tokens"
     print(f"score {cfg.name} {cfg.dtype}: forward(mode='train') over "
-          f"{batch} x {length} tokens, logits {list(logits['cuda'].shape)}: "
+          f"{batch} x {length} {what}, logits {list(logits['cuda'].shape)}: "
           f"impl cuda vs ref max abs diff {diff:.4g} ({bound}), argmax "
           f"agreement {agree}/{batch * length}; launches "
           f"{launches}; {secs['cuda'] * 1e3:.1f} ms cuda, "
@@ -3567,6 +4002,25 @@ def main():
         "paged_attention kimi-k2": time_paged(
             pa, card, 1, heads=(64, 8, 128),
             n_sets=sets_past_l2(SLOTS * MAX_LEN * 8 * 128 * 4)),
+        # musicgen-large's serves (bf16 rings, or int8 rings dequantized)
+        # and score: MHA at 32 heads of 64, 4 slots x 512 keys (16.8 MB of
+        # K/V a set), 1 x 4096 causal
+        "paged_attention musicgen-large": time_paged(
+            pa, card, 1, heads=(32, 32, 64),
+            n_sets=sets_past_l2(SLOTS * MAX_LEN * 32 * 64 * 4)),
+        "decode_attention musicgen-large": time_decode(
+            da, card, MAX_LEN, heads=(32, 32, 64), c=MAX_LEN,
+            n_sets=sets_past_l2(SLOTS * MAX_LEN * 32 * 64 * 4)),
+        "flash_attention musicgen-large": time_flash(
+            fa, card, heads=(32, 32, 64)),
+        # the int8 contiguous serve of llama2-7b: its 512-key rings
+        # dequantized to bf16
+        "decode_attention kvint8": time_decode(
+            da, card, MAX_LEN, c=MAX_LEN,
+            n_sets=sets_past_l2(SLOTS * MAX_LEN * 32 * 128 * 4)),
+        # pixtral-12b's score over 1 x 1024 vision-stub embeddings
+        "flash_attention pixtral-12b": time_flash(
+            fa, card, heads=(32, 8, 128), s=PIXTRAL_FRONTEND_LEN, n_sets=4),
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
@@ -3643,6 +4097,20 @@ def main():
                                        f"{SCORE_LEN}, causal, bf16",
         "paged_attention kimi-k2": f"{KIMI_ARCH} (H=64, KH=8, D=128) x "
                                    f"{SLOTS} slots x {MAX_LEN} keys bf16",
+        "paged_attention musicgen-large": f"{MUSICGEN} (H=KH=32, D=64) x "
+                                          f"{SLOTS} slots x {MAX_LEN} keys "
+                                          f"bf16",
+        "decode_attention musicgen-large": f"{MUSICGEN} (H=KH=32, D=64) x "
+                                           f"{SLOTS} slots x {MAX_LEN}-key "
+                                           f"ring, full, bf16",
+        "flash_attention musicgen-large": f"{MUSICGEN} (H=KH=32, D=64) 1 x "
+                                          f"{SCORE_LEN}, causal, bf16",
+        "decode_attention kvint8": f"llama2-7b x {SLOTS} slots x {MAX_LEN}"
+                                   f"-key ring, full, bf16 (an int8 ring "
+                                   f"dequantized)",
+        "flash_attention pixtral-12b": f"pixtral-12b (H=32, KH=8, D=128) 1 x "
+                                       f"{PIXTRAL_FRONTEND_LEN}, causal, "
+                                       f"bf16",
     }
     for m in INT8_M:
         for k, n in INT8_PROJ:
@@ -3668,6 +4136,9 @@ def main():
     streamed = serve_streamed(model, wrappers, card)
     scored = score(model, wrappers, card)
     done("the int8 op path and llama2-7b's serves and score")
+    kvint8 = serve_kvint8(model, wrappers, card)
+    serve_chunked(model, wrappers, card)
+    done("the int8 KV cache and the chunked impl")
     pipe = serve_pipeline(model, wrappers, card)
     done("the pipeline phase")
     pipe_spec = serve_pipeline_spec(model, wrappers, card, pipe)
@@ -3683,6 +4154,8 @@ def main():
     done("the fleet and the launcher")
     dense = serve_dense(wrappers, card)
     done("the dense configs")
+    musicgen = serve_musicgen(wrappers, card)
+    done(MUSICGEN)
     granite = serve_granite(wrappers, card)
     kimi = serve_kimi(wrappers, card)
     serve_xlstm(wrappers, card)
@@ -3797,6 +4270,30 @@ def main():
         entry("paged_attention kimi-k2", f"paged_attention@{KIMI_ARCH}",
               "paged_attention.cu", "decode_attention.py:201",
               kimi["paged"]),
+        # llama2-7b's int8 contiguous serve: the ring kernel over its
+        # dequantized rings (its paged int8 serves read by gather, as the
+        # reference's do: no launch)
+        entry("decode_attention kvint8", "decode_attention@kvint8",
+              "decode_attention.cu", "decode_attention.py:153",
+              kvint8["contiguous"]),
+        # musicgen-large on both layouts, its int8 contiguous serve, its
+        # score over its frontend's float embeddings (its float32 pipeline
+        # is counted in its phase); pixtral-12b's score over float inputs
+        entry("paged_attention musicgen-large", f"paged_attention@{MUSICGEN}",
+              "paged_attention.cu", "decode_attention.py:201",
+              musicgen["paged"]),
+        entry("decode_attention musicgen-large",
+              f"decode_attention@{MUSICGEN}", "decode_attention.cu",
+              "decode_attention.py:153", musicgen["contiguous"]),
+        entry("decode_attention musicgen-large",
+              f"decode_attention@{MUSICGEN} kvint8", "decode_attention.cu",
+              "decode_attention.py:153", musicgen["kvint8"]),
+        entry("flash_attention musicgen-large",
+              f"flash_attention@{MUSICGEN} frontend", "flash_attention.cu",
+              "flash_attention.py:86", musicgen["score"]),
+        entry("flash_attention pixtral-12b", "flash_attention@pixtral-12b "
+              "frontend", "flash_attention.cu", "flash_attention.py:86",
+              dense["pixtral-12b"]["frontend"]),
         # the op's entry point: one llama2-7b layer's projections in bf16
         entry("int8_matmul M=4 4096x4096 bfloat16", "int8_matmul",
               "int8_matmul.cu", "int8_matmul.py:41", int8_launches["decode"]),

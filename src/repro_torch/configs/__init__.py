@@ -1,20 +1,18 @@
 """Config registry of the port: ``get_config("<arch-id>")`` and the
 input-shape table.
 
-The registry is the reference's but for musicgen-large, whose audio
-frontend and sinusoidal positions arrive in a later slice: the dense
-attention decoders (the paper's Llama2 family, Qwen3-0.6B -- the repo's
-smoke arch --, Gemma2-2B, StarCoder2-7B, Qwen1.5-32B and Pixtral-12B's
-decoder on token inputs), the hybrid RecurrentGemma-2B (RG-LRU + local
-attention), the mixture-of-experts decoders Granite-MoE-1B-A400M and
-Kimi-K2-1T-A32B, and the attention-free xLSTM-1.3B (mLSTM + sLSTM).
-Pixtral's float (vision-stub) inputs wait for the frontends too.
+The registry is the reference's: the dense attention decoders (the
+paper's Llama2 family, Qwen3-0.6B -- the repo's smoke arch --, Gemma2-2B,
+StarCoder2-7B, Qwen1.5-32B and Pixtral-12B's decoder, on tokens or its
+vision stub's embeddings), MusicGen-Large (sinusoidal positions, audio
+tokens or its EnCodec stub's embeddings), the hybrid RecurrentGemma-2B
+(RG-LRU + local attention), the mixture-of-experts decoders
+Granite-MoE-1B-A400M and Kimi-K2-1T-A32B, and the attention-free
+xLSTM-1.3B (mLSTM + sLSTM).
 
 Variants: ``get_config("qwen3-0.6b", variant="swa")`` applies a documented
 override (sliding-window attention for long-context decode; the int8 KV
-cache), keeping the base configs exactly as assigned.  A ``kvint8`` config
-builds as in the reference; the port's caches raise for it until the int8
-KV cache arrives.
+cache), keeping the base configs exactly as assigned.
 """
 from __future__ import annotations
 
@@ -27,6 +25,7 @@ from .gemma2_2b import CONFIG as GEMMA2_2B
 from .granite_moe_1b_a400m import CONFIG as GRANITE_MOE
 from .kimi_k2_1t_a32b import CONFIG as KIMI_K2
 from .llama2 import LLAMA2_7B, LLAMA2_13B, LLAMA2_70B
+from .musicgen_large import CONFIG as MUSICGEN_LARGE
 from .pixtral_12b import CONFIG as PIXTRAL_12B
 from .qwen1_5_32b import CONFIG as QWEN15_32B
 from .qwen3_0_6b import CONFIG as QWEN3_06B
@@ -39,7 +38,7 @@ ASSIGNED: Dict[str, ModelConfig] = {
     c.name: c
     for c in (
         QWEN3_06B, QWEN15_32B, PIXTRAL_12B, RECURRENTGEMMA_2B, XLSTM_13B,
-        STARCODER2_7B, KIMI_K2, GRANITE_MOE, GEMMA2_2B,
+        STARCODER2_7B, KIMI_K2, GRANITE_MOE, MUSICGEN_LARGE, GEMMA2_2B,
     )
 }
 

@@ -42,7 +42,7 @@ from repro_torch.core.partition import Plan
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import DEFAULT_BLOCK_SIZE
-from repro_torch.models.layers import apply_norm, embed_tokens, lm_logits
+from repro_torch.models.layers import apply_norm, lm_logits
 
 
 @dataclass(frozen=True)
@@ -151,8 +151,8 @@ def _run_stage(cfg: ModelConfig, params: Dict, layers: range,
 def pipeline_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                      spec: PipelineSpec, n_microbatches: int,
                      impl: str = "ref") -> torch.Tensor:
-    """GPipe-style microbatched train-mode forward. tokens [B, S] -> logits
-    [B, S, V].  At step t stage s runs micro-batch ``t - s``; the last
+    """GPipe-style microbatched train-mode forward. tokens [B, S] (or a
+    frontend's float embeddings [B, S, d]) -> logits [B, S, V].  At step t stage s runs micro-batch ``t - s``; the last
     stage's outputs, in micro-batch order, go through the final norm and
     the LM head.  ``impl="cuda"`` runs the flash-attention kernel in every
     stage's layers (no backward: call it under ``torch.no_grad``)."""
@@ -171,8 +171,8 @@ def pipeline_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         for st in range(ns):
             if not 0 <= t - st < m:
                 continue                    # warm-up or drain: stage idles
-            x = embed_tokens(params, cfg, tokens_mb[t]) if st == 0 \
-                else buf[st]
+            x = T._embed_inputs(cfg, params, tokens_mb[t], positions) \
+                if st == 0 else buf[st]
             out[st] = _run_stage(cfg, params, layers[st], x, positions,
                                  "train", None, impl)
         if t >= ns - 1:
@@ -246,9 +246,11 @@ def _mb_view(cache: Dict[str, torch.Tensor],
              mb: int) -> Dict[str, torch.Tensor]:
     """Micro-batch ``mb``'s view of one layer's cache: row slices (views,
     so the in-place decode writes persist).  Paged: the layer-wide pools
-    plus the micro-batch's table row and ``key_pos``/``pos`` rows."""
+    plus the micro-batch's table row and ``key_pos``/``pos`` rows (and an
+    int8 cache's scale pools)."""
     if "k_pool" in cache:
-        view = {k: cache[k] for k in ("k_pool", "v_pool")}
+        view = {k: cache[k] for k in ("k_pool", "v_pool", "k_scale_pool",
+                                      "v_scale_pool") if k in cache}
         view.update({k: cache[k][mb:mb + 1] for k in ("bt", "key_pos", "pos")})
         return view
     return {k: t[mb:mb + 1] for k, t in cache.items()}
@@ -329,8 +331,15 @@ def pipeline_decode_tick(cfg: ModelConfig, params: Dict,
     for s in range(ns):
         if not valid[s]:
             continue
-        x = embed_tokens(params, cfg, feed_tokens[:, None]) if s == 0 \
-            else state.buf[s]
+        if s == 0:
+            # the fed token's position, for sinusoidal positions: every
+            # layer's pos row agrees at a feed (a slot's turns are M >=
+            # n_stages ticks apart, so its last token has left the ring)
+            mb = mbs[0]
+            x = T._embed_inputs(cfg, params, feed_tokens[:, None],
+                                T._first_pos(state.caches)[mb:mb + 1, None])
+        else:
+            x = state.buf[s]
         views = {l: _mb_view(state.caches[l], mbs[s])
                  for l in layers[s]}
         out[s] = _run_stage(cfg, params, layers[s], x, None, "decode",

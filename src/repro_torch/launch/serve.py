@@ -36,6 +36,9 @@ are random, made from ``--seed``.  Two modes:
         --impl cuda --batch 8 --slots 4 --prompt-len 64 --varlen --gen 32 \
         --max-len 128 --policy edf --ttft-slo 64 \
         --inject-faults transient@decode_step:5x2 --max-retries 3
+    python -m repro_torch.launch.serve --arch musicgen-large --impl cuda \
+        --batch 6 --slots 4 --prompt-len 256 --varlen --gen 16 \
+        --max-len 512 [--kvint8] [--cache-layout paged]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --impl ref --batch 4 --gen 8 [--stream]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
@@ -53,8 +56,12 @@ both modes: on the contiguous layout spec serves plain decode and the
 prefix cache is ignored, each with a note.  ``--inject-faults`` stops the
 launcher in pipeline mode: fault injection wraps the single tp-mode
 backend.
-The reference's ``--kvint8`` (the int8 KV cache) and ``--devices`` (its
-fake-XLA-device count) have no flag here yet.
+``--kvint8`` stores K/V in int8 with per-(token, head) scales: on the
+contiguous layout ``--impl cuda`` reads the dequantized rings with the
+ring kernel; on the paged one it reads by gather (``attn_impl=ref``, with
+a warning once), as the reference does.  ``--impl chunked`` runs prefill
+and extend as the online softmax over key blocks.  The reference's
+``--devices`` (its fake-XLA-device count) has no flag here yet.
 
 Returns ``(llm, outputs)`` when called as ``main(argv)``.
 """
@@ -88,6 +95,9 @@ def main(argv=None):
                          "so this is purely a compile-shape knob)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--kvint8", action="store_true",
+                    help="int8 KV cache with per-(token, head) absmax "
+                         "scales")
     ap.add_argument("--cache-layout", default="contiguous",
                     choices=["contiguous", "paged"],
                     help="KV layout: one max_len ring per slot, or block "
@@ -124,11 +134,13 @@ def main(argv=None):
     ap.add_argument("--expect-prefix-hits", action="store_true",
                     help="exit nonzero unless the run recorded at least one "
                          "prefix-cache hit (CI smoke guard)")
-    ap.add_argument("--impl", default="cuda", choices=["ref", "cuda"],
-                    help="decode read path: masked sdpa (over the ring, or "
-                         "the gathered blocks), or the hand-written decode "
-                         "and paged attention kernels (their plain versions "
-                         "on --device cpu)")
+    ap.add_argument("--impl", default="cuda",
+                    choices=["ref", "chunked", "cuda"],
+                    help="attention: masked sdpa (over the ring, or the "
+                         "gathered blocks), the online softmax over key "
+                         "blocks for prefill (decode as ref), or the "
+                         "hand-written decode and paged attention kernels "
+                         "(their plain versions on --device cpu)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--stream", action="store_true",
@@ -178,6 +190,8 @@ def main(argv=None):
                  "--e2e-slo (steps from arrival); --priority alone only "
                  "affects --policy priority")
 
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -193,6 +207,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if args.kvint8:
+        cfg = dataclasses.replace(cfg, kv_dtype="int8")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, dev)

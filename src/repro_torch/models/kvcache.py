@@ -7,6 +7,10 @@ paged block pool.  Port of the attention part of ``repro.models.kvcache``.
   length-bucketed (masked, left-padded) prefills can hold a different true
   length per sequence.
 - paged: see :func:`init_paged_block_cache`.
+- int8 (``cfg.kv_dtype == "int8"``): the ring's k/v and the pool's
+  ``k_pool``/``v_pool`` are int8, with float32 absmax scales per (token,
+  head) beside them: ``k_scale``/``v_scale [B, C, n_kv]`` on the ring,
+  ``k_scale_pool``/``v_scale_pool [NB+1, bs, n_kv]`` on the pool.
 
 - rglru: the RG-LRU block's dense state, ``h [B, R]`` float32 whatever
   the cache dtype, ``conv [B, W-1, R]`` (the causal conv's last inputs) in
@@ -93,11 +97,34 @@ def block_pool_bytes_per_block(cfg: ModelConfig,
     return per_tok * n_attn
 
 
+#: ``ModelConfig.kv_dtype`` values: K/V in the cache dtype, or int8 with
+#: per-(token, head) scales
+KV_DTYPES = ("bfloat16", "int8")
+
+
 def _check_kv_dtype(cfg: ModelConfig) -> None:
-    if cfg.kv_dtype != "bfloat16":
-        raise ValueError(
-            f"kv_dtype={cfg.kv_dtype!r} (the int8 KV cache) arrives in a "
-            f"later slice; this slice stores K/V in the cache dtype")
+    if cfg.kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype={cfg.kv_dtype!r}: expected one of "
+                         f"{KV_DTYPES}")
+
+
+def _kv_tensors(cfg: ModelConfig, lead, dtype: torch.dtype, device,
+                pool: bool) -> Dict[str, torch.Tensor]:
+    """Zeroed k/v of shape ``lead + (n_kv, head_dim)`` in ``dtype``, or
+    int8 with float32 scales ``lead + (n_kv,)`` for an int8 cache; named
+    for the ring, or for the pool with ``pool``."""
+    _check_kv_dtype(cfg)
+    nkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    quant = cfg.kv_dtype == "int8"
+    sfx = "_pool" if pool else ""
+    out = {f"{n}{sfx}": torch.zeros((*lead, nkv, hd), device=device,
+                                    dtype=torch.int8 if quant else dtype)
+           for n in ("k", "v")}
+    if quant:
+        out.update({f"{n}_scale{sfx}": torch.zeros(
+            (*lead, nkv), dtype=torch.float32, device=device)
+            for n in ("k", "v")})
+    return out
 
 
 def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
@@ -115,23 +142,23 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
     - ``bt`` ``[B, max_ctx_blocks]`` int32 physical block ids (-1 = unmapped),
     - ``key_pos`` ``[B, paged_cache_len]`` absolute position per ring slot
       (-1 = empty), per-slot like the contiguous layout,
-    - ``pos`` ``[B]`` per-slot decode position.
+    - ``pos`` ``[B]`` per-slot decode position,
+    - an int8 cache: int8 pools and ``k_scale_pool``/``v_scale_pool``
+      ``[num_blocks+1, block_size, n_kv]`` float32.
     """
     if spec.kind != "attn":
         raise ValueError(f"a paged {spec.kind!r} cache: only attention "
                          f"layers page; a {spec.kind!r} layer keeps its "
                          f"dense state (init_block_cache)")
-    _check_kv_dtype(cfg)
     c = paged_cache_len(spec, max_len, block_size)
     nbs = max_ctx_blocks(cfg, max_len, block_size)
-    shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
     i32 = dict(dtype=torch.int32, device=device)
     return {
         "bt": torch.full((batch, max(nbs, 1)), -1, **i32),
         "key_pos": torch.full((batch, c), -1, **i32),
         "pos": torch.zeros((batch,), **i32),
-        "k_pool": torch.zeros(shape, dtype=dtype, device=device),
-        "v_pool": torch.zeros(shape, dtype=dtype, device=device),
+        **_kv_tensors(cfg, (num_blocks + 1, block_size), dtype, device,
+                      pool=True),
     }
 
 
@@ -163,12 +190,9 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                    for k in ("c", "n", "h", "m")}, "pos": pos}
     if spec.kind != "attn":
         raise ValueError(f"unknown block kind {spec.kind!r}")
-    _check_kv_dtype(cfg)
     c = attn_cache_len(spec, max_len)
-    shape = (batch, c, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        **_kv_tensors(cfg, (batch, c), dtype, device, pool=False),
         "key_pos": torch.full((batch, c), -1, dtype=torch.int32,
                               device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),

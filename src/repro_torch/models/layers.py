@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, MLPs, embeddings.
+"""Shared building blocks: norms, RoPE, sinusoidal positions, MLPs,
+embeddings.
 
 Port of ``repro.models.layers``.  Weights keep the reference's layout
 (``x @ w`` with ``w [in, out]``) so bridged parameters need no transpose,
@@ -73,6 +74,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_embedding(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal position embeddings [..., dim] (sines, then cosines) of
+    ``positions`` [...], in float32; callers cast to the activation
+    dtype."""
+    half = dim // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * idx / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # --------------------------------------------------------------------------- #
 # MLPs
 # --------------------------------------------------------------------------- #
@@ -97,14 +109,8 @@ def apply_mlp(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def embed_tokens(params: Dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """Integer tokens -> embeddings.  A frontend's float inputs (the
-    reference's stub vision/audio embeddings) arrive with
-    ``models/frontends.py`` in a later slice, and raise here."""
-    if tokens.is_floating_point():
-        raise ValueError(
-            f"{cfg.name}: float inputs {tuple(tokens.shape)} (frontend "
-            f"embeddings) arrive with models/frontends.py in a later slice; "
-            f"this slice serves integer tokens")
+    """Integer tokens -> embeddings (a frontend's float inputs take
+    ``transformer._embed_inputs``)."""
     x = params["embedding"][tokens]
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)

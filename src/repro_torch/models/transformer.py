@@ -15,6 +15,10 @@ Port of the entry points of ``repro.models.transformer``:
   paged caches that already hold the keys before it (streamed admission),
 - :func:`verify_step` -- K tokens in, K logits rows out, over paged caches.
 
+Every entry point takes integer tokens or a stub frontend's float
+embeddings (``models/frontends.py``) and adds sinusoidal position
+embeddings where the config asks for them (:func:`_embed_inputs`).
+
 Parameters are the reference's tree with the layer stack unrolled (see
 :mod:`repro_torch.bridge`)::
 
@@ -43,7 +47,7 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.kvcache import (DEFAULT_BLOCK_SIZE, init_block_cache,
                                         init_paged_block_cache)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       lm_logits)
+                                       lm_logits, sinusoidal_embedding)
 
 #: the modes of :func:`forward`
 FORWARD_MODES = ("train", "prefill")
@@ -162,11 +166,38 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
     return x, aux
 
 
+def _embed_inputs(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """The first block's input: integer tokens [B, S] through the
+    embedding, or a frontend's float embeddings [B, S, d] cast to the
+    model dtype (the embedding's), plus the sinusoidal position embeddings
+    for ``pos_emb="sinusoidal"`` at ``positions`` [S] (shared by the batch)
+    or [B, S] (per row)."""
+    if inputs.is_floating_point():
+        x = inputs.to(params["embedding"].dtype)
+    else:
+        x = embed_tokens(params, cfg, inputs)
+    if cfg.pos_emb == "sinusoidal":
+        emb = sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+        x = x + (emb if emb.dim() == x.dim() else emb[None])
+    return x
+
+
+def _first_pos(caches: Caches) -> torch.Tensor:
+    """The slots' decode positions [B]: an attention layer's ``pos`` (a
+    ring's or a pool's), else the first layer's."""
+    for cache in caches:
+        if "key_pos" in cache:
+            return cache["pos"]
+    return caches[0]["pos"]
+
+
 def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
             caches: Optional[Caches] = None, *, mode: str = "prefill",
             prompt_lens: Optional[torch.Tensor] = None,
             impl: str = "ref") -> Tuple[torch.Tensor, Optional[Caches]]:
-    """inputs [B, S] int tokens -> (logits [B, S, vocab], caches or None).
+    """inputs [B, S] int tokens, or [B, S, d] float embeddings (a
+    frontend's) -> (logits [B, S, vocab], caches or None).
 
     ``mode="train"``: the full sequence at positions ``0 .. S-1``, no caches
     (``caches`` and ``prompt_lens`` must be None); returns (logits, None).
@@ -199,7 +230,7 @@ def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
         plen = prompt_lens.to(device=inputs.device, dtype=torch.int32)
         positions = cols[None] - (s - plen)[:, None]                 # [B, S]
         seq_valid = positions >= 0
-    x = embed_tokens(params, cfg, inputs)
+    x = _embed_inputs(cfg, params, inputs, positions)
     if seq_valid is not None:
         x = torch.where(seq_valid[..., None], x, 0)
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
@@ -217,7 +248,7 @@ def forward_hidden(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
     layers (float32 zeros for a model without MoE blocks)."""
     s = inputs.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=inputs.device)
-    x = embed_tokens(params, cfg, inputs)
+    x = _embed_inputs(cfg, params, inputs, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=inputs.device)
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
         x, aux = _apply_block(cfg, spec, p, x, positions, "train", None, impl)
@@ -291,7 +322,8 @@ def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
                 caches: Caches, impl: str = "ref",
                 write_mask: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Caches]:
-    """One decode step over ring or paged caches. inputs: [B] int tokens.
+    """One decode step over ring or paged caches. inputs: [B] int tokens
+    or [B, d] float embeddings.
 
     Returns (logits [B, vocab], caches).  Every slot decodes at its own
     ``pos``.  On paged caches ``write_mask [B]`` freezes masked slots' pool
@@ -303,7 +335,8 @@ def decode_step(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
     """
     if write_mask is not None and not any("k_pool" in c for c in caches):
         raise ValueError("write_mask applies to paged caches only")
-    x = embed_tokens(params, cfg, inputs[:, None])
+    x = _embed_inputs(cfg, params, inputs[:, None],
+                      _first_pos(caches)[:, None])
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
         x, _ = _apply_block(cfg, spec, p, x, None, "decode", cache, impl,
                             write_mask=write_mask)
@@ -333,7 +366,7 @@ def extend_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     cols = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
     positions = starts[:, None] + cols - (s - lens)[:, None]      # [B, S]
     seq_valid = cols >= (s - lens)[:, None]
-    x = embed_tokens(params, cfg, tokens)
+    x = _embed_inputs(cfg, params, tokens, positions)
     x = torch.where(seq_valid[..., None], x, 0)
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
         x, _ = _apply_block(cfg, spec, p, x, positions, "extend", cache,
@@ -360,7 +393,8 @@ def verify_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     lens = lens.to(torch.int32)
     cols = torch.arange(kq, dtype=torch.int32, device=tokens.device)[None]
     seq_valid = cols < lens[:, None]                               # [B, K]
-    x = embed_tokens(params, cfg, tokens)
+    x = _embed_inputs(cfg, params, tokens,
+                      _first_pos(caches)[:, None] + cols)
     x = torch.where(seq_valid[..., None], x, 0)
     for spec, p, cache in zip(cfg.layer_specs(), params["layers"], caches):
         x, _ = _apply_block(cfg, spec, p, x, None, "verify", cache, impl,

@@ -63,7 +63,9 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
     blocks of ``block_size`` tokens; default = no overcommit) instead of
     worst-case per-slot caches -- all three kinds honour it (``sim`` keeps
     accounting only).  ``impl="cuda"`` reads the caches with the
-    hand-written decode attention kernels on both real kinds; ``device``
+    hand-written decode attention kernels on both real kinds (a paged int8
+    cache by gather, as in the reference), ``impl="chunked"`` prefills
+    with the online softmax over key blocks; ``device``
     is where they run (the GPU unless ``"cpu"`` is asked for).
     """
     assert deployment.ok, f"deployment {deployment.method} is OOM-infeasible"

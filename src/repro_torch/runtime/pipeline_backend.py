@@ -30,7 +30,9 @@ and the scheduler preempts.
 ``impl="cuda"`` reads the caches with the hand-written decode attention
 kernels: the contiguous ring through ``decode_attention``, the pool through
 the micro-batch's block-table row with ``paged_attention`` (one slot a
-call).
+call).  An int8 KV cache (``kv_dtype="int8"``) rides both layouts, its
+scale pools in every micro-batch's view; its pool is read by gather, as
+the reference does (``attn_impl`` reports ``"ref"``).
 
 Speculative decoding (``verify_step``/``accept``) teacher-forces each
 slot's draft tokens through the same tick protocol, one token a turn, and
@@ -147,7 +149,9 @@ class PipelineBackend(InferenceBackend):
             cache_bytes_per_slot=cache_bytes // m,
             param_bytes=_nbytes(_leaves(params)),
             samples_in_backend=False,
-            attn_impl=effective_decode_impl(impl, self.device),
+            attn_impl=effective_decode_impl(
+                impl, cfg, self.device,
+                "paged" if self._paged_exec else "contiguous"),
             spec_decode=self._spec_ok,
             cache_layout=cache_layout,
             block_size=block_size if paged else 0,

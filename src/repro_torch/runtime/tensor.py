@@ -160,7 +160,9 @@ class TensorBackend(InferenceBackend):
             max_ctx_blocks=nbs if paged else 0,
             prefix_caching=self._prefix_on,
             supports_extend=self._extend_ok,
-            attn_impl=effective_decode_impl(impl, self.device),
+            attn_impl=effective_decode_impl(
+                impl, cfg, self.device,
+                "paged" if self._paged_exec else "contiguous"),
             spec_decode=self._spec_ok)
 
     @property
@@ -179,7 +181,8 @@ class TensorBackend(InferenceBackend):
         after a masked prefill each row holds its own true length, with pad
         slots at ``key_pos == -1`` -- those scatter to the scratch block and
         stay invisible.  Duplicate rows (the wave padded by repeating its
-        first entry) write identical values to identical indices."""
+        first entry) write identical values to identical indices.  An int8
+        wave carries its scales into the scale pools."""
         c_pad = paged["key_pos"].shape[-1]
         bs = paged["k_pool"].shape[1]
         scratch = paged["k_pool"].shape[0] - 1
@@ -189,7 +192,10 @@ class TensorBackend(InferenceBackend):
         blk, off = ring // bs, ring % bs                # [W, C_d]
         phys = bt_rows.gather(1, blk.long())            # [W, C_d]
         tgt = torch.where(valid & (phys >= 0), phys, scratch)
-        for pool_key, dense_key in (("k_pool", "k"), ("v_pool", "v")):
+        pairs = [("k_pool", "k"), ("v_pool", "v")]
+        if self.cfg.kv_dtype == "int8":
+            pairs += [("k_scale_pool", "k_scale"), ("v_scale_pool", "v_scale")]
+        for pool_key, dense_key in pairs:
             pool = paged[pool_key]                      # [NB+1, bs, ...]
             pool[tgt, off] = dense[dense_key].to(pool.dtype)
 

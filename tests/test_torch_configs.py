@@ -1,10 +1,9 @@
 """The port's config registry and its dense configs against the JAX package.
 
-- each config of ``repro_torch.configs`` (every one of the reference's but
-  musicgen-large, whose audio frontend is not ported) and
-  ``shapes.SHAPES`` equal the reference's field for field, pattern
+- each config of ``repro_torch.configs`` (every one of the reference's)
+  and ``shapes.SHAPES`` equal the reference's field for field, pattern
   included; ``apply_variant`` builds the reference's variants and refuses
-  unknown ones;
+  unknown ones, and the ``kvint8`` variants' caches are the reference's;
 - each new config, reduced by hand so that it keeps its attention group and
   head width (``ModelConfig.reduced`` caps heads at 4 and makes the K/V
   heads equal to them, which would hide every group): prefill logits at
@@ -60,11 +59,11 @@ def test_registry_and_shapes_equal_reference():
         {k: dataclasses.asdict(v) for k, v in JC.SHAPES.items()}
     assert TC.get_shape("decode_32k") == TC.SHAPES["decode_32k"]
     assert TC.SWA_WINDOW == JC.SWA_WINDOW
-    assert set(TC.ASSIGNED) == set(JC.ASSIGNED) - {"musicgen-large"}
+    assert set(TC.ASSIGNED) == set(JC.ASSIGNED)
     assert set(TC.PAPER_MODELS) == set(JC.PAPER_MODELS)
-    assert set(TC.CONFIGS) == set(JC.CONFIGS) - {"musicgen-large"}
+    assert set(TC.CONFIGS) == set(JC.CONFIGS)
     with pytest.raises(KeyError, match="unknown arch"):
-        TC.get_config("musicgen-large")
+        TC.get_config("musicgen-xl")
     with pytest.raises(KeyError, match="unknown shape"):
         TC.get_shape("train_8k")
 
@@ -88,12 +87,28 @@ def test_unknown_variant_raises():
 
 
 def test_kvint8_cache_raises_for_a_later_slice():
+    """The int8 KV cache arrived: a ``kvint8`` config's ring and paged
+    caches are the reference's, leaf for leaf (int8 k/v, float32 scales),
+    and a ``kv_dtype`` neither package serves still raises."""
+    from repro.models import kvcache as JKV
     cfg = TC.get_config("qwen3-0.6b", variant="kvint8").reduced()
-    spec = cfg.layer_specs()[0]
-    with pytest.raises(ValueError, match="later slice"):
-        TKV.init_block_cache(cfg, spec, 1, 16, torch.float32)
-    with pytest.raises(ValueError, match="later slice"):
-        TKV.init_paged_block_cache(cfg, spec, 1, 16, 4, 4, torch.float32)
+    jcfg = JC.get_config("qwen3-0.6b", variant="kvint8").reduced()
+    spec, jspec = cfg.layer_specs()[0], jcfg.layer_specs()[0]
+    for got, want in (
+            (TKV.init_block_cache(cfg, spec, 2, 16, torch.float32),
+             JKV.init_block_cache(jcfg, jspec, 2, 16, jnp.float32)),
+            (TKV.init_paged_block_cache(cfg, spec, 2, 16, 4, 4,
+                                        torch.float32),
+             JKV.init_paged_block_cache(jcfg, jspec, 2, 16, 4, 4,
+                                        jnp.float32))):
+        assert set(got) == set(want)
+        for k, t in got.items():
+            assert str(t.dtype).removeprefix("torch.") == str(want[k].dtype)
+            assert tuple(t.shape) == tuple(want[k].shape)
+            np.testing.assert_array_equal(t.numpy(), np.asarray(want[k]))
+    with pytest.raises(ValueError, match="kv_dtype"):
+        TKV.init_block_cache(dataclasses.replace(cfg, kv_dtype="fp8"),
+                             spec, 1, 16, torch.float32)
 
 
 # --------------------------------------------------------------------------- #
@@ -211,7 +226,9 @@ def test_starcoder2_spec_verifies_36_rows_in_three_chunks():
 
 def test_pixtral_serves_token_inputs():
     """Pixtral's decoder takes integer tokens through ``embed_tokens``, as
-    the reference's ``_embed_inputs`` does for integer inputs."""
+    the reference's ``_embed_inputs`` does for integer inputs, and its
+    vision stub's float embeddings as they are (the reference's other
+    branch; more in ``tests/test_torch_frontends.py``)."""
     jcfg, tcfg, jparams, tparams = _model("pixtral-12b")
     assert tcfg.frontend == "vision"
     tokens = np.arange(6, dtype=np.int32)[None]
@@ -220,6 +237,10 @@ def test_pixtral_serves_token_inputs():
         tl, _ = TT.forward(tcfg, tparams, torch.from_numpy(tokens).long(),
                            mode="train")
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32), **TOL)
-    with pytest.raises(ValueError, match="frontends.py"):
-        TT.forward(tcfg, tparams, torch.zeros((1, 6, tcfg.d_model)),
-                   mode="train")
+    emb = np.random.default_rng(0).standard_normal(
+        (1, 6, tcfg.d_model)).astype(np.float32) / np.sqrt(tcfg.d_model)
+    jl = JT.forward(jcfg, jparams, jnp.asarray(emb), mode="train")[0]
+    with torch.no_grad():
+        tl, _ = TT.forward(tcfg, tparams, torch.from_numpy(emb),
+                           mode="train")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32), **TOL)

@@ -81,8 +81,9 @@ def test_initial_caches_match(arch):
 
 
 def test_unported_cache_kinds_raise():
-    """A block kind the port does not know raises, as does the int8 KV
-    cache; the xLSTM kinds, ported since, equal the reference's."""
+    """A block kind the port does not know raises, as does a ``kv_dtype``
+    it does not serve; the xLSTM kinds and the int8 KV cache, ported
+    since, equal the reference's."""
     cfg = get_config("llama2-7b").reduced()
     jcfg = jax_get_config("llama2-7b").reduced()
     for kind in ("mlstm", "slstm"):
@@ -95,6 +96,16 @@ def test_unported_cache_kinds_raise():
     rec = dataclasses.replace(cfg.pattern[0], kind="mamba")
     with pytest.raises(ValueError, match="unknown block kind"):
         TKV.init_block_cache(cfg, rec, 1, 8)
-    with pytest.raises(ValueError, match="int8"):
-        TKV.init_paged_block_cache(dataclasses.replace(cfg, kv_dtype="int8"),
+    with pytest.raises(ValueError, match="kv_dtype='fp8'"):
+        TKV.init_paged_block_cache(dataclasses.replace(cfg, kv_dtype="fp8"),
                                    cfg.pattern[0], 1, 8, 2)
+    cfg8, jcfg8 = (dataclasses.replace(c, kv_dtype="int8")
+                   for c in (cfg, jcfg))
+    _same_tree(TKV.init_paged_block_cache(cfg8, cfg8.pattern[0], 2, 8, 3, 4,
+                                          torch.float32),
+               JKV.init_paged_block_cache(jcfg8, jcfg8.pattern[0], 2, 8, 3,
+                                          4, jnp.float32))
+    _same_tree(TKV.init_block_cache(cfg8, cfg8.pattern[0], 2, 8,
+                                    torch.float32),
+               JKV.init_block_cache(jcfg8, jcfg8.pattern[0], 2, 8,
+                                    jnp.float32))
