@@ -101,12 +101,13 @@ exits non-zero and prints no result line; no phase catches its own failure.
    then the pipeline phase, the paper's path: ``LLM.from_plan`` plans
    llama2-7b over the paper's testbed (the throughput DP: 13 uneven
    stages) and serves the plan as the no-bubbles stage pipeline on this
-   card, one request of 16-48 prompt tokens per slot x 8 greedy tokens,
-   ``max_len`` 64, on the contiguous layout (the contiguous-ring kernel
-   once per layer and fed token) and then the paged one (the paged
+   card, six requests of 16-48 prompt tokens over its 13 slots x 8 greedy
+   tokens, ``max_len`` 64, on the contiguous layout (the contiguous-ring
+   kernel once per layer and fed token) and then the paged one (the paged
    kernel likewise); each serve's logits, which chose its greedy tokens,
    within 0.25 of the contiguous ``TensorBackend``'s fed the same tokens;
-   tick ms, tokens/s, the phase's wall and a profiled window; then the
+   tick ms, tokens/s, the phase's wall and a profiled window (one request
+   a slot, so every stage is live); then the
    planned stages' ``pipeline_forward`` over 2 x 4096 tokens in 2
    micro-batches (the flash kernel once per layer and micro-batch)
    against ``forward(mode="train", impl="ref")``; then the paged pipeline
@@ -120,6 +121,19 @@ exits non-zero and prints no result line; no phase catches its own failure.
    fewer fed tokens), on the contiguous layout with chunks alone (no
    hit); each streamed serve's tokens bit for bit its plain serve's and
    its decode kernel once a layer and fed token;
+   then the pipeline-procs phase: ``LLM.from_plan`` over four chips gives
+   llama2-7b four stages of 8 layers, served with each stage in its own
+   process (``stage_procs=True``: the weights shared by CUDA IPC, the
+   activations handed on over gloo) beside the same plan in this process,
+   8 requests x 8 over 4 slots on the contiguous layout and then the paged
+   one: the greedy tokens bit for bit the one-process ring's, the logits
+   that chose them within 0.25, the decode kernel's launches summed over
+   the stage processes 32 x the fed tokens (the other kernel's and this
+   process's 0); both rings' tick ms, each stage's host, device-wait and
+   hop ms a tick, the spawn; then 64 teacher-forced ticks through the
+   contiguous serve's ring and a vocab-sharded ring of four processes
+   (``token_ready`` equal, logits within 0.25, the vocabulary bytes a
+   stage holds);
    then the fleet phase: a ``Fleet`` of two paged replicas (4 slots each)
    over the same weight tensors is fed ``bursty_trace``'s 24 requests of
    8-48 prompt tokens x 32 greedy tokens through ``replay``, fault free and
@@ -247,11 +261,18 @@ STREAM_REQUESTS, STREAM_SHARED, STREAM_TAIL = 8, 1024, (16, 200)
 STREAM_CHUNK = 256
 STREAM_MAX_LEN = 1280               # 1024 + 200 + 32 = 1256, in whole blocks
 # the pipeline phase: LLM.from_plan over the paper's testbed (13 planned
-# stages for llama2-7b), one request per slot so the ring is full, prompts
-# of 16-48 tokens, 8 greedy tokens each; its microbatched forward over the
-# score phase's 2 x 4096 tokens in 2 micro-batches
+# stages for llama2-7b), PIPE_REQUESTS requests over its 13 slots (13 until
+# the pipeline-procs phase took their time: the serves' time follows the fed
+# tokens), prompts of 16-48 tokens, 8 greedy tokens each; its profiled
+# window with one request a slot, so the ring is full; its microbatched
+# forward over the score phase's 2 x 4096 tokens in 2 micro-batches
 PIPE_PROMPT_LENS, PIPE_TOKENS, PIPE_MAX_LEN = (16, 48), 8, 64
-PIPE_MICROBATCHES = 2
+PIPE_REQUESTS, PIPE_MICROBATCHES = 6, 2
+# the pipeline-procs phase: llama2-7b planned over four chips, (8, 8, 8, 8),
+# each stage in its own process; 8 requests of 16-48 tokens x 8 over 4
+# slots on both layouts, beside the same plan in one process; then 64
+# teacher-forced ticks through a plain and a vocab-sharded ring
+PROCS_CHIPS, PROCS_REQUESTS, PROCS_VOCAB_TICKS = 4, 8, 64
 # the pipeline's streamed serves: requests sharing a 48-token prefix (three
 # blocks of 16) plus 1-16 tokens of their own, 8 greedy tokens each, chunks
 # of 16; the first request alone, then the rest, which adopt its prefix
@@ -3353,12 +3374,14 @@ def serve_pipeline(model, kernels, card):
     if spec.n_stages < 2 or max(periods) == min(periods):
         raise AssertionError(f"pipeline: planned stages {periods}: expected "
                              f"two or more, uneven")
-    prompts = pipeline_prompts(cfg, spec.n_stages)
+    prompts = pipeline_prompts(cfg, PIPE_REQUESTS)
     print(f"pipeline: LLM.from_plan({cfg.name}, paper_testbed(), "
           f"objective='throughput'): {spec.n_stages} stages, periods per "
-          f"stage {periods}; {spec.n_stages} requests of "
+          f"stage {periods}; {len(prompts)} requests of "
           f"{[len(p) for p in prompts]} prompt tokens x {PIPE_TOKENS} greedy "
-          f"tokens, one a slot, max_len {PIPE_MAX_LEN}")
+          f"tokens over {spec.n_stages} slots (cut from {spec.n_stages} to "
+          f"make room for the pipeline-procs phase), max_len "
+          f"{PIPE_MAX_LEN}")
     be = model.backend("cuda", "contiguous", PIPE_MAX_LEN,
                        n_slots=spec.n_stages)
     tensor_tokens = [o.tokens for o in LLM.from_backend(be, seed=SEED)
@@ -3426,7 +3449,8 @@ def serve_pipeline(model, kernels, card):
               f"{max(ticks):.3f}), {total / wall:.1f} tokens/s ({fed / wall:.1f} "
               f"fed tokens/s) over {wall:.2f} s [{card}]")
         be.decode_step = tick
-        profile_ring(f"pipeline {layout}", llm, prompts, sp, card)
+        profile_ring(f"pipeline {layout}", llm,
+                     pipeline_prompts(cfg, spec.n_stages), sp, card)
         got = np.stack([np.stack(logits[i]) for i in range(len(prompts))])
         del llm, be, logits
         torch.cuda.empty_cache()
@@ -3602,6 +3626,235 @@ def serve_pipeline_spec(model, kernels, card, pipe):
     del llm, be, clock
     torch.cuda.empty_cache()
     return launches["paged_attention"]
+
+
+def plan_procs(model, layout, stage_procs):
+    """``LLM.from_plan`` of ``model`` over ``PROCS_CHIPS`` chips (the
+    reference launcher's pipeline plan), its stages in this process or one
+    a process."""
+    from repro_torch.core.devices import tpu_pod_cluster
+    from repro_torch.core.profile import Workload
+    from repro_torch.serving import LLM
+    return LLM.from_plan(model.cfg, tpu_pod_cluster(n_chips=PROCS_CHIPS),
+                         Workload(dtype_bytes=2), objective="throughput",
+                         kind="pipeline", params=model.params,
+                         max_len=PIPE_MAX_LEN, cache_layout=layout,
+                         block_size=BLOCK_SIZE, impl="cuda", device=DEVICE,
+                         seed=SEED, stage_procs=stage_procs)
+
+
+def procs_serve(llm, prompts, sp, kernels):
+    """One serve of ``prompts`` under uids 0.., each tick's start stamped
+    on the host clock (no sync added), after a one-token warm-up serve
+    and every launch count set to 0 (the stages' too).  Returns the
+    tokens, each request's logits [n_tokens, V], the ticks' ms, the wall,
+    this process's launches and, on processes, each stage's stats."""
+    from repro_torch.serving import SamplingParams
+    be = llm.backend
+    procs = hasattr(be.ring, "stats")
+    starts, logits = [], {}
+    tick = be.decode_step
+
+    def timed(feeds):
+        starts.append(time.perf_counter())
+        events = tick(feeds)
+        for ev in events:
+            logits.setdefault(llm.batcher._slot_req[ev.slot].uid,
+                              []).append(ev.logits)
+        return events
+
+    be.decode_step = timed
+    llm.generate([prompts[0][:2]], SamplingParams(max_tokens=1))
+    starts.clear()
+    logits.clear()
+    for fn in kernels.values():
+        fn.launches = 0
+    if procs:
+        be.ring.zero_stats()
+    t0 = time.perf_counter()
+    outs = run_requests(llm, prompts, sp)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    be.decode_step = tick
+    return dict(tokens=[o.tokens for o in outs],
+                logits=np.stack([np.stack(logits[i])
+                                 for i in range(len(prompts))]),
+                ticks=np.diff(starts + [t_end]) * 1e3, wall=t_end - t0,
+                launches={n: fn.launches for n, fn in kernels.items()},
+                stats=be.ring.stats() if procs else None)
+
+
+def teacher_forced_ticks(ring, feeds):
+    """Every tick fed through ``ring`` (a ring's methods: ``tick``,
+    ``reset_slot``, ``state``), each slot its own row of ``feeds``
+    [M, n] in turn from a reset at position 0: the completed logits
+    [M, n, V] by slot and round, and ``token_ready``."""
+    m, n = feeds.shape
+    for slot in range(m):
+        ring.reset_slot(slot)
+    rounds, fed_at = [0] * m, {}
+    out = np.zeros((m, n, ring.state.logits_out.shape[1]), np.float32)
+    t0 = ring.state.tick
+    ns = ring.spec.n_stages
+    while ring.state.tick < t0 + m * n + ns - 1:
+        t = ring.state.tick
+        slot = t % m
+        live = rounds[slot] < n
+        if live:
+            fed_at[t] = (slot, rounds[slot])
+        done = ring.tick(int(feeds[slot, min(rounds[slot], n - 1)]), live,
+                         rounds[slot])
+        rounds[slot] += live
+        if t - (ns - 1) in fed_at:
+            s, r = fed_at.pop(t - (ns - 1))
+            if done != s:
+                raise AssertionError(f"tick {t}: micro-batch {done} "
+                                     f"completed, {s} expected")
+            out[s, r] = ring.state.logits_out[s].numpy()
+    return out, ring.state.token_ready.copy()
+
+
+def serve_pipeline_procs(model, kernels, card):
+    """The stage ring with one process a stage: ``LLM.from_plan`` over
+    four chips gives llama2-7b four stages of 8 layers, served one a
+    process (weights shared by CUDA IPC, activations over gloo) beside
+    the same plan in this process, on the contiguous layout and then the
+    paged one.  Held: the greedy tokens bit for bit the one-process
+    ring's, the logits that chose them within 0.25, and the decode
+    kernel's launches summed over the stages 32 x the fed tokens (the
+    other kernel's and this process's 0).  Then 64 teacher-forced ticks
+    over 4 micro-batches through the contiguous serve's ring and a
+    vocab-sharded ring of four processes: ``token_ready`` equal, logits
+    within 0.25.  Returns each layout's summed launches."""
+    from repro_torch.serving import SamplingParams
+    cfg = model.cfg
+    sp = SamplingParams(max_tokens=PIPE_TOKENS)
+    prompts = pipeline_prompts(cfg, PROCS_REQUESTS)
+    fed = sum(len(p) + PIPE_TOKENS - 1 for p in prompts)
+    t_phase = time.perf_counter()
+    out = {}
+    for layout in ("contiguous", "paged"):
+        kernel = "decode_attention" if layout == "contiguous" \
+            else "paged_attention"
+        one = plan_procs(model, layout, False)
+        spec = one.backend.spec
+        print(f"pipeline procs {layout}: LLM.from_plan({cfg.name}, "
+              f"tpu_pod_cluster(n_chips={PROCS_CHIPS})): periods per stage "
+              f"{spec.periods_per_stage}, {one.backend.n_slots} slots; "
+              f"{len(prompts)} requests of {[len(p) for p in prompts]} "
+              f"prompt tokens x {PIPE_TOKENS} greedy tokens, max_len "
+              f"{PIPE_MAX_LEN}")
+        base = procs_serve(one, prompts, sp, kernels)
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        llm = plan_procs(model, layout, True)
+        spawn_s = time.perf_counter() - t0
+        be = llm.backend
+        if be.spec != spec or be.info.attn_impl != "cuda":
+            raise AssertionError(f"pipeline procs {layout}: spec {be.spec}, "
+                                 f"attn_impl {be.info.attn_impl}")
+        try:
+            run = procs_serve(llm, prompts, sp, kernels)
+            stats = run["stats"]
+            launches = {n: sum(s["launches"][n] for s in stats)
+                        for n in kernels}
+            want = {n: cfg.n_layers * fed if n == kernel else 0
+                    for n in kernels}
+            if launches != want or any(run["launches"].values()) \
+                    or base["launches"] != want:
+                raise AssertionError(
+                    f"pipeline procs {layout}: launches summed over the "
+                    f"stages {launches}, in this process "
+                    f"{run['launches']}, in the one-process ring "
+                    f"{base['launches']}; expected {want} ({fed} fed "
+                    f"tokens)")
+            same = sum(int(a == b) for t, u in zip(run["tokens"],
+                                                   base["tokens"])
+                       for a, b in zip(t, u))
+            diff = float(np.abs(run["logits"] - base["logits"]).max())
+            total = len(prompts) * PIPE_TOKENS
+            print(f"pipeline procs {layout}: {kernel} launches summed over "
+                  f"the {spec.n_stages} stage processes "
+                  f"{launches[kernel]} = {cfg.n_layers} layers x {fed} fed "
+                  f"tokens (per stage "
+                  f"{[s['launches'][kernel] for s in stats]}), the other "
+                  f"kernel 0, none in this process; greedy tokens equal to "
+                  f"the one-process ring's: {same}/{total}; logits max abs "
+                  f"diff {diff:.4g} (atol {LOGITS_ATOL})")
+            if run["tokens"] != base["tokens"] or diff > LOGITS_ATOL \
+                    or not np.isfinite(run["logits"]).all():
+                raise AssertionError(f"pipeline procs {layout}: "
+                                     f"{total - same} tokens differ, logits "
+                                     f"{diff:.4g} apart")
+            for name, r in (("one process", base), ("processes", run)):
+                t = r["ticks"]
+                print(f"pipeline procs {layout}: {name}: {len(t)} ticks, "
+                      f"tick ms median {statistics.median(t):.3f} (min "
+                      f"{min(t):.3f}, max {max(t):.3f}), "
+                      f"{total / r['wall']:.1f} tokens/s over "
+                      f"{r['wall']:.2f} s [{card}]")
+            for rank, st in enumerate(stats):
+                ticks = st["ticks"]
+                print(f"pipeline procs {layout}: stage {rank}: {ticks} "
+                      f"ticks, {st['live']} live; ms a tick: host "
+                      f"{st['host_s'] / ticks * 1e3:.3f}, device wait "
+                      f"{st['device_s'] / ticks * 1e3:.3f}, hop "
+                      f"{st['hop_s'] / ticks * 1e3:.3f}; hop bytes "
+                      f"{st['hop_bytes']} "
+                      f"({st['hop_bytes'] / max(st['live'], 1):.0f} a live "
+                      f"tick)")
+            print(f"pipeline procs {layout}: spawn and plan {spawn_s:.2f} s "
+                  f"(the stages' start {be.ring.spawn_s:.2f} s)")
+            out[layout] = launches[kernel]
+            if layout == "contiguous":
+                vocab_ticks(model, be, spec, card)
+        finally:
+            be.close()
+        del llm, be
+        torch.cuda.empty_cache()
+    print(f"pipeline procs: phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"[{card}]")
+    return out
+
+
+def vocab_ticks(model, be, spec, card):
+    """``PROCS_VOCAB_TICKS`` teacher-forced ticks with seeded feeds over
+    ``be``'s ring (four stage processes, its serve done) and a
+    vocab-sharded ring of four processes on the same weights."""
+    from repro_torch.core.stage_procs import StageProcs, vocab_bytes
+    cfg = model.cfg
+    m = be.n_slots
+    feeds = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (m, PROCS_VOCAB_TICKS // m))
+    plain, ready = teacher_forced_ticks(be.ring, feeds)
+    t0 = time.perf_counter()
+    ring = StageProcs(cfg, model.params, spec, n_slots=m,
+                      max_len=PIPE_MAX_LEN, cache_dtype=be.cache_dtype,
+                      impl="cuda", device=DEVICE, vocab_sharded=True)
+    try:
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, got_ready = teacher_forced_ticks(ring, feeds)
+        secs = time.perf_counter() - t0
+        held = [s["vocab_bytes"] for s in ring.stats()]
+    finally:
+        ring.close()
+    diff = float(np.abs(got - plain).max())
+    agree = int((got.argmax(-1) == plain.argmax(-1)).sum())
+    print(f"pipeline procs vocab-sharded: {PROCS_VOCAB_TICKS} teacher-forced "
+          f"ticks over {m} micro-batches, {spec.n_stages} stage processes "
+          f"(spawned in {spawn_s:.2f} s, ticks {secs:.2f} s): logits against "
+          f"the plain ring's max abs diff {diff:.4g} (atol {LOGITS_ATOL}), "
+          f"argmax agreement {agree}/{plain.shape[0] * plain.shape[1]}; "
+          f"token_ready equal: {bool((got_ready == ready).all())}; "
+          f"vocabulary weight bytes a stage {held} against "
+          f"{vocab_bytes(model.params)} whole [{card}]")
+    if diff > LOGITS_ATOL or not (got_ready == ready).all() \
+            or not np.isfinite(got).all():
+        raise AssertionError(f"pipeline procs vocab-sharded: logits "
+                             f"{diff:.4g} apart, token_ready {got_ready} "
+                             f"against {ready}")
 
 
 def pipe_stream_prompts(cfg):
@@ -4144,6 +4397,8 @@ def main():
     pipe_spec = serve_pipeline_spec(model, wrappers, card, pipe)
     pipe_streamed = serve_pipeline_streamed(model, wrappers, card)
     done("the pipeline's spec and streamed serves")
+    pipe_procs = serve_pipeline_procs(model, wrappers, card)
+    done("the pipeline procs phase")
     fleet = serve_fleet(model, pa, da, card)
     del model                       # 13.48 GB of llama2-7b weights
     gc.collect()
@@ -4239,6 +4494,15 @@ def main():
         entry("decode_attention pipeline streamed",
               "decode_attention@pipeline streamed", "decode_attention.cu",
               "decode_attention.py:153", pipe_streamed["contiguous"]),
+        # the planned stages one a process: launches summed over the stage
+        # processes (B = 1 a call over up to 64 keys, the pipeline rows'
+        # shapes)
+        entry("decode_attention pipeline", "decode_attention@pipeline procs",
+              "decode_attention.cu", "decode_attention.py:153",
+              pipe_procs["contiguous"]),
+        entry("paged_attention pipeline", "paged_attention@pipeline procs",
+              "paged_attention.cu", "decode_attention.py:201",
+              pipe_procs["paged"]),
         # the dense configs on both layouts, starcoder2-7b's verify and
         # gemma2-2b's score
         *(entry(f"{kind} {arch}", f"{kind}@{arch}", source,

@@ -1,11 +1,15 @@
-"""EdgeShard pipeline runtime on one device: the paper's layer-sharded
-collaborative inference as a stage ring over one card.
+"""EdgeShard pipeline runtime: the paper's layer-sharded collaborative
+inference as a stage ring.
 
 Port of ``repro.core.pipeline``.  The DP planner (``core/partition.py``)
 decides which contiguous slab of layers lives on which stage; stages may be
 uneven, and a stage may hold no layer at all (plans such as ``(0, 1, 31)``
 are real planner outputs).  The reference runs the plan as one SPMD program
-over a mesh axis; here every stage runs on the same device, in lockstep:
+over a mesh axis.  Here :class:`StageRing` runs every stage in this process,
+one after another, and :mod:`repro_torch.core.stage_procs` one process a
+stage, all at the same time, over the same pieces (:func:`stage_decode`,
+:func:`ring_turn`, :func:`ring_advance`, the slot operations and the
+vocabulary shards).  In this process:
 
 - a stage is a range of ``params["layers"]`` (:func:`stage_layers`).  It
   holds references to the model's own layer tensors: nothing is restacked
@@ -24,7 +28,10 @@ over a mesh axis; here every stage runs on the same device, in lockstep:
 - the final norm and the LM head run once a tick, on the last stage's
   output (the reference computes them on every stage and keeps the last
   stage's); the float32 logits are recorded for stage 0, the paper's
-  return-to-source hop.
+  return-to-source hop,
+- ``vocab_sharded`` computes the reference's vocab-sharded tick (the
+  embedding rows and the head columns split over the stages) one shard
+  after another.
 
 Pipeline mode partitions at period granularity and needs
 ``n_layers % period == 0``; recurrentgemma-2b's 2-block tail raises, as in
@@ -33,7 +40,7 @@ the reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +49,8 @@ from repro_torch.core.partition import Plan
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import DEFAULT_BLOCK_SIZE
-from repro_torch.models.layers import apply_norm, lm_logits
+from repro_torch.models.layers import (apply_norm, lm_logits, scale_embedding,
+                                       softcap)
 
 
 @dataclass(frozen=True)
@@ -199,7 +207,12 @@ class PipelineDecodeState:
     batcher that fills them).  The ring itself rides on the
     host: ``buf[s]`` is the activation entering stage s (``None`` where no
     live micro-batch rides), ``buf_mb``/``buf_valid`` its micro-batch and
-    validity."""
+    validity.
+
+    A stage process (:mod:`repro_torch.core.stage_procs`) holds the same
+    state over its own layers' caches only, and the host a copy with no
+    caches: ``buf_mb``/``buf_valid``/``tick`` are replicated on every
+    process, as the reference replicates them over its stage axis."""
 
     caches: List[Dict[str, torch.Tensor]]
     buf: List[Optional[torch.Tensor]]     # [n_stages] x [1, 1, d]
@@ -210,6 +223,30 @@ class PipelineDecodeState:
     tick: int = 0
 
 
+def init_stage_caches(cfg: ModelConfig, layers: Sequence[int],
+                      n_microbatches: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      cache_layout: str = "contiguous",
+                      num_blocks: int = 0,
+                      block_size: int = DEFAULT_BLOCK_SIZE,
+                      device=None) -> List[Dict[str, torch.Tensor]]:
+    """The caches of ``layers`` (in order), over every micro-batch; on the
+    paged layout their pools share one ``[M, nbs]`` block table."""
+    m = n_microbatches
+    if cache_layout == "paged":
+        caches = T.init_paged_caches(cfg, m, max_len, num_blocks, block_size,
+                                     dtype, device, layers)
+        pools = [c for c in caches if "k_pool" in c]
+        for cache in pools[1:]:             # one table for every pool
+            cache["bt"] = pools[0]["bt"]
+    elif cache_layout == "contiguous":
+        caches = T.init_caches(cfg, m, max_len, dtype, device, layers)
+    else:
+        raise ValueError(f"cache_layout={cache_layout!r}: expected "
+                         f"'contiguous' or 'paged'")
+    return caches
+
+
 def init_pipeline_decode_state(cfg: ModelConfig, spec: PipelineSpec,
                                n_microbatches: int, max_len: int,
                                dtype: torch.dtype = torch.bfloat16,
@@ -218,28 +255,25 @@ def init_pipeline_decode_state(cfg: ModelConfig, spec: PipelineSpec,
                                block_size: int = DEFAULT_BLOCK_SIZE,
                                device=None) -> PipelineDecodeState:
     stage_layers(cfg, spec)
-    m = n_microbatches
-    if cache_layout == "paged":
-        caches = T.init_paged_caches(cfg, m, max_len, num_blocks, block_size,
-                                     dtype, device)
-        pools = [c for c in caches if "k_pool" in c]
-        if not pools:
-            raise ValueError(f"{cfg.name} has no attention layer to page: "
-                             f"use the contiguous layout")
-        for cache in pools[1:]:             # one table for every pool
-            cache["bt"] = pools[0]["bt"]
-    elif cache_layout == "contiguous":
-        caches = T.init_caches(cfg, m, max_len, dtype, device)
-    else:
-        raise ValueError(f"cache_layout={cache_layout!r}: expected "
-                         f"'contiguous' or 'paged'")
-    ns = spec.n_stages
+    caches = init_stage_caches(cfg, range(cfg.n_layers), n_microbatches,
+                               max_len, dtype, cache_layout, num_blocks,
+                               block_size, device)
+    if cache_layout == "paged" and not any("k_pool" in c for c in caches):
+        raise ValueError(f"{cfg.name} has no attention layer to page: "
+                         f"use the contiguous layout")
+    return ring_state(spec.n_stages, caches, torch.zeros(
+        (n_microbatches, cfg.vocab_size), dtype=torch.float32,
+        device=device))
+
+
+def ring_state(n_stages: int, caches: List[Dict[str, torch.Tensor]],
+               logits_out: torch.Tensor) -> PipelineDecodeState:
+    """A ring with nothing in flight over ``caches``, recording into
+    ``logits_out`` ``[M, V]``."""
     return PipelineDecodeState(
-        caches=caches, buf=[None] * ns, buf_mb=[0] * ns,
-        buf_valid=[False] * ns,
-        logits_out=torch.zeros((m, cfg.vocab_size),
-                               dtype=torch.float32, device=device),
-        token_ready=np.zeros(m, bool))
+        caches=caches, buf=[None] * n_stages, buf_mb=[0] * n_stages,
+        buf_valid=[False] * n_stages, logits_out=logits_out,
+        token_ready=np.zeros(logits_out.shape[0], bool))
 
 
 def _mb_view(cache: Dict[str, torch.Tensor],
@@ -303,15 +337,114 @@ def kill_slot(state: PipelineDecodeState, slot: int) -> None:
                        for v, mb in zip(state.buf_valid, state.buf_mb)]
 
 
+def push_table(state: PipelineDecodeState, table: np.ndarray) -> None:
+    """The host's block table ``[M, nbs]`` into the table the pools share
+    (nothing on a ring without pools)."""
+    pool = next((c for c in state.caches if "k_pool" in c), None)
+    if pool is not None:
+        pool["bt"].copy_(torch.from_numpy(table).to(pool["bt"].device))
+
+
+def ring_turn(state: PipelineDecodeState, feed_valid: bool,
+              ) -> Tuple[List[int], List[bool]]:
+    """Each stage's micro-batch and validity this tick: stage 0 takes
+    micro-batch ``tick % M`` (live when ``feed_valid``), every other stage
+    what rode into its buffer."""
+    m = state.logits_out.shape[0]
+    return ([state.tick % m] + state.buf_mb[1:],
+            [bool(feed_valid)] + state.buf_valid[1:])
+
+
+def ring_advance(state: PipelineDecodeState, mbs: List[int],
+                 valid: List[bool],
+                 out: Optional[List[Optional[torch.Tensor]]] = None) -> None:
+    """The end of a tick: buffers (``out``, where this process holds them),
+    micro-batches and validity rotate one stage on."""
+    if out is not None:
+        state.buf = [None] + out[:-1]
+    state.buf_mb = [0] + mbs[:-1]
+    state.buf_valid = [False] + valid[:-1]
+    state.tick += 1
+
+
+def stage_decode(cfg: ModelConfig, params: Dict, layers: range,
+                 caches: List[Dict[str, torch.Tensor]], x: torch.Tensor,
+                 mb: int, impl: str, first: int = 0) -> torch.Tensor:
+    """One stage's decode of micro-batch ``mb``: ``layers`` over the
+    activation ``x`` [1, 1, d], ``caches[l - first]`` being layer l's."""
+    views = {l: _mb_view(caches[l - first], mb) for l in layers}
+    return _run_stage(cfg, params, layers, x, None, "decode", views, impl)
+
+
+def feed_positions(state: PipelineDecodeState, mb: int,
+                   feed_pos: Optional[int], device) -> torch.Tensor:
+    """The fed token's position [1, 1], for sinusoidal positions: the
+    host's ``feed_pos``, else read from the caches, where every layer's
+    pos row agrees at a feed (a slot's turns are M >= n_stages ticks
+    apart, so its last token has left the ring)."""
+    if feed_pos is not None:
+        return torch.full((1, 1), feed_pos, dtype=torch.int32, device=device)
+    return T._first_pos(state.caches)[mb:mb + 1, None]
+
+
+# --------------------------------------------------------------------------- #
+# the vocabulary sharded over the stages
+# --------------------------------------------------------------------------- #
+
+def vocab_shard(cfg: ModelConfig, n_stages: int, stage: int) -> slice:
+    """Stage ``stage``'s rows of the embedding and columns of the LM head
+    when the vocabulary is sharded over ``n_stages`` stages."""
+    if cfg.vocab_size % n_stages:
+        raise ValueError(f"the vocab-sharded tick needs vocab_size % "
+                         f"n_stages == 0: {cfg.vocab_size} over "
+                         f"{n_stages} stages")
+    vs = cfg.vocab_size // n_stages
+    return slice(stage * vs, (stage + 1) * vs)
+
+
+def vocab_params(cfg: ModelConfig, params: Dict, shard: slice) -> Dict:
+    """A stage's vocabulary weights: ``embedding`` rows [V/n, d] and the
+    matching ``head`` columns [d, V/n] (the rows transposed when the
+    embedding is tied); views of ``params``' tensors."""
+    emb = params["embedding"][shard]
+    return {"embedding": emb,
+            "head": emb.T if cfg.tie_embeddings
+            else params["lm_head"][:, shard]}
+
+
+def embed_partial(rows: torch.Tensor, base: int,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` that fall in the stage's shard
+    ``rows`` (vocabulary ids ``base ..``), zero elsewhere: summed over the
+    stages they are the embedding."""
+    n = rows.shape[0]
+    ids = tokens - base
+    inside = (ids >= 0) & (ids < n)
+    got = rows[ids.clamp(0, n - 1)]
+    return torch.where(inside[..., None], got, torch.zeros_like(got))
+
+
+def logits_partial(cfg: ModelConfig, h: torch.Tensor,
+                   head: torch.Tensor) -> torch.Tensor:
+    """The normed hidden's float32 logits over one stage's columns."""
+    return softcap(h @ head, cfg.final_logit_softcap).float()
+
+
+# --------------------------------------------------------------------------- #
+# no-bubbles decode: tick protocol
+# --------------------------------------------------------------------------- #
+
 def pipeline_decode_tick(cfg: ModelConfig, params: Dict,
                          state: PipelineDecodeState,
                          feed_tokens: torch.Tensor, spec: PipelineSpec,
                          impl: str = "ref", feed_valid: bool = True,
-                         ) -> Optional[int]:
+                         feed_pos: Optional[int] = None,
+                         vocab_sharded: bool = False) -> Optional[int]:
     """One no-bubbles decode tick, in place on ``state``.
 
     Stage 0 ingests ``feed_tokens [1]`` for micro-batch ``tick % M``
-    (live when ``feed_valid``); every other stage advances the micro-batch
+    (live when ``feed_valid``) at position ``feed_pos`` (default: the
+    caches' pos row); every other stage advances the micro-batch
     riding in the buffer it held before the tick; the last stage's live
     output goes through the final norm and the LM head into
     ``logits_out[mb]`` (float32 ``[V]``) and ``token_ready[mb]``.
@@ -321,37 +454,89 @@ def pipeline_decode_tick(cfg: ModelConfig, params: Dict,
     A stage whose micro-batch is not live -- a warm-up tick, a slot with
     no request (``feed_valid=False``), a killed slot -- runs nothing, so
     its caches stay bit for bit as they were.
+
+    ``vocab_sharded`` computes the embedding and the head as the
+    reference's vocab-sharded tick does, one stage's shard after another
+    (:func:`vocab_shard`; raises unless ``vocab_size % n_stages == 0``):
+    the sum of the stages' masked partial rows, then the port's embed
+    (gemma's scale, sinusoidal positions), and the logits of each stage's
+    columns of the last stage's normed hidden, placed at their offsets.
+    The process ring (:mod:`repro_torch.core.stage_procs`) runs the same
+    arithmetic with the collectives between.
     """
     ns = spec.n_stages
-    m = state.logits_out.shape[0]
     layers = stage_layers(cfg, spec)
-    mbs = [state.tick % m] + state.buf_mb[1:]
-    valid = [bool(feed_valid)] + state.buf_valid[1:]
+    shards = [vocab_shard(cfg, ns, s) for s in range(ns)] \
+        if vocab_sharded else []
+    mbs, valid = ring_turn(state, feed_valid)
     out: List[Optional[torch.Tensor]] = [None] * ns
     for s in range(ns):
         if not valid[s]:
             continue
         if s == 0:
-            # the fed token's position, for sinusoidal positions: every
-            # layer's pos row agrees at a feed (a slot's turns are M >=
-            # n_stages ticks apart, so its last token has left the ring)
-            mb = mbs[0]
-            x = T._embed_inputs(cfg, params, feed_tokens[:, None],
-                                T._first_pos(state.caches)[mb:mb + 1, None])
+            tokens = feed_tokens[:, None]
+            pos = feed_positions(state, mbs[0], feed_pos, tokens.device)
+            if vocab_sharded:
+                rows = sum(embed_partial(params["embedding"][sh], sh.start,
+                                         tokens) for sh in shards)
+                x = T.add_positions(cfg, scale_embedding(cfg, rows), pos)
+            else:
+                x = T._embed_inputs(cfg, params, tokens, pos)
         else:
             x = state.buf[s]
-        views = {l: _mb_view(state.caches[l], mbs[s])
-                 for l in layers[s]}
-        out[s] = _run_stage(cfg, params, layers[s], x, None, "decode",
-                            views, impl)
+        out[s] = stage_decode(cfg, params, layers[s], state.caches, x,
+                              mbs[s], impl)
     done = None
     if valid[-1]:
         h = apply_norm(params["final_norm"], out[-1], cfg.norm)
         done = mbs[-1]
-        state.logits_out[done] = lm_logits(params, cfg, h)[0, 0].float()
+        if vocab_sharded:
+            for sh in shards:
+                state.logits_out[done, sh] = logits_partial(
+                    cfg, h, vocab_params(cfg, params, sh)["head"])[0, 0]
+        else:
+            state.logits_out[done] = lm_logits(params, cfg, h)[0, 0].float()
         state.token_ready[done] = True
-    state.buf = [None] + out[:-1]
-    state.buf_mb = [0] + mbs[:-1]
-    state.buf_valid = [False] + valid[:-1]
-    state.tick += 1
+    ring_advance(state, mbs, valid, out)
     return done
+
+
+class StageRing:
+    """The stage ring in this process: every stage, one after another, on
+    one device.  :class:`repro_torch.core.stage_procs.StageProcs` runs the
+    same ring with one process a stage behind the same methods, which is
+    all :class:`~repro_torch.runtime.pipeline_backend.PipelineBackend`
+    calls."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict, spec: PipelineSpec,
+                 state: PipelineDecodeState, impl: str = "ref",
+                 vocab_sharded: bool = False):
+        self.cfg, self.params, self.spec = cfg, params, spec
+        self.state, self.impl = state, impl
+        self.vocab_sharded = vocab_sharded
+        self._device = state.logits_out.device
+
+    def tick(self, feed: int, valid: bool, pos: int) -> Optional[int]:
+        """One tick feeding token ``feed`` at position ``pos``
+        (:func:`pipeline_decode_tick`)."""
+        with torch.no_grad():
+            return pipeline_decode_tick(
+                self.cfg, self.params, self.state,
+                torch.tensor([feed], dtype=torch.int64, device=self._device),
+                self.spec, impl=self.impl, feed_valid=valid, feed_pos=pos,
+                vocab_sharded=self.vocab_sharded)
+
+    def reset_slot(self, slot: int, start: int = 0) -> None:
+        reset_slot(self.state, slot, start)
+
+    def rollback_slot(self, slot: int, new_pos: int) -> None:
+        rollback_slot(self.state, slot, new_pos)
+
+    def kill_slot(self, slot: int) -> None:
+        kill_slot(self.state, slot)
+
+    def push_table(self, table: np.ndarray) -> None:
+        push_table(self.state, table)
+
+    def close(self) -> None:
+        """Nothing to release: the ring lives in this process."""

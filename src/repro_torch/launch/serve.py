@@ -8,8 +8,11 @@ are random, made from ``--seed``.  Two modes:
 - ``--mode pipeline`` -- the paper's deployment mode: ``LLM.from_plan``
   runs the throughput DP over ``tpu_pod_cluster(n_chips=--stages)`` and
   serves the (possibly uneven) stage plan as a no-bubbles pipeline on one
-  device.  Greedy tokens equal ``--mode tp``'s for the same seed and arch
-  in float32 (the ``--smoke`` variants).
+  device; with ``--stage-procs`` each planned stage runs in its own
+  process, all at the same time, activations handed on over
+  ``torch.distributed`` (gloo), the counterpart of the reference's one
+  device a stage.  Greedy tokens equal ``--mode tp``'s for the same seed
+  and arch in float32 (the ``--smoke`` variants).
 
     python -m repro_torch.launch.serve --arch llama2-7b --impl cuda \
         --batch 6 --slots 4 --prompt-len 256 --varlen --gen 32 --max-len 4096
@@ -24,7 +27,7 @@ are random, made from ``--seed``.  Two modes:
         --max-len 1280 --expect-prefix-hits
     python -m repro_torch.launch.serve --arch llama2-7b --mode pipeline \
         --stages 4 --impl cuda --batch 8 --prompt-len 64 --varlen --gen 32 \
-        --max-len 128
+        --max-len 128 [--stage-procs]
     python -m repro_torch.launch.serve --arch llama2-7b --mode pipeline \
         --stages 4 --impl cuda --cache-layout paged --batch 8 \
         --prompt-len 96 --shared-prefix 48 --prefix-cache --prefill-chunk 16 \
@@ -42,7 +45,8 @@ are random, made from ``--seed``.  Two modes:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --impl ref --batch 4 --gen 8 [--stream]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
-        --smoke --device cpu --mode pipeline --stages 4 --batch 4 --gen 8
+        --smoke --device cpu --mode pipeline --stages 4 --batch 4 --gen 8 \
+        [--stage-procs]
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when no GPU
 is present.  The hybrid recurrentgemma-2b serves on both layouts, and the
@@ -61,7 +65,9 @@ contiguous layout ``--impl cuda`` reads the dequantized rings with the
 ring kernel; on the paged one it reads by gather (``attn_impl=ref``, with
 a warning once), as the reference does.  ``--impl chunked`` runs prefill
 and extend as the online softmax over key blocks.  The reference's
-``--devices`` (its fake-XLA-device count) has no flag here yet.
+``--devices`` (its fake-XLA-device count, one a stage in pipeline mode) is
+``--stage-procs`` here: one process a stage, every stage on the one
+device (stages on several cards are not built yet).
 
 Returns ``(llm, outputs)`` when called as ``main(argv)``.
 """
@@ -80,6 +86,10 @@ def main(argv=None):
     ap.add_argument("--stages", type=int, default=4,
                     help="pipeline mode: plan over a cluster of this many "
                          "chips (the DP may use fewer stages)")
+    ap.add_argument("--stage-procs", action="store_true",
+                    help="pipeline mode: run each planned stage in its own "
+                         "process, all at the same time, activations over "
+                         "torch.distributed (gloo)")
     ap.add_argument("--batch", type=int, default=4,
                     help="number of requests to serve")
     ap.add_argument("--slots", type=int, default=0,
@@ -173,6 +183,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    if args.stage_procs and args.mode != "pipeline":
+        ap.error("--stage-procs runs the planned stages one a process: "
+                 "pass --mode pipeline")
     if args.inject_faults and args.mode != "tp":
         ap.error("--inject-faults wraps the single tp-mode backend; chaos "
                  "over a multi-backend fleet is benchmarks/chaos_bench.py")
@@ -245,9 +258,11 @@ def main(argv=None):
             Workload(prompt_len=args.prompt_len, gen_tokens=args.gen,
                      dtype_bytes=2),
             objective="throughput", kind="pipeline", params=params,
-            n_slots=args.slots or None, **kv_kw, **serve_kw)
+            n_slots=args.slots or None, stage_procs=args.stage_procs,
+            **kv_kw, **serve_kw)
         print(f"planned stages (periods per stage): "
-              f"{llm.backend.spec.periods_per_stage}")
+              f"{llm.backend.spec.periods_per_stage}"
+              + (" (one process a stage)" if args.stage_procs else ""))
     else:
         backend = TensorBackend(cfg, params,
                                 n_slots=args.slots or args.batch, **kv_kw)
@@ -278,17 +293,21 @@ def main(argv=None):
                         priority=args.priority or 0,
                         ttft_slo=args.ttft_slo, e2e_slo=args.e2e_slo)
     t0 = time.time()
-    if args.stream:
-        outs = {}
-        for ev in llm.stream(prompts, sp):
-            print(f"  step {ev.step:4d} req {ev.uid} tok[{ev.index}]="
-                  f"{ev.token}" + (f" <{ev.finish_reason}>"
-                                   if ev.finished else ""))
-            if ev.finished:
-                outs[ev.uid] = llm.poll(ev.uid)
-        outs = list(outs.values())
-    else:
-        outs = llm.generate(prompts, sp)
+    try:
+        if args.stream:
+            outs = {}
+            for ev in llm.stream(prompts, sp):
+                print(f"  step {ev.step:4d} req {ev.uid} tok[{ev.index}]="
+                      f"{ev.token}" + (f" <{ev.finish_reason}>"
+                                       if ev.finished else ""))
+                if ev.finished:
+                    outs[ev.uid] = llm.poll(ev.uid)
+            outs = list(outs.values())
+        else:
+            outs = llm.generate(prompts, sp)
+    finally:
+        if args.stage_procs:
+            llm.backend.close()             # the stage processes
     dt = time.time() - t0
     total = sum(o.n_generated for o in outs)
     info = llm.backend.info

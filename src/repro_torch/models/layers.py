@@ -111,7 +111,12 @@ def embed_tokens(params: Dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Integer tokens -> embeddings (a frontend's float inputs take
     ``transformer._embed_inputs``)."""
-    x = params["embedding"][tokens]
+    return scale_embedding(cfg, params["embedding"][tokens])
+
+
+def scale_embedding(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Embedding rows as the first block takes them: gemma's scale by
+    sqrt(d_model)."""
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x

@@ -36,7 +36,7 @@ and :func:`train_loss`.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -72,27 +72,35 @@ def _check_block(spec: BlockSpec) -> None:
                          f"of {BLOCK_KINDS}")
 
 
+def _specs(cfg: ModelConfig, layers: Optional[Sequence[int]]):
+    specs = cfg.layer_specs()
+    return specs if layers is None else [specs[l] for l in layers]
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype: torch.dtype = torch.bfloat16, device=None) -> Caches:
-    """Ring caches, one per layer: the contiguous layout, and the
-    prefill workspace of both layouts."""
+                dtype: torch.dtype = torch.bfloat16, device=None,
+                layers: Optional[Sequence[int]] = None) -> Caches:
+    """Ring caches, one per layer (of ``layers``: default every layer): the
+    contiguous layout, and the prefill workspace of both layouts."""
     return [init_block_cache(cfg, spec, batch, max_len, dtype, device)
-            for spec in cfg.layer_specs()]
+            for spec in _specs(cfg, layers)]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
                       num_blocks: int, block_size: int = DEFAULT_BLOCK_SIZE,
                       dtype: torch.dtype = torch.bfloat16,
-                      device=None) -> Caches:
-    """Paged caches, one per layer (``batch`` = slots): an attention layer
-    holds a block pool plus per-slot block tables; any other layer keeps
-    its dense per-slot state (``pos`` is per-slot [B] in every layout, so
-    each slot owns its position in the batched decode)."""
+                      device=None,
+                      layers: Optional[Sequence[int]] = None) -> Caches:
+    """Paged caches, one per layer (of ``layers``: default every layer;
+    ``batch`` = slots): an attention layer holds a block pool plus per-slot
+    block tables; any other layer keeps its dense per-slot state (``pos``
+    is per-slot [B] in every layout, so each slot owns its position in the
+    batched decode)."""
     return [init_paged_block_cache(cfg, spec, batch, max_len, num_blocks,
                                    block_size, dtype, device)
             if spec.kind == "attn" else
             init_block_cache(cfg, spec, batch, max_len, dtype, device)
-            for spec in cfg.layer_specs()]
+            for spec in _specs(cfg, layers)]
 
 
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, params: Dict,
@@ -177,6 +185,13 @@ def _embed_inputs(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
         x = inputs.to(params["embedding"].dtype)
     else:
         x = embed_tokens(params, cfg, inputs)
+    return add_positions(cfg, x, positions)
+
+
+def add_positions(cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """``x`` plus the sinusoidal position embeddings at ``positions`` for
+    ``pos_emb="sinusoidal"``; ``x`` as it is otherwise."""
     if cfg.pos_emb == "sinusoidal":
         emb = sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
         x = x + (emb if emb.dim() == x.dim() else emb[None])

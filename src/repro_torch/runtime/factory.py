@@ -7,7 +7,8 @@ be materialized as
 
 - ``kind="pipeline"`` -- the no-bubbles stage pipeline on one device
   (stage layout via :func:`repro_torch.core.pipeline.spec_from_plan`, so
-  uneven planner stages are preserved),
+  uneven planner stages are preserved), its stages in this process or,
+  with ``stage_procs=True``, one process a stage,
 - ``kind="tensor"``   -- the single-device tensor backend (capacity taken
   from the plan's feasible batch),
 - ``kind="sim"``      -- the discrete-event cost model, for planner sweeps
@@ -56,7 +57,7 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
                     cache_layout: str = "contiguous", block_size: int = 16,
                     num_blocks: Optional[int] = None,
                     prefix_cache: bool = False, device=None,
-                    ) -> InferenceBackend:
+                    stage_procs: bool = False) -> InferenceBackend:
     """Materialize a planned deployment as a serving backend.
 
     ``cache_layout="paged"`` provisions a shared KV block pool (``num_blocks``
@@ -67,6 +68,8 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
     cache by gather, as in the reference), ``impl="chunked"`` prefills
     with the online softmax over key blocks; ``device``
     is where they run (the GPU unless ``"cpu"`` is asked for).
+    ``stage_procs=True`` runs the pipeline's stages one a process
+    (:mod:`repro_torch.core.stage_procs`; close the backend when done).
     """
     assert deployment.ok, f"deployment {deployment.method} is OOM-infeasible"
     plan = deployment.plan
@@ -84,6 +87,9 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
 
     if params is None:
         raise ValueError(f"kind={kind!r} needs model params")
+    if stage_procs and kind != "pipeline":
+        raise ValueError(f"stage_procs runs the pipeline's stages one a "
+                         f"process; kind={kind!r} has no stages")
 
     if kind == "tensor":
         from repro_torch.runtime.tensor import TensorBackend
@@ -103,6 +109,7 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
                                max_len=max_len, cache_dtype=cache_dtype,
                                impl=impl, cache_layout=cache_layout,
                                block_size=block_size, num_blocks=num_blocks,
-                               prefix_cache=prefix_cache, device=device)
+                               prefix_cache=prefix_cache, device=device,
+                               stage_procs=stage_procs)
 
     raise ValueError(f"unknown backend kind {kind!r}")

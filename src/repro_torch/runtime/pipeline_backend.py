@@ -46,8 +46,19 @@ layout a :class:`~repro_torch.runtime.prefix_cache.PrefixCache` over the
 pager's allocator adopts a prompt's cached whole-block prefix, and the slot
 starts decoding after it.
 
-Not yet ported from the reference: several lanes a slot, the vocab-sharded
-tick and stages on more than one card.
+``stage_procs=True`` runs the ring with one process a stage
+(:class:`~repro_torch.core.stage_procs.StageProcs`: every stage at the same
+time, activations over ``torch.distributed``), the counterpart of the
+reference's one device a stage; the default runs every stage in this
+process (:class:`~repro_torch.core.pipeline.StageRing`).  The backend's
+bookkeeping is the same on both: it drives the ring through ``tick``,
+``reset_slot``, ``rollback_slot``, ``kill_slot`` and ``push_table``, and
+:meth:`PipelineBackend.close` stops the stage processes.  The vocab-sharded
+tick is reachable through the rings alone, as in the reference.
+
+Not yet ported from the reference: several lanes a slot, and stages on
+more than one card (NCCL and a device list: the process ring's transport
+is gloo, stages on one card).
 """
 from __future__ import annotations
 
@@ -75,7 +86,8 @@ class PipelineBackend(InferenceBackend):
                  impl: str = "ref", cache_layout: str = "contiguous",
                  block_size: int = KV.DEFAULT_BLOCK_SIZE,
                  num_blocks: Optional[int] = None,
-                 prefix_cache: bool = False, device: Device = None):
+                 prefix_cache: bool = False, device: Device = None,
+                 stage_procs: bool = False):
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout={cache_layout!r}: expected "
                              f"'contiguous' or 'paged'")
@@ -119,10 +131,23 @@ class PipelineBackend(InferenceBackend):
             self.prefix = PrefixCache(self.pager.allocator, block_size)
         self._prefix_hits = 0
         self._prefix_hit_tokens = 0
-        self.state = PL.init_pipeline_decode_state(
-            cfg, spec, m, max_len, self.cache_dtype,
-            "paged" if self._paged_exec else "contiguous", self.num_blocks,
-            block_size, self.device)
+        layout = "paged" if self._paged_exec else "contiguous"
+        # on processes each stage holds its own layers' caches: here they
+        # are made on the meta device, for their bytes and their checks
+        state = PL.init_pipeline_decode_state(
+            cfg, spec, m, max_len, self.cache_dtype, layout, self.num_blocks,
+            block_size, "meta" if stage_procs else self.device)
+        caches = state.caches
+        if stage_procs:
+            from repro_torch.core.stage_procs import StageProcs
+            self.ring = StageProcs(
+                cfg, params, spec, n_slots=m, max_len=max_len,
+                cache_dtype=self.cache_dtype, cache_layout=layout,
+                num_blocks=self.num_blocks, block_size=block_size,
+                impl=impl, device=self.device)
+        else:
+            self.ring = PL.StageRing(cfg, params, spec, state, impl)
+        self.state = self.ring.state
         self._bt_dirty = False
 
         self._prompts: Dict[int, np.ndarray] = {}       # slot -> [plen]
@@ -141,7 +166,6 @@ class PipelineBackend(InferenceBackend):
         self._stream_done: Dict[int, bool] = {}  # every chunk queued?
         self._full_tokens: Dict[int, np.ndarray] = {}  # for registration
 
-        caches = self.state.caches
         cache_bytes = _nbytes({id(t): t for c in caches
                                for t in c.values()}.values())
         self._info = BackendInfo(
@@ -204,7 +228,7 @@ class PipelineBackend(InferenceBackend):
                stream_done: bool) -> None:
         """A new occupancy of ``slot`` that teacher-forces ``prompt`` from
         position ``start`` (an adopted prefix's length)."""
-        PL.reset_slot(self.state, slot, start)
+        self.ring.reset_slot(slot, start)
         self._prompts[slot] = prompt
         self._rounds[slot] = 0
         self._gen_ready[slot] = 0
@@ -276,9 +300,7 @@ class PipelineBackend(InferenceBackend):
         return None                                 # stalled (no fresh token)
 
     def _push_table(self) -> None:
-        pool = next(c for c in self.state.caches if "k_pool" in c)
-        pool["bt"].copy_(
-            torch.from_numpy(self.pager.table).to(self.device))
+        self.ring.push_table(self.pager.table.copy())
         self._bt_dirty = False
 
     def decode_step(self, feeds: Dict[int, int]) -> List[SlotEvent]:
@@ -299,13 +321,13 @@ class PipelineBackend(InferenceBackend):
         if self._bt_dirty:
             self._push_table()
         tick = self.state.tick
+        pos = 0
         if valid:
+            pos = self._base[slot] + self._rounds[slot]
             self._inflight[tick] = (slot, self._rounds[slot],
                                     self._epoch.get(slot, 0))
             self._rounds[slot] += 1
-        else:
-            feed = np.zeros(1, np.int32)
-        self._tick(feed, valid)
+        self.ring.tick(int(feed[0]) if valid else 0, valid, pos)
         done = self._inflight.pop(tick - (self.spec.n_stages - 1), None)
         if done is None:
             return []
@@ -315,13 +337,6 @@ class PipelineBackend(InferenceBackend):
             self._maybe_register_prefix(dslot)
             return [SlotEvent(slot=dslot, logits=self._logits(dslot))]
         return []
-
-    def _tick(self, feed: np.ndarray, valid: bool) -> None:
-        with torch.no_grad():
-            PL.pipeline_decode_tick(
-                self.cfg, self.params, self.state,
-                torch.from_numpy(feed.astype(np.int64)).to(self.device),
-                self.spec, impl=self.impl, feed_valid=valid)
 
     def _logits(self, slot: int) -> np.ndarray:
         # a copy: on the CPU .cpu() would alias the ring's buffer
@@ -400,8 +415,10 @@ class PipelineBackend(InferenceBackend):
             tick = self.state.tick
             slot = tick % self._m
             feed: Optional[np.ndarray] = None
+            pos = 0
             if slot in feeds and fed[slot] < len(feeds[slot]):
                 feed = feeds[slot][fed[slot]:fed[slot] + 1]
+                pos = self._base[slot] + self._rounds[slot]
                 self._vflight[tick] = (slot, fed[slot],
                                        self._epoch.get(slot, 0))
                 fed[slot] += 1
@@ -424,7 +441,7 @@ class PipelineBackend(InferenceBackend):
             valid = feed is not None
             if self._bt_dirty:
                 self._push_table()
-            self._tick(feed if valid else np.zeros(1, np.int32), valid)
+            self.ring.tick(int(feed[0]) if valid else 0, valid, pos)
             done_tick = tick - (self.spec.n_stages - 1)
             vdone = self._vflight.pop(done_tick, None)
             if vdone is not None:
@@ -468,7 +485,7 @@ class PipelineBackend(InferenceBackend):
             self._rounds[s] = r0 + e
             self._gen_ready[s] += e
             if e < n and s in self._prompts:
-                PL.rollback_slot(self.state, s, self._base[s] + r0 + e)
+                self.ring.rollback_slot(s, self._base[s] + r0 + e)
         self._pending.clear()
 
     def free_slot(self, slot: int) -> None:
@@ -485,5 +502,10 @@ class PipelineBackend(InferenceBackend):
         # reallocated) pool blocks or on the rows of the slot's next
         # occupant.  The reference kills on the paged layout only; here the
         # kill is a host-side flag, so both layouts take it.
-        PL.kill_slot(self.state, slot)
+        self.ring.kill_slot(slot)
         self._release(slot)
+
+    def close(self) -> None:
+        """Stop the stage processes (``stage_procs=True``); idempotent, and
+        nothing to do for the ring in this process."""
+        self.ring.close()

@@ -100,7 +100,7 @@ class LLM:
                   prefill_chunk: Optional[int] = None,
                   policy=None, max_preemptions: int = 3,
                   spec_k: int = 0, draft="ngram", max_retries: int = 3,
-                  device=None) -> "LLM":
+                  device=None, stage_procs: bool = False) -> "LLM":
         """Plan -> backend -> serving in one call (the paper's Fig. 3 flow).
 
         Runs the EdgeShard joint device-selection + partition DP over
@@ -118,7 +118,9 @@ class LLM:
         ``prefix_cache=True``, adopts cached prompt prefixes; on the
         contiguous layout it reports ``spec_decode=False`` (``spec_k`` then
         serves plain decode) and ignores the prefix cache.  ``prefill_chunk``
-        streams admissions on both layouts.
+        streams admissions on both layouts.  ``stage_procs=True`` runs each
+        planned stage in its own process (the reference's one device a
+        stage); ``llm.backend.close()`` stops them.
         """
         from repro_torch.core.planner import plan_deployment
         from repro_torch.core.profile import Workload
@@ -132,7 +134,8 @@ class LLM:
                                   cache_layout=cache_layout,
                                   block_size=block_size,
                                   num_blocks=num_blocks,
-                                  prefix_cache=prefix_cache, device=device)
+                                  prefix_cache=prefix_cache, device=device,
+                                  stage_procs=stage_procs)
         llm = cls(backend, seed=seed, min_bucket=min_bucket, pad_id=pad_id,
                   prefill_chunk=prefill_chunk, policy=policy,
                   max_preemptions=max_preemptions,

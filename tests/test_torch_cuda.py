@@ -10,7 +10,8 @@ forward through the kernels), the dense configs' shapes (starcoder2's
 group of 9, qwen1.5's 40-head MHA, gemma2's D=256 with softcap and a
 wrapped 4096-key window) and the MoE configs' (granite-moe's g=2 at D=64,
 kimi-k2's 64 heads over 8) in the kernels, and reduced served models of
-each (xlstm-1.3b's too, which runs no kernel).
+each (xlstm-1.3b's too, which runs no kernel), and the stage ring on
+two stage processes against the ring in one process.
 Every test is marked ``cuda`` and skips without a GPU (a CUDA kernel has no
 CPU or interpret mode).  The file imports no jax, so it runs on the GPU
 machine:
@@ -1027,3 +1028,44 @@ def test_served_mixer_config_tokens_kernel_equals_ref(gpu, arch, layout):
         if impl == "cuda":
             assert kernel.launches - before == n_attn * sum(steps)
     assert toks["cuda"] == toks["ref"]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_stage_procs_ring_equals_one_process_on_gpu(gpu, layout):
+    """llama2-7b reduced to 4 layers in bf16 over two stage processes
+    (weights shared by CUDA IPC, activations over gloo): greedy tokens bit
+    for bit the ring in one process's, the decode kernel launched in the
+    stage processes (once a layer and fed token) and never in this one."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("llama2-7b").reduced(n_layers=4),
+                              dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0),
+                         gpu)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (23, 19, 26, 17, 21)]
+    sp = SamplingParams(max_tokens=8)
+    kernel = PA.paged_attention if layout == "paged" else DA.decode_attention
+    toks = {}
+    for procs in (False, True):
+        be = PipelineBackend(cfg, params, PL.PipelineSpec(2, (2, 2)),
+                             n_slots=3, max_len=48, cache_layout=layout,
+                             block_size=8, impl="cuda", stage_procs=procs)
+        try:
+            if procs:
+                be.ring.zero_stats()
+            before = kernel.launches
+            toks[procs] = [o.tokens for o in LLM.from_backend(be).generate(
+                prompts, sp)]
+            fed = sum(len(p) + 7 for p in prompts)
+            if procs:
+                stats = be.ring.stats()
+                assert kernel.launches == before
+                assert sum(s["launches"][kernel.__name__]
+                           for s in stats) == cfg.n_layers * fed
+                assert stats[0]["hop_bytes"] == 2 * cfg.d_model * fed
+            else:
+                assert kernel.launches - before == cfg.n_layers * fed
+        finally:
+            be.close()
+    assert toks[True] == toks[False]
