@@ -88,7 +88,7 @@ exits non-zero and prints no result line; no phase catches its own failure.
    tokens under ``torch.no_grad``, ``impl="cuda"`` (one flash launch per
    layer, no decode kernel) against ``impl="ref"``;
    then, on the same weights, the int8 KV cache (``kv_dtype="int8"``;
-   the six prompts x 16 tokens at ``max_len`` 512): contiguous, the ring
+   the six prompts x 8 tokens at ``max_len`` 512): contiguous, the ring
    kernel over dequantized rings once per layer and decode step; paged,
    paged with ``spec_k=4`` and paged streamed (a shared 256-token prefix,
    the prefix cache, 16-token chunks), each reading the pool by gather as
@@ -101,7 +101,7 @@ exits non-zero and prints no result line; no phase catches its own failure.
    then the pipeline phase, the paper's path: ``LLM.from_plan`` plans
    llama2-7b over the paper's testbed (the throughput DP: 13 uneven
    stages) and serves the plan as the no-bubbles stage pipeline on this
-   card, six requests of 16-48 prompt tokens over its 13 slots x 8 greedy
+   card, four requests of 16-48 prompt tokens over its 13 slots x 8 greedy
    tokens, ``max_len`` 64, on the contiguous layout (the contiguous-ring
    kernel once per layer and fed token) and then the paged one (the paged
    kernel likewise); each serve's logits, which chose its greedy tokens,
@@ -115,9 +115,9 @@ exits non-zero and prints no result line; no phase catches its own failure.
    at 25%): greedy tokens bit for bit the plain paged pipeline serve's,
    drafts accepted, fewer scheduler quanta, the paged kernel once a layer
    and fed token (rejected drafts included); then its streamed admission:
-   three requests sharing a 48-token prefix, plain and then with
+   three requests sharing a 32-token prefix, plain and then with
    16-token chunks, request 0 first so that on the paged layout, with
-   the prefix cache, the other two adopt its prefix blocks (two hits, 96
+   the prefix cache, the other two adopt its prefix blocks (two hits, 64
    fewer fed tokens), on the contiguous layout with chunks alone (no
    hit); each streamed serve's tokens bit for bit its plain serve's and
    its decode kernel once a layer and fed token;
@@ -125,7 +125,7 @@ exits non-zero and prints no result line; no phase catches its own failure.
    llama2-7b four stages of 8 layers, served with each stage in its own
    process (``stage_procs=True``: the weights shared by CUDA IPC, the
    activations handed on over gloo) beside the same plan in this process,
-   8 requests x 8 over 4 slots on the contiguous layout and then the paged
+   4 requests x 8 over 4 slots on the contiguous layout and then the paged
    one: the greedy tokens bit for bit the one-process ring's, the logits
    that chose them within 0.25, the decode kernel's launches summed over
    the stage processes 32 x the fed tokens (the other kernel's and this
@@ -133,10 +133,16 @@ exits non-zero and prints no result line; no phase catches its own failure.
    hop ms a tick, the spawn; then 64 teacher-forced ticks through the
    contiguous serve's ring and a vocab-sharded ring of four processes
    (``token_ready`` equal, logits within 0.25, the vocabulary bytes a
-   stage holds);
+   stage holds); then the mesh phase's ``pipeline_forward``: the same
+   plan on a (2, 4) mesh of 8 processes (``MeshProcs``: the stages over
+   model, each micro-batch's rows over data, the weights shared by CUDA
+   IPC, activations over gloo), 4 x 4096 tokens in 2 micro-batches: 16
+   flash launches in each process and none in this one, the logits within
+   0.25 of the same forward in one process; the phase's ms, the spawn,
+   each process's host, device-wait and hop ms and hop bytes;
    then the fleet phase: a ``Fleet`` of two paged replicas (4 slots each)
    over the same weight tensors is fed ``bursty_trace``'s 24 requests of
-   8-48 prompt tokens x 32 greedy tokens through ``replay``, fault free and
+   8-48 prompt tokens x 16 greedy tokens through ``replay``, fault free and
    with the second replica wrapped in ``FaultInjectionBackend`` crashing at
    its 21st decode call: one quarantine, the crashed replica's work
    recovered on the survivor, every request finished or shed with its
@@ -150,38 +156,47 @@ exits non-zero and prints no result line; no phase catches its own failure.
    through the ``TensorBackend`` on both layouts (gemma2-2b at all 26
    layers, four prompts of 4200-4400 tokens over two slots so that the
    local layers' 4096-key window rings wrap, both softcaps and post-norms;
-   starcoder2-7b at 32 layers, layernorm, biases and a group of 9, also
-   with ``spec_k=4``: 36 verify rows a K/V head; qwen1.5-32b at 16 of its
-   64 layers, qkv bias and MHA at 40 heads; pixtral-12b's decoder at 40
-   layers on token inputs): launches exact, teacher-forced logits within
+   starcoder2-7b at 16 of its 32 layers, layernorm, biases and a group of
+   9, also with ``spec_k=4``: 36 verify rows a K/V head; qwen1.5-32b at
+   16 of its 64 layers, qkv bias and MHA at 40 heads; pixtral-12b's
+   decoder at 20 of its 40 layers on token inputs): launches exact, teacher-forced logits within
    0.25 of ``impl="ref"``, peak device memory; gemma2-2b also scored over
    1 x 4608 tokens (26 flash launches at D=256 with softcap 50, windowed
    on the local layers), pixtral-12b over 1 x 1024 of its vision stub's
-   float embeddings (40 flash launches); then musicgen-large at full width
-   and depth (48 layers, MHA at 32 heads of 64, sinusoidal positions,
+   float embeddings (20 flash launches); then musicgen-large at full width
+   and 24 of its 48 layers (MHA at 32 heads of 64, sinusoidal positions,
    layernorm, GELU): the six prompts on both layouts as the dense
    configs, a contiguous int8 serve (the ring kernel over dequantized
-   rings), its score over 2 x 4096 frontend embeddings (48 flash
+   rings), its score over 2 x 4096 frontend embeddings (24 flash
    launches), and in float32 weights its planned pipeline, whose tokens
    must be bit for bit its TensorBackend's (stage 0 adds the sinusoidal
    positions);  The kernels phase holds every kernel at these
    configs' shapes against its plain version and times it;
    then the mixers, one model at a time: granite-moe-1b-a400m at full
-   width and depth (24 layers of 32 experts top-8) on both layouts, the
+   width and 12 of its 24 layers (32 experts top-8) on both layouts, the
    MoE's host reads of its group sizes counted (one a layer call) and
-   timed, its score (24 flash launches at D=64); the held comparisons in
+   timed, its score (12 flash launches at D=64); the held comparisons in
    float32 weights (in bf16 the reference's expert init amplifies the two
    read paths' rounding, measured and printed): teacher-forced logits and
    the score against ``impl="ref"`` with the ref run replaying the kernel
    run's expert choices, ``train_loss``'s aux against ref's, its planned
    pipeline against the ``TensorBackend``; kimi-k2-1t-a32b at full width
    and 1 of its 61 layers, paged (64 query heads over 8, 384 experts top-8
-   and the shared expert, peak memory); xlstm-1.3b at full width and 24 of
-   its 48 layers (21 mLSTM and 3 sLSTM blocks, no kernel) on both layouts
+   and the shared expert, peak memory); xlstm-1.3b at full width and 8 of
+   its 48 layers (7 mLSTM blocks and 1 sLSTM, no kernel) on both layouts
    with a 2100-token prompt, the paged serve's tokens bit for bit the
    contiguous one's, its prefill wave split into mLSTM and sLSTM time, its planned
    pipeline on both layouts against ``decode_step`` at one slot, and in
-   float32 each mLSTM block's parallel form against its recurrence;
+   float32 at the same depth each mLSTM block's parallel form against its
+   recurrence;
+   then the mesh MoE: granite-moe-1b-a400m at full width and depth,
+   ``forward(mode="train")`` over 2 x 512 tokens on the (2, 4) mesh of
+   processes under ``use_mesh`` (a batch row a data point, every MoE
+   layer on ``moe_ep``, 8 experts a process): in float32 at capacity 8.0
+   one ``moe_ep`` call a layer and process, nothing dropped, the logits
+   within 0.25 of the one-process ``moe_ragged`` forward; in bf16 at 8.0
+   the difference printed, and at its own 1.25 the assignments dropped a
+   layer and the all_to_all bytes;
 5. hybrid  -- recurrentgemma-2b at full width and depth (18 RG-LRU and 8
    local-attention layers, window 2048), random weights from a seed,
    ``max_len`` 4096, six greedy requests over four slots, one prompt of
@@ -243,7 +258,7 @@ ARCH = "llama2-7b"
 SLOTS, MAX_LEN, BLOCK_SIZE = 4, 512, 16
 CONTIGUOUS_MAX_LEN = 4096           # the Llama2 context: 4 x 2 GiB of rings
 PROMPT_LENS = (17, 64, 100, 128, 200, 256)
-MAX_TOKENS = 32
+MAX_TOKENS = 16                     # 32 until the mesh phases took their time
 SPEC_K, ACCEPT_PROB = 4, 0.75
 SEED = 0
 DEVICE = "cuda"
@@ -259,61 +274,81 @@ TRAIN_DATA_VOCAB = 64               # the launcher's synthetic token support
 # prefix plus 16-200 tokens of its own, the prefix cache on, 256-token chunks
 STREAM_REQUESTS, STREAM_SHARED, STREAM_TAIL = 8, 1024, (16, 200)
 STREAM_CHUNK = 256
-STREAM_MAX_LEN = 1280               # 1024 + 200 + 32 = 1256, in whole blocks
+STREAM_MAX_LEN = 1280               # 1024 + 200 + 16 = 1240, in whole blocks
 # the pipeline phase: LLM.from_plan over the paper's testbed (13 planned
 # stages for llama2-7b), PIPE_REQUESTS requests over its 13 slots (13 until
-# the pipeline-procs phase took their time: the serves' time follows the fed
-# tokens), prompts of 16-48 tokens, 8 greedy tokens each; its profiled
+# the pipeline-procs phase took their time, 6 until the mesh phases did: the
+# serves' time follows the fed tokens), prompts of 16-48 tokens, 8 greedy tokens each; its profiled
 # window with one request a slot, so the ring is full; its microbatched
 # forward over the score phase's 2 x 4096 tokens in 2 micro-batches
 PIPE_PROMPT_LENS, PIPE_TOKENS, PIPE_MAX_LEN = (16, 48), 8, 64
-PIPE_REQUESTS, PIPE_MICROBATCHES = 6, 2
+PIPE_REQUESTS, PIPE_MICROBATCHES = 4, 2
 # the pipeline-procs phase: llama2-7b planned over four chips, (8, 8, 8, 8),
-# each stage in its own process; 8 requests of 16-48 tokens x 8 over 4
-# slots on both layouts, beside the same plan in one process; then 64
+# each stage in its own process; 4 requests of 16-48 tokens x 8 over 4
+# slots (8 until the mesh phases took their time) on both layouts, beside the same plan in one process; then 64
 # teacher-forced ticks through a plain and a vocab-sharded ring
-PROCS_CHIPS, PROCS_REQUESTS, PROCS_VOCAB_TICKS = 4, 8, 64
-# the pipeline's streamed serves: requests sharing a 48-token prefix (three
-# blocks of 16) plus 1-16 tokens of their own, 8 greedy tokens each, chunks
-# of 16; the first request alone, then the rest, which adopt its prefix
-PIPE_STREAM_REQUESTS, PIPE_STREAM_SHARED, PIPE_STREAM_TAIL = 3, 48, (1, 16)
+PROCS_CHIPS, PROCS_REQUESTS, PROCS_VOCAB_TICKS = 4, 4, 64
+# the mesh phase: a (2, 4) mesh of processes, one process a point.
+# llama2-7b over four chips' plan, (8, 8, 8, 8), the stages over model:
+# pipeline_forward over 4 x 4096 tokens in 2 micro-batches, each
+# micro-batch's 2 rows over data (a row a process and micro-batch: 32 MiB
+# a hop), against the same forward in one process.  granite-moe at full
+# width and depth: forward(mode="train") over 2 x 512 tokens under
+# use_mesh, every MoE layer on moe_ep (8 of its 32 experts a process), in
+# float32 at capacity factor 8.0 (no token can drop: held to moe_ragged in
+# one process), in bf16 at 8.0 (printed) and at its own 1.25 (drops and
+# all_to_all bytes printed)
+MESH_SHAPE = (2, 4)
+MESH_BATCH, MESH_MICROBATCHES = 4, 2
+MESH_MOE_BATCH, MESH_MOE_LEN, MESH_MOE_CF = 2, 512, 8.0
+# the pipeline's streamed serves: requests sharing a 32-token prefix (two
+# blocks of 16; three until the mesh phases took their time: a token costs
+# a turn of the 13-stage ring) plus 1-16 tokens of their own, 8 greedy
+# tokens each, chunks of 16; the first request alone, then the rest, which
+# adopt its prefix
+PIPE_STREAM_REQUESTS, PIPE_STREAM_SHARED, PIPE_STREAM_TAIL = 3, 32, (1, 16)
 PIPE_STREAM_TOKENS, PIPE_STREAM_CHUNK, PIPE_STREAM_MAX_LEN = 8, 16, 80
 # the dense configs on the TensorBackend: (arch, layers served, None for
 # all; prompt lengths; max_len; slots).  gemma2-2b's prompts of 4200-4400
 # tokens wrap its local layers' 4096-key window, in waves of two slots (a
 # prefill's [B, S, 256000] logits); qwen1.5-32b keeps 16 of its 64 layers
-# (all 64 are 65 GB of bf16 weights)
+# (all 64 are 65 GB of bf16 weights); starcoder2-7b and pixtral-12b half
+# of theirs (all until the mesh phases took their time)
 DENSE_CONFIGS = (
     ("gemma2-2b", None, (4200, 4400, 4300, 4350), 4608, 2),
-    ("starcoder2-7b", None, PROMPT_LENS, MAX_LEN, SLOTS),
+    ("starcoder2-7b", 16, PROMPT_LENS, MAX_LEN, SLOTS),
     ("qwen1.5-32b", 16, PROMPT_LENS, MAX_LEN, SLOTS),
-    ("pixtral-12b", None, PROMPT_LENS, MAX_LEN, SLOTS),
+    ("pixtral-12b", 20, PROMPT_LENS, MAX_LEN, SLOTS),
 )
-DENSE_TOKENS = 16
+DENSE_TOKENS = 8                    # 16 until the mesh phases took their time
 GEMMA_WINDOW, GEMMA_SOFTCAP, GEMMA_LEN = 4096, 50.0, 4608
-# the mixers phase: granite-moe at full width and depth (the llama serve's
-# six prompts over four slots, 16 tokens; its score; its planned pipeline,
-# four requests of 16-48 tokens x 8); kimi-k2 at full width and 1 of its 61
+# the mixers phase: granite-moe at full width and MOE_LAYERS of its 24
+# layers (the llama serve's six prompts over four slots, MIXER_TOKENS
+# tokens; its score; its planned pipeline, four requests of 16-48 tokens x
+# 8; all 24 layers and 16 tokens until the mesh phases took their time:
+# the mesh MoE runs all 24); kimi-k2 at full width and 1 of its 61
 # layers (one layer's 384 experts are 34 GB of bf16, two layers would not
 # leave room for a cache on an 80 GB card), four prompts of 16-256 tokens
 # x 8; xlstm-1.3b at full width and XLSTM_LAYERS layers, the six prompts
-# and one of 2100 tokens x 16, its planned pipeline as granite-moe's; its
+# and one of 2100 tokens x MIXER_TOKENS, its planned pipeline as granite-moe's; its
 # parallel prefill held to its own recurrence over a 128-token prompt
 MOE_ARCH, KIMI_ARCH, XLSTM_ARCH = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b",
                                    "xlstm-1.3b")
-MIXER_TOKENS, MIXER_PIPE_REQUESTS = 16, 4
+MIXER_TOKENS, MIXER_PIPE_REQUESTS = 8, 4
+MOE_LAYERS = 12
 KIMI_LAYERS, KIMI_PROMPT_LENS, KIMI_TOKENS = 1, (16, 64, 128, 256), 8
 XLSTM_PROMPT_LENS = PROMPT_LENS + (2100,)
-# xlstm-1.3b's depth in the mixers phase: 24 of its 48 layers (three
-# 8-block periods, so the pipeline keeps whole periods), which halves its
-# sLSTM loops (174 s of the script at full depth, PR 26) and keeps the
-# script inside its time limit with this slice's phases
-XLSTM_LAYERS = 24
+# xlstm-1.3b's depth in the mixers phase: 8 of its 48 layers (one 8-block
+# period, so the pipeline keeps whole periods; 24, then 16, until the mesh
+# phases took their time), a sixth of its sLSTM loops (174 s of the script
+# at full depth), which keeps the script inside its time limit; its float32
+# block checks at the same depth (all 48 layers until then)
+XLSTM_LAYERS = 8
 XLSTM_RECURRENT_LEN = 128
 # the reference's own parallel-equals-recurrent tolerance
 # (tests/test_models.py::test_mlstm_parallel_equals_recurrent), float32
 RECURRENT_TOL = dict(rtol=2e-4, atol=2e-4)
-# train_loss's load-balance aux (24 layers' Switch terms, ~1 each) through
+# train_loss's load-balance aux (MOE_LAYERS layers' Switch terms, ~1 each) through
 # the kernels against impl="ref", in float32 weights: the two paths'
 # hidden states differ by the attention's rounding, which can move a
 # token's top expert (each move shifts a layer's term by about 1/8192 of
@@ -321,7 +356,7 @@ RECURRENT_TOL = dict(rtol=2e-4, atol=2e-4)
 AUX_RTOL = 1e-2
 # the fleet phase: two paged replicas of llama2-7b (4 slots each) over one
 # set of weights, bursty_trace's 24 requests (prompts of 8-48 tokens) with
-# 32 greedy tokens each, fault free and with a crash of the second replica
+# MAX_TOKENS greedy tokens each, fault free and with a crash of the second replica
 FLEET_REQUESTS, FLEET_MAX_LEN, FLEET_POLICY = 24, 128, "edf"
 FLEET_CRASH = "crash@decode_step:20"
 LAUNCHER_ARGV = ["--arch", ARCH, "--impl", "cuda", "--cache-layout", "paged",
@@ -330,21 +365,23 @@ LAUNCHER_ARGV = ["--arch", ARCH, "--impl", "cuda", "--cache-layout", "paged",
                  "--policy", "edf", "--ttft-slo", "64", "--inject-faults",
                  "transient@decode_step:5x2", "--max-retries", "3"]
 # the int8 KV cache and the chunked impl on llama2-7b's loaded weights: the
-# llama serve's six prompts x 16 tokens over 4 slots at max_len 512 on both
+# llama serve's six prompts x KV8_TOKENS tokens over 4 slots at max_len 512 on both
 # layouts, the paged one also with spec and streamed (4 requests sharing a
 # 256-token prefix plus 16-64 tokens of their own, the prefix cache on,
 # 16-token chunks); the chunked forward over 1 x 4096
-KV8_TOKENS = 16
+KV8_TOKENS = 8                      # 16 until the mesh phases took their time
 KV8_STREAM_REQUESTS, KV8_STREAM_SHARED, KV8_STREAM_TAIL = 4, 256, (16, 64)
 KV8_STREAM_CHUNK = 16
 CHUNKED_LEN = 4096
-# musicgen-large at full width and depth (48 layers, MHA at 32 heads of 64,
-# a 2048-word audio vocabulary): the six prompts x 16 tokens on both
+# musicgen-large at full width and MUSICGEN_LAYERS of its 48 layers (MHA
+# at 32 heads of 64, a 2048-word audio vocabulary; all 48 and 16 tokens
+# until the mesh phases took their time): the six prompts x
+# MUSICGEN_TOKENS on both
 # layouts and with the int8 cache, its score over 2 x 4096 frontend
 # embeddings, its planned pipeline in float32; pixtral-12b's score over
 # 1 x 1024 of its vision stub's embeddings
 MUSICGEN = "musicgen-large"
-MUSICGEN_TOKENS = 16
+MUSICGEN_TOKENS, MUSICGEN_LAYERS = 8, 24
 PIXTRAL_FRONTEND_LEN = 1024
 # the int8 matmul: the JAX kernel test's shapes (M, K, N), and llama2-7b's
 # projections (K x N: q/k/v/o, gate/up, down) at a decode step of 4 slots
@@ -702,17 +739,23 @@ def check_ring(da):
     against its plain version, bit-identical on a second call, masked ring
     rows never read; returns the largest error."""
     from paged_cases import ring_case
+
+    def dead(name):
+        return (1,) if name.startswith("fully masked") else ()
+
+    def case(i):
+        name, shape, opts = RING_CASES[i]
+        return ring_case(*shape, seed=300 + i, dead=dead(name),
+                         wrap_pos=RING_WRAP.get(opts.get("window")))
+    cases = drawn(case, len(RING_CASES))     # each drawn once, for both dtypes
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
         for i, (name, shape, opts) in enumerate(RING_CASES):
-            dead = (1,) if name.startswith("fully masked") else ()
-            x = to_device(ring_case(*shape, seed=300 + i, dead=dead,
-                                    wrap_pos=RING_WRAP.get(
-                                        opts.get("window"))), dtype)
+            x = to_device(cases[i], dtype)
             got, err, extra = compare(name, da.decode_attention,
                                       da.decode_attention_plain, x, opts,
-                                      dtype, dead)
+                                      dtype, dead(name))
             worst = max(worst, err)
             if not torch.equal(da.decode_attention(**x, **opts), got):
                 raise AssertionError(f"{name}: two calls on the same inputs "
@@ -929,6 +972,16 @@ def time_ms(fn, n_sets, iters=200, warmup=10, graph=True):
     return start.elapsed_time(end) / iters
 
 
+def drawn(case, n_sets):
+    """``case(i)`` for i < ``n_sets``, drawn in threads: numpy's generators
+    release the GIL while they fill an array, and one set of a 4096-key
+    ring takes seconds on one core.  Each case seeds its own generator,
+    so the sets are those of a loop."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(min(n_sets, 8)) as pool:
+        return list(pool.map(case, range(n_sets)))
+
+
 def paged_sets(kq, max_len=MAX_LEN, n_sets=4, slots=SLOTS,
                heads=(32, 32, 128)):
     """``n_sets`` seeded bf16 inputs of paged_attention at a paged serve's
@@ -937,11 +990,11 @@ def paged_sets(kq, max_len=MAX_LEN, n_sets=4, slots=SLOTS,
     of K/V, past the L2."""
     from paged_cases import paged_case
     h, kh, d = heads
-    return [to_device(paged_case(slots, h, kh, d, BLOCK_SIZE,
-                                 max_len // BLOCK_SIZE,
-                                 (max_len - kq + 1,) * slots, kq,
-                                 seed=200 + i), torch.bfloat16)
-            for i in range(n_sets)]
+    cases = drawn(lambda i: paged_case(slots, h, kh, d, BLOCK_SIZE,
+                                       max_len // BLOCK_SIZE,
+                                       (max_len - kq + 1,) * slots, kq,
+                                       seed=200 + i), n_sets)
+    return [to_device(case, torch.bfloat16) for case in cases]
 
 
 def time_paged(pa, card, kq, max_len=MAX_LEN, slots=SLOTS, n_sets=4,
@@ -1012,18 +1065,17 @@ def decode_sets(n_valid, heads=(32, 32, 128), c=CONTIGUOUS_MAX_LEN,
     at that position."""
     from paged_cases import ring_case
     h, kh, d = heads
-    sets = []
-    for i in range(n_sets):
+
+    def case(i):
         if wrap_pos is None:
-            case = ring_case(slots, h, kh, d, c, (n_valid,) * slots,
+            return ring_case(slots, h, kh, d, c, (n_valid,) * slots,
                              seed=400 + i)
-        else:
-            case = ring_case(slots, h, kh, d, c, c, seed=400 + i,
-                             wrap_pos=wrap_pos)
-            case["key_pos"] = np.tile(case["key_pos"], (slots, 1))
-            case["pos"] = np.full(slots, wrap_pos, np.int32)
-        sets.append(to_device(case, torch.bfloat16))
-    return sets
+        case = ring_case(slots, h, kh, d, c, c, seed=400 + i,
+                         wrap_pos=wrap_pos)
+        case["key_pos"] = np.tile(case["key_pos"], (slots, 1))
+        case["pos"] = np.full(slots, wrap_pos, np.int32)
+        return case
+    return [to_device(x, torch.bfloat16) for x in drawn(case, n_sets)]
 
 
 def time_decode(da, card, n_valid, heads=(32, 32, 128),
@@ -2058,8 +2110,8 @@ def serve_layouts(model, kernels, card, label, max_len, slots, n_tokens):
 
 def serve_dense(kernels, card):
     """The reference's dense configs on the TensorBackend, one model at a
-    time at full width (DENSE_CONFIGS: full depth but qwen1.5-32b's 16 of
-    64 layers), random weights from SEED: greedy serves on the paged and
+    time at full width (DENSE_CONFIGS: gemma2-2b at full depth, the others
+    cut), random weights from SEED: greedy serves on the paged and
     the contiguous layout, the paged kernel or the ring kernel once a
     layer and decode step and the other never, teacher-forced logits
     within ``LOGITS_ATOL`` of ``impl="ref"``; starcoder2-7b also with
@@ -2078,7 +2130,8 @@ def serve_dense(kernels, card):
         cfg, full = model.cfg, get_config(arch)
         g = cfg.n_heads // cfg.n_kv_heads
         windows = sorted({str(s.window) for s in cfg.layer_specs()})
-        cut = "" if n_layers is None else " (cut to fit one card)"
+        cut = "" if n_layers is None else " (cut to fit one card)" \
+            if arch == "qwen1.5-32b" else " (cut for the script's time)"
         print(f"dense {arch}: {cfg.n_layers} of {full.n_layers} layers{cut}"
               f", d_model {cfg.d_model}, H={cfg.n_heads} KH={cfg.n_kv_heads} "
               f"(g={g}) D={cfg.resolved_head_dim}, windows {windows}, "
@@ -2389,25 +2442,25 @@ def serve_chunked(model, kernels, card):
 
 
 def serve_musicgen(kernels, card):
-    """musicgen-large at full width and depth, random weights from SEED:
+    """musicgen-large at full width and ``MUSICGEN_LAYERS`` of its 48
+    layers, random weights from SEED:
     the six prompts (audio tokens below 2048) x ``MUSICGEN_TOKENS`` on both
     layouts (:func:`serve_layouts`), a contiguous int8 serve (the ring
     kernel over dequantized rings), the score over 2 x 4096 of its
     frontend's float embeddings (the flash kernel once a layer), then, in
     float32 weights, its planned stage pipeline, whose tokens must be bit
     for bit its TensorBackend's.  Returns the launches by path."""
-    from repro_torch.configs import get_config
     from repro_torch.training.adamw import tree_leaves
     t_model = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = Model(MUSICGEN)
+    model = Model(MUSICGEN, n_layers=MUSICGEN_LAYERS)
     cfg = model.cfg
     n_params = sum(t.numel() for t in tree_leaves(model.params))
-    print(f"musicgen {MUSICGEN}: {cfg.n_layers} layers, d_model "
+    print(f"musicgen {MUSICGEN}: {cfg.n_layers} of 48 layers, d_model "
           f"{cfg.d_model}, H=KH={cfg.n_heads} D={cfg.resolved_head_dim}, "
           f"{cfg.pattern[0].mlp} MLP, {cfg.norm}, {cfg.pos_emb} positions, "
           f"vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B parameters "
-          f"(param_count() {get_config(MUSICGEN).param_count() / 1e9:.3f} B,"
+          f"(param_count() {cfg.param_count() / 1e9:.3f} B,"
           f" which counts no layernorm bias), "
           f"{n_params * 2 / 1e9:.2f} GB of bf16 weights from seed {SEED} in "
           f"{model.init_s:.1f} s")
@@ -2435,7 +2488,7 @@ def serve_musicgen(kernels, card):
     del model, m8, got
     gc.collect()
     torch.cuda.empty_cache()
-    model = Model(MUSICGEN, dtype="float32")
+    model = Model(MUSICGEN, n_layers=MUSICGEN_LAYERS, dtype="float32")
     out["pipeline"] = mixer_pipeline(model, kernels, card,
                                      f"musicgen {MUSICGEN} float32",
                                      ("contiguous",),
@@ -2725,8 +2778,8 @@ def mixer_pipeline(model, kernels, card, label, layouts, recurrent=False,
 
 
 def serve_granite(kernels, card):
-    """granite-moe-1b-a400m at full width and depth: 24 attention layers,
-    each with 32 experts top-8 (the MoE's host read of its group sizes once
+    """granite-moe-1b-a400m at full width, ``MOE_LAYERS`` of its 24
+    attention layers, each with 32 experts top-8 (the MoE's host read of its group sizes once
     a layer call).  In bf16: serves on both layouts (launches, tokens, the
     reads, step times) and its score through the flash kernel at D=64,
     their logits against ``impl="ref"`` measured.  In float32 weights, the
@@ -2742,11 +2795,12 @@ def serve_granite(kernels, card):
     from repro_torch.training.adamw import tree_leaves
     t_model = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = Model(MOE_ARCH, PROMPT_LENS)
+    model = Model(MOE_ARCH, PROMPT_LENS, MOE_LAYERS)
     cfg = model.cfg
     moe = cfg.pattern[0].moe
     n_params = sum(t.numel() for t in tree_leaves(model.params))
-    print(f"mixers {MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}"
+    print(f"mixers {MOE_ARCH}: {cfg.n_layers} of 24 layers, d_model "
+          f"{cfg.d_model}"
           f", H={cfg.n_heads} KH={cfg.n_kv_heads} D={cfg.resolved_head_dim},"
           f" {moe.num_experts} experts top-{moe.top_k} of width "
           f"{moe.d_expert}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
@@ -2781,7 +2835,7 @@ def serve_granite(kernels, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    model = Model(MOE_ARCH, PROMPT_LENS, dtype="float32")
+    model = Model(MOE_ARCH, PROMPT_LENS, MOE_LAYERS, dtype="float32")
     for layout in ("contiguous", "paged"):
         mixer_logits(model, card, f"mixers {MOE_ARCH} float32", layout,
                      MAX_LEN, served[layout], MIXER_TOKENS)
@@ -2938,13 +2992,13 @@ def mlstm_blocks_parallel_vs_recurrent(cfg, params, prompt):
 
 def serve_xlstm(kernels, card):
     """xlstm-1.3b at full width and ``XLSTM_LAYERS`` of its 48 layers
-    (three whole 8-block periods: 21 mLSTM and 3 sLSTM blocks), no
+    (one whole 8-block period: 7 mLSTM blocks and 1 sLSTM), no
     attention layer, so no kernel runs.  The contiguous serve and the paged
     one (an empty pool: the contiguous machinery), tokens bit for bit
     equal; the prefill wave's time split into mLSTM and sLSTM blocks; the
     planned pipeline on both layouts against ``decode_step`` at one slot;
-    in float32 weights each mLSTM block's parallel form against its
-    recurrence, and the whole model's parallel prefill against its
+    in float32 weights (the same depth) each mLSTM block's parallel form
+    against its recurrence, and the whole model's parallel prefill against its
     recurrence measured in bf16 and float32."""
     from repro_torch.models import transformer as T
     from repro_torch.serving import SamplingParams
@@ -3054,7 +3108,8 @@ def serve_xlstm(kernels, card):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    model = Model(XLSTM_ARCH, XLSTM_PROMPT_LENS, dtype="float32")
+    model = Model(XLSTM_ARCH, XLSTM_PROMPT_LENS, XLSTM_LAYERS,
+                  dtype="float32")
     n, worst = mlstm_blocks_parallel_vs_recurrent(model.cfg, model.params,
                                                   prompt)
     print(f"mixers {XLSTM_ARCH} float32: each of {n} mLSTM blocks on its "
@@ -3857,6 +3912,207 @@ def vocab_ticks(model, be, spec, card):
                              f"against {ready}")
 
 
+def mesh_rows(label, got, want):
+    """The max abs difference of two [B, S, V] logits and their argmax
+    agreement, a row at a time; raises on a non-finite logit."""
+    diff = agree = 0
+    for row in range(got.shape[0]):
+        a, b = got[row].float(), want[row].float()
+        if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        diff = max(diff, (a - b).abs().max().item())
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+    return diff, agree
+
+
+def mesh_stats(label, procs, card):
+    """Each mesh process's totals a line: host, device-wait and hop ms,
+    hop bytes, flash launches."""
+    stats = procs.stats()
+    for rank, st in enumerate(stats):
+        print(f"{label}: process {rank} {procs.mesh.coords(rank)}: host "
+              f"{st['host_s'] * 1e3:.3f} ms, device wait "
+              f"{st['device_s'] * 1e3:.3f} ms, hop {st['hop_s'] * 1e3:.3f} "
+              f"ms, hop bytes {st['hop_bytes']}, flash_attention launches "
+              f"{st['launches']['flash_attention']} [{card}]")
+    return stats
+
+
+def mesh_pipeline(model, kernels, card):
+    """The mesh phase's ``pipeline_forward``: llama2-7b's four-chip plan
+    on a (2, 4) mesh of processes (stages over model, each micro-batch's
+    rows over data; the weights shared by CUDA IPC, held once for the two
+    data replicas of a stage; activations over gloo) against the same
+    forward in one process.  Held: 16 flash launches in each process (8
+    layers x 2 micro-batches), 128 summed and none in this process, and
+    the logits within ``LOGITS_ATOL`` (bf16 products at one row a process
+    against two rows a micro-batch in one process may round apart, as the
+    score phase's kernels against ref).  Returns the summed launches."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.devices import tpu_pod_cluster
+    from repro_torch.core.mesh_procs import MeshProcs
+    from repro_torch.core.profile import Workload
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime.factory import plan_pipeline_spec
+    cfg = model.cfg
+    mesh = make_test_mesh(*MESH_SHAPE)
+    spec = plan_pipeline_spec(cfg, tpu_pod_cluster(n_chips=PROCS_CHIPS),
+                              PROCS_CHIPS, Workload(dtype_bytes=2))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, (MESH_BATCH, SCORE_LEN))).to(DEVICE)
+    t_phase = time.perf_counter()
+    for fn in kernels.values():
+        fn.launches = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = PL.pipeline_forward(cfg, model.params, tokens, spec,
+                                   MESH_MICROBATCHES, impl="cuda")
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+    one = kernels["flash_attention"].launches
+    t0 = time.perf_counter()
+    procs = MeshProcs(cfg, model.params, mesh, impl="cuda", device=DEVICE)
+    spawn_s = time.perf_counter() - t0
+    try:
+        procs.pipeline_forward(tokens, spec, MESH_MICROBATCHES)   # warm-up
+        procs.zero_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = procs.pipeline_forward(tokens, spec, MESH_MICROBATCHES)
+        secs = time.perf_counter() - t0
+        host = {n: fn.launches for n, fn in kernels.items()}
+        stats = mesh_stats("mesh pipeline_forward", procs, card)
+    finally:
+        procs.close()
+    per = [st["launches"]["flash_attention"] for st in stats]
+    each = spec.periods_per_stage[0] * cfg.period * MESH_MICROBATCHES
+    if spec.periods_per_stage != (8, 8, 8, 8) or per != [each] * mesh.size \
+            or any(host.values()) or one != cfg.n_layers * MESH_MICROBATCHES \
+            or any(sum(st["launches"][n] for st in stats)
+                   for n in kernels if n != "flash_attention"):
+        raise AssertionError(f"mesh pipeline_forward: spec {spec}, flash "
+                             f"launches per process {per} (expected "
+                             f"{each} each), in this process {host}, in "
+                             f"the one-process forward {one}")
+    diff, agree = mesh_rows("mesh pipeline_forward", got, want)
+    hop = [st["hop_bytes"] for st in stats]
+    print(f"mesh pipeline_forward: {cfg.name} periods per stage "
+          f"{spec.periods_per_stage} (tpu_pod_cluster(n_chips={PROCS_CHIPS}))"
+          f" on a {mesh.shape} mesh of {mesh.size} processes: "
+          f"{MESH_BATCH} x {SCORE_LEN} tokens in {MESH_MICROBATCHES} "
+          f"micro-batches, {MESH_BATCH // MESH_MICROBATCHES // MESH_SHAPE[0]}"
+          f" row a process and micro-batch; {secs * 1e3:.1f} ms (the "
+          f"one-process forward {one_s * 1e3:.1f} ms, its first call); "
+          f"spawn {spawn_s:.2f} s; flash_attention launches {per} = "
+          f"{sum(per)} summed, none in this process; hop bytes {hop} "
+          f"({max(hop) // MESH_MICROBATCHES} a hop); logits against the "
+          f"one-process pipeline_forward max abs diff {diff:.4g} (atol "
+          f"{LOGITS_ATOL}), argmax agreement {agree}/{MESH_BATCH * SCORE_LEN}"
+          f" [{card}]")
+    if diff > LOGITS_ATOL:
+        raise AssertionError(f"mesh pipeline_forward: logits {diff:.4g} "
+                             f"from the one-process forward's")
+    del got, want
+    torch.cuda.empty_cache()
+    print(f"mesh pipeline_forward: phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s [{card}]")
+    return sum(per)
+
+
+def mesh_moe(kernels, card):
+    """The mesh phase's expert-parallel MoE: granite-moe-1b-a400m at full
+    width and depth, ``forward(mode="train")`` over 2 x 512 tokens on a
+    (2, 4) mesh of processes under ``use_mesh`` (a batch row a data point,
+    the dense weights whole on every process, every MoE layer on
+    ``moe_ep`` with 8 of the 32 experts a process).  Held, in float32
+    weights at capacity factor 8.0 (no token can drop): every process
+    made one ``moe_ep`` call a layer, dropping nothing, and the logits are
+    within ``LOGITS_ATOL`` of the one-process ``moe_ragged`` forward's (a
+    top-k choice can trade on a last-bit difference of the router's
+    products, as in the mixers phase).  Printed: in bf16 at 8.0 the
+    difference (the reference's init amplifies bf16 rounding), and
+    at the config's own 1.25 the tokens dropped per layer and the
+    all_to_all bytes.  Returns each process's flash launches."""
+    import dataclasses
+
+    from repro_torch.core.mesh_procs import MeshProcs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    mesh = make_test_mesh(*MESH_SHAPE)
+    t_phase = time.perf_counter()
+    launches = None
+    for dtype in ("float32", "bfloat16"):
+        model = Model(MOE_ARCH, PROMPT_LENS, dtype=dtype)
+        own = model.cfg
+        wide = dataclasses.replace(own, pattern=tuple(
+            dataclasses.replace(s, moe=dataclasses.replace(
+                s.moe, capacity_factor=MESH_MOE_CF)) if s.moe else s
+            for s in own.pattern))
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+            0, own.vocab_size, (MESH_MOE_BATCH, MESH_MOE_LEN))).to(DEVICE)
+        with torch.no_grad():
+            want, _ = T.forward(wide, model.params, tokens, mode="train",
+                                impl="cuda")
+        t0 = time.perf_counter()
+        procs = MeshProcs(wide, model.params, mesh, impl="cuda",
+                          device=DEVICE)
+        spawn_s = time.perf_counter() - t0
+        try:
+            for cfg in ((wide, own) if dtype == "bfloat16" else (wide,)):
+                cf = cfg.pattern[0].moe.capacity_factor
+                label = f"mesh {MOE_ARCH} {dtype} capacity {cf:g}"
+                procs.zero_stats()
+                t0 = time.perf_counter()
+                got = procs.forward(tokens, cfg)
+                secs = time.perf_counter() - t0
+                stats = procs.stats()
+                calls = [len(st["moe"]) for st in stats]
+                dropped = [sum(st["moe"][l]["dropped"] for st in stats)
+                           for l in range(own.n_layers)]
+                rows = sum(st["moe"][0]["rows"] for st in stats)
+                a2a = stats[0]["moe"][0]["a2a_bytes"]
+                per_rank = own.pattern[0].moe.num_experts // MESH_SHAPE[1]
+                if calls != [own.n_layers] * mesh.size:
+                    raise AssertionError(f"{label}: moe_ep calls per "
+                                         f"process {calls}")
+                print(f"{label}: forward(mode='train') over "
+                      f"{MESH_MOE_BATCH} x {MESH_MOE_LEN} tokens on a "
+                      f"{mesh.shape} mesh of processes, {own.n_layers} MoE "
+                      f"layers on moe_ep ({per_rank} experts a process, "
+                      f"capacity "
+                      f"{stats[0]['moe'][0]['cap']} a process and expert): "
+                      f"{secs:.2f} s (spawn {spawn_s:.2f} s); assignments "
+                      f"dropped per layer {dropped} of {rows}; all_to_all "
+                      f"bytes a process and layer {a2a} "
+                      f"({a2a * own.n_layers * mesh.size / 1e9:.2f} GB in "
+                      f"all) [{card}]")
+                mesh_stats(label, procs, card)
+                if cfg is not wide:
+                    continue
+                diff, agree = mesh_rows(label, got, want)
+                held = dtype == "float32"
+                print(f"{label}: logits against the one-process moe_ragged "
+                      f"forward max abs diff {diff:.4g} "
+                      + (f"(atol {LOGITS_ATOL})" if held else
+                         "(measured, not held)")
+                      + f", argmax agreement {agree}/"
+                      f"{MESH_MOE_BATCH * MESH_MOE_LEN} [{card}]")
+                if held and (diff > LOGITS_ATOL or any(dropped)):
+                    raise AssertionError(f"{label}: logits {diff:.4g} "
+                                         f"apart, dropped {dropped}")
+                launches = [st["launches"]["flash_attention"]
+                            for st in stats]
+        finally:
+            procs.close()
+        del model, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"mesh {MOE_ARCH}: phase wall {time.perf_counter() - t_phase:.2f} "
+          f"s [{card}]")
+    return launches
+
+
 def pipe_stream_prompts(cfg):
     """``PIPE_STREAM_REQUESTS`` prompts from SEED + 2: one shared
     ``PIPE_STREAM_SHARED``-token prefix, then 1-16 seeded tokens of each
@@ -3887,8 +4143,8 @@ def stream_serve(llm, prompts, sp, staged):
 
 
 def serve_pipeline_streamed(model, kernels, card):
-    """Streamed admission on the stage pipeline: prompts sharing a 48-token
-    prefix, served plain, then with ``prefill_chunk=16`` and (paged) the
+    """Streamed admission on the stage pipeline: prompts sharing a
+    ``PIPE_STREAM_SHARED``-token prefix, served plain, then with ``prefill_chunk=16`` and (paged) the
     prefix cache, request 0 first so the rest adopt its prefix blocks.  On
     each layout the streamed serve's greedy tokens equal the plain serve's
     bit for bit (every fed token is the same tick at the same position;
@@ -4087,7 +4343,11 @@ def train_phase(fa, card):
 def device_share(label, what, run, card):
     """The card's busy share over one profiled call of ``run`` (``what``
     says what it does), and the device time by kernel.  The profiler adds
-    host time, so the busy share it shows is a lower bound."""
+    host time, so the busy share it shows is a lower bound.
+
+    The device events are read from the profiler's raw results: building
+    its Python event tree (``prof.events()``) over the host ops of a
+    serve's window takes tens of seconds, and none of it is read here."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4096,10 +4356,11 @@ def device_share(label, what, run, card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
+    results = prof.profiler.kineto_results
+    for e in results.events() if results is not None else ():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) \
+                + (e.end_ns() - e.start_ns()) / 1e3
     busy = sum(by_name.values())
     if not busy:
         print(f"{label}: device busy share not measured (the profiler saw "
@@ -4399,6 +4660,8 @@ def main():
     done("the pipeline's spec and streamed serves")
     pipe_procs = serve_pipeline_procs(model, wrappers, card)
     done("the pipeline procs phase")
+    mesh_pipe = mesh_pipeline(model, wrappers, card)
+    done("the mesh pipeline_forward")
     fleet = serve_fleet(model, pa, da, card)
     del model                       # 13.48 GB of llama2-7b weights
     gc.collect()
@@ -4415,6 +4678,8 @@ def main():
     kimi = serve_kimi(wrappers, card)
     serve_xlstm(wrappers, card)
     done("the mixers")
+    mesh_moe(wrappers, card)
+    done("the mesh MoE")
     model = Model(HYBRID, HYBRID_PROMPT_LENS)
     hybrid = serve_hybrid(model, pa, da, rs, card)
     hybrid_scored = score(model, wrappers, card)
@@ -4503,6 +4768,10 @@ def main():
         entry("paged_attention pipeline", "paged_attention@pipeline procs",
               "paged_attention.cu", "decode_attention.py:201",
               pipe_procs["paged"]),
+        # pipeline_forward on the (2, 4) mesh of processes: launches summed
+        # over the 8 processes (1 x 4096 a call, the flash row's shape)
+        entry("flash_attention", "flash_attention@pipeline mesh",
+              "flash_attention.cu", "flash_attention.py:86", mesh_pipe),
         # the dense configs on both layouts, starcoder2-7b's verify and
         # gemma2-2b's score
         *(entry(f"{kind} {arch}", f"{kind}@{arch}", source,

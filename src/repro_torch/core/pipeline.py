@@ -9,7 +9,8 @@ over a mesh axis.  Here :class:`StageRing` runs every stage in this process,
 one after another, and :mod:`repro_torch.core.stage_procs` one process a
 stage, all at the same time, over the same pieces (:func:`stage_decode`,
 :func:`ring_turn`, :func:`ring_advance`, the slot operations and the
-vocabulary shards).  In this process:
+vocabulary shards); :mod:`repro_torch.core.mesh_procs` runs the scoring
+forward over a ``(data, model)`` mesh of processes.  In this process:
 
 - a stage is a range of ``params["layers"]`` (:func:`stage_layers`).  It
   holds references to the model's own layer tensors: nothing is restacked
@@ -159,11 +160,15 @@ def _run_stage(cfg: ModelConfig, params: Dict, layers: range,
 def pipeline_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                      spec: PipelineSpec, n_microbatches: int,
                      impl: str = "ref") -> torch.Tensor:
-    """GPipe-style microbatched train-mode forward. tokens [B, S] (or a
-    frontend's float embeddings [B, S, d]) -> logits [B, S, V].  At step t stage s runs micro-batch ``t - s``; the last
-    stage's outputs, in micro-batch order, go through the final norm and
-    the LM head.  ``impl="cuda"`` runs the flash-attention kernel in every
-    stage's layers (no backward: call it under ``torch.no_grad``)."""
+    """GPipe-style microbatched train-mode forward, every stage in this
+    process. tokens [B, S] (or a frontend's float embeddings [B, S, d]) ->
+    logits [B, S, V].  At step t stage s runs micro-batch ``t - s``; the
+    last stage's outputs, in micro-batch order, go through the final norm
+    and the LM head.  ``impl="cuda"`` runs the flash-attention kernel in
+    every stage's layers (no backward: call it under ``torch.no_grad``).
+    Its counterpart across processes, the reference's over a mesh (stages
+    over one axis, each micro-batch's rows over others), is
+    :meth:`repro_torch.core.mesh_procs.MeshProcs.pipeline_forward`."""
     b, s = tokens.shape[:2]
     m = n_microbatches
     if b % m:

@@ -40,10 +40,15 @@ rendezvous through a file in a temporary directory, so no TCP port), and
   not answer within ``timeout``), after stopping every stage.  Nothing
   falls back to the ring in one process.
 
-The host builds the kernel library before it spawns, so the stages load it
-and do not each run ``nvcc``.  :meth:`StageProcs.stats` gathers each
-stage's kernel launches (the wrappers' ``.launches``) and its seconds:
-dispatching its layers, waiting for the device, and in the hop.
+The process machinery is shared with the mesh of processes
+(:mod:`repro_torch.core.mesh_procs`): :class:`ProcGroup` spawns, answers
+and stops the processes, :func:`_proc_main` is a process's life around its
+worker object, and :class:`Comm` runs its collectives through staging
+buffers on the host.  The host builds the kernel library before it spawns,
+so the processes load it and do not each run ``nvcc``.
+:meth:`StageProcs.stats` gathers each stage's kernel launches (the
+wrappers' ``.launches``) and its seconds: dispatching its layers, waiting
+for the device, and in the hop.
 """
 from __future__ import annotations
 
@@ -79,12 +84,15 @@ KERNELS = ("decode_attention", "paged_attention", "flash_attention",
 
 
 class StageProcError(RuntimeError):
-    """A stage process failed (``rank``, with its traceback in the
-    message), or stages did not answer in time (``rank`` None)."""
+    """A process failed (``rank``, with its traceback in the message), or
+    processes did not answer in time (``rank`` None); ``kind`` names them
+    ("stage", or "mesh" for :mod:`repro_torch.core.mesh_procs`)."""
 
-    def __init__(self, rank: Optional[int], detail: str):
+    def __init__(self, rank: Optional[int], detail: str,
+                 kind: str = "stage"):
         self.rank = rank
-        who = "stage processes" if rank is None else f"stage process {rank}"
+        who = f"{kind} processes" if rank is None \
+            else f"{kind} process {rank}"
         super().__init__(f"{who}: {detail}")
 
 
@@ -122,7 +130,118 @@ def vocab_bytes(params: Dict) -> int:
     return sum(views.values())
 
 
-class StageProcs:
+class ProcGroup:
+    """Processes in one ``gloo`` group, spawned by this process (the host)
+    and driven by it one command at a time: each process builds its worker
+    (``worker(rank, job, dist)``, a class its module defines) from its job,
+    then answers every command with ``worker.handle(msg)``.  A process
+    that raises sends its traceback and exits; the host then raises
+    :class:`StageProcError` naming it, after stopping every process.
+    :meth:`close` stops them all and is idempotent."""
+
+    #: the processes' name in errors
+    kind = "stage"
+
+    def _spawn(self, worker, jobs: Sequence[Dict], *, impl: str,
+               device: torch.device, timeout: float) -> None:
+        """Start one process a job (rank = index), in one ``gloo`` group
+        whose rendezvous is a file in a temporary directory, and wait for
+        every first answer.  ``impl`` is the processes' (an unknown one
+        raises here); with ``"cuda"`` on the card the kernels are built
+        first.  Every job gets the host's matmul precision flags, so
+        products round as they would here."""
+        import torch.multiprocessing as mp
+
+        _check_decode_impl(impl)
+        self.timeout = timeout
+        self._conns: List = []
+        self.procs: List = []
+        self._closed = False
+        if device.type == "cuda" and impl == "cuda":
+            from repro_torch.kernels import build
+            build.build()                      # once, before the processes
+        self._dir = tempfile.mkdtemp(prefix=f"{self.kind}_procs_")
+        common = dict(
+            worker=worker, world=len(jobs), timeout=timeout,
+            init_file=str(Path(self._dir) / "rdv"),
+            matmul=(torch.get_float32_matmul_precision(),
+                    torch.backends.cuda.matmul
+                    .allow_bf16_reduced_precision_reduction,
+                    torch.backends.cuda.matmul
+                    .allow_fp16_reduced_precision_reduction))
+        ctx = mp.get_context("spawn")
+        self._finalizer = weakref.finalize(self, _shutdown, self.procs,
+                                           self._conns, self._dir)
+        t0 = time.perf_counter()
+        for rank, job in enumerate(jobs):
+            here, there = ctx.Pipe()
+            proc = ctx.Process(target=_proc_main,
+                               name=f"{self.kind}-{rank}",
+                               args=(rank, there, dict(job, **common)),
+                               daemon=True)
+            proc.start()
+            there.close()
+            self._conns.append(here)
+            self.procs.append(proc)
+        self._collect("start-up")
+        #: seconds from the first spawn to every process's first answer
+        self.spawn_s = time.perf_counter() - t0
+
+    def close(self) -> None:
+        """Stop every process: ask each to exit, join it, terminate (then
+        kill) any that has not exited within :data:`JOIN_TIMEOUT`."""
+        self._closed = True
+        self._finalizer()
+
+    def _call(self, msg) -> List:
+        if self._closed:
+            raise StageProcError(None, f"the {self.kind} processes are "
+                                       f"closed", self.kind)
+        for rank, conn in enumerate(self._conns):
+            try:
+                conn.send(msg)
+            except OSError as exc:
+                raise self._fail(rank, f"cannot be reached ({exc})") \
+                    from None
+        return self._collect(msg[0])
+
+    def _collect(self, what: str) -> List:
+        """Every process's answer to the last command; raises (after
+        stopping them all) on a process's error, exit or silence."""
+        n = len(self._conns)
+        pending, answers = set(range(n)), [None] * n
+        deadline = time.monotonic() + self.timeout
+        while pending:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise self._fail(None, f"{sorted(pending)} did not answer "
+                                       f"{what!r} within {self.timeout:g} s")
+            connection.wait([self._conns[r] for r in pending]
+                            + [p.sentinel for p in self.procs], left)
+            for rank in sorted(pending):
+                conn = self._conns[rank]
+                if not conn.poll():
+                    continue
+                try:
+                    kind, _, payload = conn.recv()
+                except EOFError:
+                    continue                   # it exited: see below
+                if kind == "error":
+                    raise self._fail(rank, payload)
+                answers[rank] = payload
+                pending.discard(rank)
+            for rank, proc in enumerate(self.procs):
+                if proc.exitcode is not None:
+                    raise self._fail(rank, f"exited with code "
+                                           f"{proc.exitcode} during {what!r}")
+        return answers
+
+    def _fail(self, rank: Optional[int], detail: str) -> StageProcError:
+        self.close()
+        return StageProcError(rank, detail, self.kind)
+
+
+class StageProcs(ProcGroup):
     """The no-bubbles stage ring with one process a stage; the host side.
 
     The same methods as :class:`repro_torch.core.pipeline.StageRing` (the
@@ -140,25 +259,17 @@ class StageProcs:
                  block_size: int = 16, impl: str = "ref", device="cuda",
                  vocab_sharded: bool = False,
                  timeout: float = DEFAULT_TIMEOUT):
-        import torch.multiprocessing as mp
-
         ns = spec.n_stages
         PL.stage_layers(cfg, spec)
-        _check_decode_impl(impl)
         if vocab_sharded:
             PL.vocab_shard(cfg, ns, 0)          # raises where V % ns
-        self.spec, self.timeout = spec, timeout
+        self.spec = spec
         self.device = torch.device(device)
         self.vocab_sharded = vocab_sharded
         logits = torch.zeros((n_slots, cfg.vocab_size),
                              dtype=torch.float32).share_memory_()
         self.state = PL.ring_state(ns, [], logits)
         self._ops: List[Tuple] = []
-        self._closed = False
-        if self.device.type == "cuda" and impl == "cuda":
-            from repro_torch.kernels import build
-            build.build()                      # once, before the stages
-        self._dir = tempfile.mkdtemp(prefix="stage_procs_")
         #: each stage's tensors, kept alive while the stages use them
         self.stage_params = [stage_params(cfg, params, spec, s,
                                           vocab_sharded) for s in range(ns)]
@@ -166,31 +277,9 @@ class StageProcs:
                    cache_dtype=cache_dtype, cache_layout=cache_layout,
                    num_blocks=num_blocks, block_size=block_size, impl=impl,
                    device=str(self.device), vocab_sharded=vocab_sharded,
-                   logits=logits, act_dtype=params["embedding"].dtype,
-                   timeout=timeout, init_file=str(Path(self._dir) / "rdv"),
-                   matmul=(torch.get_float32_matmul_precision(),
-                           torch.backends.cuda.matmul
-                           .allow_bf16_reduced_precision_reduction,
-                           torch.backends.cuda.matmul
-                           .allow_fp16_reduced_precision_reduction))
-        ctx = mp.get_context("spawn")
-        self._conns, self.procs = [], []
-        self._finalizer = weakref.finalize(self, _shutdown, self.procs,
-                                           self._conns, self._dir)
-        t0 = time.perf_counter()
-        for s in range(ns):
-            here, there = ctx.Pipe()
-            proc = ctx.Process(target=_stage_main, name=f"stage-{s}",
-                               args=(s, there, dict(
-                                   job, params=self.stage_params[s])),
-                               daemon=True)
-            proc.start()
-            there.close()
-            self._conns.append(here)
-            self.procs.append(proc)
-        self._collect("start-up")
-        #: seconds from the first spawn to every stage's first answer
-        self.spawn_s = time.perf_counter() - t0
+                   logits=logits, act_dtype=params["embedding"].dtype)
+        self._spawn(_Stage, [dict(job, params=p) for p in self.stage_params],
+                    impl=impl, device=self.device, timeout=timeout)
 
     # ------------------------------------------------------------------ #
     # the ring's methods
@@ -237,58 +326,6 @@ class StageProcs:
     def zero_stats(self) -> None:
         self._call(("zero",))
 
-    def close(self) -> None:
-        """Stop every stage: ask each to exit, join it, terminate (then
-        kill) any that has not exited within :data:`JOIN_TIMEOUT`."""
-        self._closed = True
-        self._finalizer()
-
-    # ------------------------------------------------------------------ #
-    def _call(self, msg) -> List:
-        if self._closed:
-            raise StageProcError(None, "the ring is closed")
-        for s, conn in enumerate(self._conns):
-            try:
-                conn.send(msg)
-            except OSError as exc:
-                raise self._fail(s, f"cannot be reached ({exc})") from None
-        return self._collect(msg[0])
-
-    def _collect(self, what: str) -> List:
-        """Every stage's answer to the last command; raises (after
-        stopping the ring) on a stage's error, exit or silence."""
-        ns = len(self._conns)
-        pending, answers = set(range(ns)), [None] * ns
-        deadline = time.monotonic() + self.timeout
-        while pending:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise self._fail(None, f"{sorted(pending)} did not answer "
-                                       f"{what!r} within {self.timeout:g} s")
-            connection.wait([self._conns[s] for s in pending]
-                            + [p.sentinel for p in self.procs], left)
-            for s in sorted(pending):
-                conn = self._conns[s]
-                if not conn.poll():
-                    continue
-                try:
-                    kind, _, payload = conn.recv()
-                except EOFError:
-                    continue                   # it exited: see below
-                if kind == "error":
-                    raise self._fail(s, payload)
-                answers[s] = payload
-                pending.discard(s)
-            for s, proc in enumerate(self.procs):
-                if proc.exitcode is not None:
-                    raise self._fail(s, f"exited with code {proc.exitcode} "
-                                        f"during {what!r}")
-        return answers
-
-    def _fail(self, rank: Optional[int], detail: str) -> StageProcError:
-        self.close()
-        return StageProcError(rank, detail)
-
 
 def _shutdown(procs, conns, tmpdir: str) -> None:
     for conn in conns:
@@ -308,22 +345,22 @@ def _shutdown(procs, conns, tmpdir: str) -> None:
     for conn in conns:
         conn.close()
     if torch.cuda.is_initialized():
-        torch.cuda.ipc_collect()              # the blocks the stages shared
+        torch.cuda.ipc_collect()              # the blocks the processes shared
     shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------- #
-# a stage process
+# a process of the group
 # --------------------------------------------------------------------------- #
 
-def _stage_main(rank: int, conn, job: Dict) -> None:
-    """A stage's life: join the group, build its state, then answer the
+def _proc_main(rank: int, conn, job: Dict) -> None:
+    """A process's life: join the group, build its worker, then answer the
     host's commands until ``close``.  Any exception is sent to the host
     with its traceback, and the process exits with code 1."""
     import torch.distributed as dist
     try:
-        # one thread a stage: the stages' threads would contend for the
-        # host's cores
+        # one thread a process: the processes' threads would contend for
+        # the host's cores
         torch.set_num_threads(1)
         precision, bf16, fp16 = job["matmul"]
         torch.set_float32_matmul_precision(precision)
@@ -331,15 +368,15 @@ def _stage_main(rank: int, conn, job: Dict) -> None:
         torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = fp16
         dist.init_process_group(
             "gloo", init_method=f"file://{job['init_file']}", rank=rank,
-            world_size=job["spec"].n_stages,
+            world_size=job["world"],
             timeout=timedelta(seconds=job["timeout"]))
-        stage = _Stage(rank, job, dist)
+        worker = job["worker"](rank, job, dist)
         conn.send(("ok", rank, None))
         while True:
             msg = conn.recv()
             if msg[0] == "close":
                 break
-            conn.send(("ok", rank, stage.handle(msg)))
+            conn.send(("ok", rank, worker.handle(msg)))
     except EOFError:
         return                                  # the host is gone
     except Exception:                           # reported to the host
@@ -350,24 +387,127 @@ def _stage_main(rank: int, conn, job: Dict) -> None:
         raise SystemExit(1)
     # drop every shared tensor before exiting, so the host's CUDA IPC
     # counts of them reach zero
-    del stage
+    del worker
     job.clear()
     gc.collect()
     dist.destroy_process_group()
+
+
+def kernel_wrappers() -> Dict:
+    """The kernel wrappers of :data:`KERNELS` by name (their ``.launches``
+    count a process's launches)."""
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     int8_matmul, paged_attention,
+                                     rglru_scan)
+    mods = dict(decode_attention=decode_attention,
+                paged_attention=paged_attention,
+                flash_attention=flash_attention, rglru_scan=rglru_scan,
+                int8_matmul=int8_matmul)
+    return {k: getattr(mods[k], k) for k in KERNELS}
+
+
+class Comm:
+    """A process's collectives, through staging buffers on the host: gloo
+    moves CPU tensors, so each one copies its operand into a buffer
+    (pinned when the process runs on the card; the copy waits for the
+    device), runs over gloo, and copies the result back to the device.
+    Buffers are kept by role and grown as needed.  ``groups`` holds a
+    process group for each mesh axis (``axes`` names them in the mesh's
+    order); the whole group needs none.  Operations that only move data
+    move bytes, so every dtype goes.  ``moe_calls`` collects what each
+    expert-parallel MoE call of :mod:`repro_torch.models.moe` reports."""
+
+    def __init__(self, dist, device: torch.device,
+                 groups: Optional[Dict] = None, axes: Tuple[str, ...] = ()):
+        self.dist, self.device = dist, device
+        self.pinned = device.type == "cuda"
+        self.groups, self.axes = groups or {}, tuple(axes)
+        self._bufs: Dict[str, torch.Tensor] = {}
+        self.moe_calls: List[Dict] = []
+
+    def _buf(self, role: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
+        n = numel * torch.empty((), dtype=dtype).element_size()
+        buf = self._bufs.get(role)
+        if buf is None or buf.numel() < n:
+            buf = self._bufs[role] = torch.empty(n, dtype=torch.uint8,
+                                                 pin_memory=self.pinned)
+        return buf[:n].view(dtype)
+
+    def stage(self, role: str, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s elements in the staging buffer of ``role``."""
+        buf = self._buf(role, x.numel(), x.dtype)
+        buf.copy_(x.reshape(-1))
+        return buf
+
+    def back(self, buf: torch.Tensor, shape) -> torch.Tensor:
+        """A copy of a staging buffer on the device, in ``shape``."""
+        return buf.to(self.device, copy=True).view(shape)
+
+    def group(self, axes):
+        """The process group over mesh ``axes`` (an axis, or a tuple of
+        them): an axis's own, or None for every axis in the mesh's
+        order (the whole group)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if axes == self.axes:
+            return None
+        if len(axes) == 1 and axes[0] in self.groups:
+            return self.groups[axes[0]]
+        raise ValueError(f"no process group over {axes} (mesh axes "
+                         f"{self.axes})")
+
+    def isend(self, x: torch.Tensor, dst: int, role: str = "send"):
+        buf = self.stage(role, x)
+        return self.dist.isend(buf.view(torch.uint8), dst)
+
+    def irecv(self, numel: int, dtype: torch.dtype, src: int,
+              role: str = "recv"):
+        """(the receive's request, its buffer of ``numel`` elements)."""
+        buf = self._buf(role, numel, dtype)
+        return self.dist.irecv(buf.view(torch.uint8), src), buf
+
+    def all_reduce(self, x: torch.Tensor, axes=None) -> torch.Tensor:
+        """The sum of every process's ``x`` (over ``axes``; all of them by
+        default)."""
+        buf = self.stage("reduce", x)
+        self.dist.all_reduce(buf, group=self.group(axes or self.axes))
+        return self.back(buf, x.shape)
+
+    def broadcast(self, x: Optional[torch.Tensor], src: int, shape,
+                  dtype: torch.dtype) -> torch.Tensor:
+        """Process ``src``'s ``x`` (``shape``, ``dtype``) on every process
+        of the whole group."""
+        buf = self.stage("reduce", x) if x is not None else \
+            self._buf("reduce", int(np.prod(shape)), dtype)
+        self.dist.broadcast(buf.view(torch.uint8), src)
+        return self.back(buf, shape)
+
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Every process's ``x`` over ``axes``, concatenated along dim 0 in
+        the order of their coordinates."""
+        group = self.group(axes)
+        n = self.dist.get_world_size(group)
+        src = self.stage("gather_in", x).view(torch.uint8)
+        out = self._buf("gather_out", n * x.numel(), x.dtype)
+        self.dist.all_gather(list(out.view(torch.uint8).chunk(n)), src,
+                             group=group)
+        return self.back(out, (n * x.shape[0],) + tuple(x.shape[1:]))
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` [n, ...] over the ``n`` processes of ``axis``: block ``j``
+        goes to the process at coordinate ``j``, and block ``i`` of the
+        result came from the process at ``i``."""
+        src = self.stage("a2a_in", x).view(torch.uint8)
+        out = self._buf("a2a_out", x.numel(), x.dtype)
+        self.dist.all_to_all_single(out.view(torch.uint8), src,
+                                    group=self.group(axis))
+        return self.back(out, x.shape)
 
 
 class _Stage:
     """One stage's state and its part of each tick."""
 
     def __init__(self, rank: int, job: Dict, dist):
-        from repro_torch.kernels import (decode_attention, flash_attention,
-                                         int8_matmul, paged_attention,
-                                         rglru_scan)
-        mods = dict(decode_attention=decode_attention,
-                    paged_attention=paged_attention,
-                    flash_attention=flash_attention, rglru_scan=rglru_scan,
-                    int8_matmul=int8_matmul)
-        self.kernels = {k: getattr(mods[k], k) for k in KERNELS}
+        self.kernels = kernel_wrappers()
         self.dist, self.rank = dist, rank
         cfg, spec = job["cfg"], job["spec"]
         self.cfg, self.ns, self.impl = cfg, spec.n_stages, job["impl"]
@@ -383,12 +523,8 @@ class _Stage:
         self.state = PL.ring_state(self.ns, caches, job["logits"])
         self.shard = PL.vocab_shard(cfg, self.ns, rank) \
             if job["vocab_sharded"] else None
-        pinned = self.device.type == "cuda"
-        act = dict(dtype=job["act_dtype"], pin_memory=pinned)
-        # staging buffers of the hops and the vocab-sharded collectives
-        self._send = torch.empty(cfg.d_model, **act)
-        self._recv = torch.empty(cfg.d_model, **act)
-        self._coll = torch.empty(cfg.d_model, **act)
+        self.act_dtype = job["act_dtype"]
+        self.comm = Comm(dist, self.device)
         self.held: Optional[torch.Tensor] = None
         self._zero()
 
@@ -462,35 +598,26 @@ class _Stage:
     def _hop(self, out: Optional[torch.Tensor], live: List[bool]) -> None:
         """The hand-off: this stage's live activation to the next stage,
         the previous stage's live one into ``held`` for the next tick."""
-        r, dist = self.rank, self.dist
+        r, d = self.rank, self.cfg.d_model
         reqs = []
         if r + 1 < self.ns and live[r]:
-            self._stage(self._send, out)
-            reqs.append(dist.isend(self._send, r + 1))
-            self.totals["hop_bytes"] += self._send.numel() \
-                * self._send.element_size()
+            if out.dtype != self.act_dtype:
+                raise TypeError(f"activation {out.dtype}, staging "
+                                f"{self.act_dtype}")
+            reqs.append(self.comm.isend(out, r + 1))
+            self.totals["hop_bytes"] += out.numel() * out.element_size()
         takes = r > 0 and live[r - 1]
         if takes:
-            reqs.append(dist.irecv(self._recv, r - 1))
+            req, buf = self.comm.irecv(d, self.act_dtype, r - 1)
+            reqs.append(req)
         for req in reqs:
             req.wait()
-        self.held = self._recv.to(self.device, copy=True).view(1, 1, -1) \
-            if takes else None
-
-    @staticmethod
-    def _stage(buf: torch.Tensor, x: torch.Tensor) -> None:
-        if x.dtype != buf.dtype:
-            raise TypeError(f"activation {x.dtype}, staging {buf.dtype}")
-        buf.copy_(x.reshape(-1))
+        self.held = self.comm.back(buf, (1, 1, d)) if takes else None
 
     def _all_reduce(self, part: torch.Tensor) -> torch.Tensor:
-        self._stage(self._coll, part)
-        self.dist.all_reduce(self._coll)
-        return self._coll.to(self.device, copy=True).view(1, 1, -1)
+        return self.comm.all_reduce(part).view(1, 1, -1)
 
     def _broadcast(self, h: Optional[torch.Tensor],
                    src: int) -> torch.Tensor:
-        if h is not None:
-            self._stage(self._coll, h)
-        self.dist.broadcast(self._coll, src)
-        return self._coll.to(self.device, copy=True).view(1, 1, -1)
+        return self.comm.broadcast(h, src, (1, 1, self.cfg.d_model),
+                                   self.act_dtype)

@@ -1069,3 +1069,61 @@ def test_stage_procs_ring_equals_one_process_on_gpu(gpu, layout):
         finally:
             be.close()
     assert toks[True] == toks[False]
+
+
+# --------------------------------------------------------------------------- #
+# the mesh of processes: pipeline_forward over it and the expert-parallel MoE
+# --------------------------------------------------------------------------- #
+
+def test_mesh_pipeline_forward_on_gpu(gpu):
+    """Reduced llama2-7b in float32 over a (2, 2) mesh of processes on the
+    card (weights shared by CUDA IPC, activations over gloo): two stages
+    over model, each micro-batch's rows over data; the logits equal the
+    one-process ``pipeline_forward``'s at 2e-4, and the flash kernel
+    launched in the processes (a stage's layers x the micro-batches each)
+    and never in this one."""
+    from repro_torch.core.mesh_procs import MeshProcs
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = get_config("llama2-7b").reduced(n_layers=5)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 40))).to(gpu)
+    spec = PL.PipelineSpec(2, (3, 2))
+    with torch.no_grad():
+        want = PL.pipeline_forward(cfg, params, tokens, spec, 2, impl="cuda")
+    procs = MeshProcs(cfg, params, make_test_mesh(2, 2), impl="cuda")
+    try:
+        before = FA.flash_attention.launches
+        got = procs.pipeline_forward(tokens, spec, 2)
+        stats = procs.stats()
+    finally:
+        procs.close()
+    assert FA.flash_attention.launches == before
+    assert [s["launches"]["flash_attention"] for s in stats] == \
+        [6, 4, 6, 4]
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_mesh_moe_ep_forward_on_gpu(gpu):
+    """Reduced granite-moe in float32 on a (2, 2) mesh of processes: the
+    whole model's forward with both MoE layers on ``moe_ep`` (two experts
+    a process, nothing dropped at the reduced config's capacity factor of
+    8.0) equals the one-process ``moe_ragged`` forward at 2e-4."""
+    from repro_torch.core.mesh_procs import MeshProcs
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = get_config("granite-moe-1b-a400m").reduced(n_layers=2)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0), gpu)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 32))).to(gpu)
+    with torch.no_grad():
+        want, _ = TT.forward(cfg, params, tokens, mode="train", impl="cuda")
+    procs = MeshProcs(cfg, params, make_test_mesh(2, 2), impl="cuda")
+    try:
+        got = procs.forward(tokens)
+        stats = procs.stats()
+    finally:
+        procs.close()
+    for st in stats:
+        assert [r["dropped"] for r in st["moe"]] == [0, 0]
+        assert st["launches"]["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
