@@ -140,6 +140,19 @@ exits non-zero and prints no result line; no phase catches its own failure.
    flash launches in each process and none in this one, the logits within
    0.25 of the same forward in one process; the phase's ms, the spawn,
    each process's host, device-wait and hop ms and hop bytes;
+   then the tp phase: llama2-7b tensor-parallel on a (1, 4) mesh of 4
+   processes (``TensorBackend(..., mesh=...)``: 8 heads, 2752 ff columns
+   and 8000 vocabulary rows a process, the weights held once by CUDA
+   IPC, the Megatron sums over gloo in float32), 4 requests x 8 greedy
+   tokens over 4 slots through ``LLM.from_backend`` on the contiguous
+   layout and then the paged one beside the one-process backend: each
+   process's ring or paged kernel 32 x its decode steps and none in this
+   process, each process's K/V bytes a quarter of one process's, the
+   logits of the first 4 tokens teacher-forced within 0.25 of one
+   process's, the greedy tokens' agreement printed; then
+   ``MeshProcs.forward`` over 1 x 2048 tokens on the same processes
+   beside one process (32 flash launches a process, logits within 0.25); the decode medians, each process's host,
+   device-wait and all-reduce ms and bytes a decode step, the spawns;
    then the fleet phase: a ``Fleet`` of two paged replicas (4 slots each)
    over the same weight tensors is fed ``bursty_trace``'s 24 requests of
    8-48 prompt tokens x 16 greedy tokens through ``replay``, fault free and
@@ -301,6 +314,24 @@ PROCS_CHIPS, PROCS_REQUESTS, PROCS_VOCAB_TICKS = 4, 4, 64
 MESH_SHAPE = (2, 4)
 MESH_BATCH, MESH_MICROBATCHES = 4, 2
 MESH_MOE_BATCH, MESH_MOE_LEN, MESH_MOE_CF = 2, 512, 8.0
+# the share of the mesh MoE's token routings (a token and layer each) on
+# which the one-process router, fed its own activations, may choose other
+# experts than the mesh processes did: the heads' partial sums change the
+# attention's last bits, and a top-k choice near a tie trades on them (1 of
+# 24,576 read on an H100); a router or moe_ep choosing wrong experts changes
+# far more
+MESH_ROUTE_FLIPS = 0.0005
+# the tp phase: llama2-7b at full width and depth, tensor-parallel on a
+# (1, 4) mesh of processes (8 heads, 2752 ff columns and 8000 vocabulary
+# rows a process): TP_REQUESTS requests of 16-48 tokens x TP_TOKENS greedy
+# tokens over 4 slots at max_len TP_MAX_LEN, contiguous then paged, beside
+# one process, and their first TP_FORCED tokens teacher-forced through both
+# (a decode step over gloo is about half a second); then
+# forward(mode="train") over 1 x TP_SCORE_LEN tokens on the same processes
+# beside one process
+TP_SHAPE, TP_REQUESTS, TP_TOKENS, TP_FORCED = (1, 4), 4, 8, 4
+TP_MAX_LEN, TP_SCORE_LEN = 64, 2048
+TP_HEADS = (32 // TP_SHAPE[1], 32 // TP_SHAPE[1], 128)   # a process's
 # the pipeline's streamed serves: requests sharing a 32-token prefix (two
 # blocks of 16; three until the mesh phases took their time: a token costs
 # a turn of the 13-stage ring) plus 1-16 tokens of their own, 8 greedy
@@ -4020,20 +4051,253 @@ def mesh_pipeline(model, kernels, card):
     return sum(per)
 
 
+def tp_serve(be, prompts, sp, kernels):
+    """One ``LLM.from_backend`` serve of ``prompts`` over ``be``, every
+    launch count set to 0 (the mesh processes' too): the tokens, the
+    decode ms per step (host clock, each call ending in the logits
+    readback), this process's launches and, on processes, each one's
+    stats.  No warm-up serve: the processes' first step is one of seven
+    decode medians."""
+    from repro_torch.serving import LLM
+    procs = hasattr(be, "procs")
+    llm = LLM.from_backend(be, seed=SEED)
+    clock = StepClock(be)
+    for fn in kernels.values():
+        fn.launches = 0
+    if procs:
+        be.zero_stats()
+    t0 = time.perf_counter()
+    outs = run_requests(llm, prompts, sp)
+    wall = time.perf_counter() - t0
+    return dict(tokens=[o.tokens for o in outs],
+                decode_ms=list(clock.decode_ms), wall=wall,
+                launches={n: fn.launches for n, fn in kernels.items()},
+                stats=be.stats() if procs else None)
+
+
+def tp_forced(be, prompts, tokens):
+    """Every prompt prefilled in one wave (one a slot), then each request's
+    own first ``tokens`` fed back: the logits [n_req, TP_FORCED, V] (the
+    prefill's first), the decode steps' ms and, on processes, each one's
+    stats over the decode steps alone."""
+    procs = hasattr(be, "procs")
+    (wave, padded, lens), = waves(prompts, len(prompts))
+    slots = list(range(len(wave)))
+    evs = {ev.slot: ev.logits for ev in be.prefill(slots, padded, lens)}
+    steps, ms = [np.stack([evs[s] for s in slots])], []
+    if procs:
+        be.zero_stats()
+    for t in range(TP_FORCED - 1):
+        t0 = time.perf_counter()
+        evs = be.decode_step({s: tokens[s][t] for s in slots})
+        ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(np.stack([ev.logits for ev in evs]))
+    stats = be.stats() if procs else None
+    for s in slots:
+        be.free_slot(s)
+    return np.stack(steps, axis=1), ms, stats
+
+
+def serve_tp(model, kernels, card):
+    """Tensor parallelism over the mesh's model axis: llama2-7b on a (1, 4)
+    mesh of processes (``TensorBackend(..., mesh=...)``: each process its
+    8 heads and their K/V cache, 2752 ff columns and 8000 vocabulary rows,
+    views of the weights shared by CUDA IPC; the output and down
+    projections and the embedding summed over gloo in float32, the head's
+    columns gathered) beside the one-process ``TensorBackend``, on the
+    contiguous layout and then the paged one.  Held: each process's ring
+    or paged kernel 32 x its decode steps and none in this process, each
+    process's K/V bytes a quarter of one process's, the teacher-forced
+    logits within 0.25 of one process's; printed: the greedy tokens'
+    agreement (bf16 sums in another order), decode medians, each process's
+    host, device-wait and all-reduce ms and bytes a decode step.  Then
+    :func:`tp_score` on the paged backend's processes.  Returns the
+    launches summed over the processes."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime import TensorBackend
+    from repro_torch.serving import SamplingParams
+    cfg, m = model.cfg, TP_SHAPE[1]
+    mesh = Mesh(("data", "model"), TP_SHAPE)
+    sp = SamplingParams(max_tokens=TP_TOKENS)
+    prompts = pipeline_prompts(cfg, TP_REQUESTS)
+    t_phase = time.perf_counter()
+    out = {}
+    for layout in ("contiguous", "paged"):
+        kernel = "decode_attention" if layout == "contiguous" \
+            else "paged_attention"
+        kw = dict(n_slots=SLOTS, max_len=TP_MAX_LEN, impl="cuda",
+                  cache_layout=layout, block_size=BLOCK_SIZE, device=DEVICE)
+        one = TensorBackend(cfg, model.params, **kw)
+        base = tp_serve(one, prompts, sp, kernels)
+        kv_one = ranks.cache_kv_bytes(one.caches)
+        base_logits, base_ms, _ = tp_forced(one, prompts, base["tokens"])
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        be = TensorBackend(cfg, model.params, mesh=mesh, **kw)
+        spawn_s = time.perf_counter() - t0
+        try:
+            if be.info.attn_impl != "cuda":
+                raise AssertionError(f"tp {layout}: attn_impl "
+                                     f"{be.info.attn_impl}")
+            run = tp_serve(be, prompts, sp, kernels)
+            stats = run["stats"]
+            steps = [st["calls"]["decode_step"] for st in stats]
+            per = [st["launches"][kernel] for st in stats]
+            others = {n: sum(st["launches"][n] for st in stats)
+                      for n in kernels if n != kernel}
+            one_steps = len(base["decode_ms"])
+            if per != [cfg.n_layers * k for k in steps] \
+                    or any(others.values()) or any(run["launches"].values()) \
+                    or base["launches"][kernel] != cfg.n_layers * one_steps:
+                raise AssertionError(
+                    f"tp {layout}: {kernel} launches per process {per} over "
+                    f"{steps} decode steps, other kernels {others}, in this "
+                    f"process {run['launches']}, in one process "
+                    f"{base['launches']} over {one_steps} steps")
+            kv = be.procs.run(ranks.kv_bytes)
+            if kv != [kv_one // m] * m:
+                raise AssertionError(f"tp {layout}: K/V bytes a process {kv},"
+                                     f" one process {kv_one}")
+            logits, ms, fstats = tp_forced(be, prompts, base["tokens"])
+            diff = np.abs(logits - base_logits)
+            agree = int((logits.argmax(-1) == base_logits.argmax(-1)).sum())
+            same = sum(int(a == b) for t, u in zip(run["tokens"],
+                                                   base["tokens"])
+                       for a, b in zip(t, u))
+            total = TP_REQUESTS * TP_TOKENS
+            print(f"tp {layout}: {cfg.name} on a {mesh.shape} mesh of "
+                  f"{m} processes ({cfg.n_heads // m} heads, "
+                  f"{cfg.d_ff // m} ff columns, {cfg.vocab_size // m} "
+                  f"vocabulary rows a process); {TP_REQUESTS} requests of "
+                  f"{[len(p) for p in prompts]} prompt tokens x "
+                  f"{TP_TOKENS} over {SLOTS} slots, max_len {TP_MAX_LEN}: "
+                  f"{kernel} launches per process {per} = {cfg.n_layers} "
+                  f"layers x {steps} decode steps, none in this process; "
+                  f"K/V bytes a process {kv[0]} (one process {kv_one}); "
+                  f"greedy tokens equal to one process's {same}/{total}; "
+                  f"teacher-forced logits {list(logits.shape)} max abs diff "
+                  f"{diff.max():.4g} (mean {diff.mean():.3g}; atol "
+                  f"{LOGITS_ATOL}), argmax agreement "
+                  f"{agree}/{diff.shape[0] * diff.shape[1]} [{card}]")
+            if not np.isfinite(logits).all() or diff.max() > LOGITS_ATOL:
+                raise AssertionError(f"tp {layout}: logits {diff.max():.4g} "
+                                     f"from one process's")
+            for name, r in (("one process", base), ("processes", run)):
+                t = r["decode_ms"]
+                print(f"tp {layout}: {name}: decode ms per step median "
+                      f"{statistics.median(t):.3f} (min {min(t):.3f}, max "
+                      f"{max(t):.3f}), {total / r['wall']:.1f} tokens/s "
+                      f"over {r['wall']:.2f} s [{card}]")
+            print(f"tp {layout}: teacher-forced decode ms per step median: "
+                  f"one process {statistics.median(base_ms):.3f}, processes "
+                  f"{statistics.median(ms):.3f} [{card}]")
+            n = TP_FORCED - 1
+            for rank, st in enumerate(fstats):
+                tp = st["tp"]
+                print(f"tp {layout}: process {rank}: ms a decode step: host "
+                      f"{st['host_s'] / n * 1e3:.3f}, device wait "
+                      f"{st['device_s'] / n * 1e3:.3f}, all-reduce and "
+                      f"gather {tp['s'] / n * 1e3:.3f} ({tp['calls'] // n} "
+                      f"calls, {tp['bytes'] // n} bytes a step) [{card}]")
+            print(f"tp {layout}: spawn {spawn_s:.2f} s (the processes' start "
+                  f"{be.procs.spawn_s:.2f} s)")
+            out[layout] = sum(per)
+            if layout == "paged":
+                out["flash_attention"] = tp_score(model, be.procs, kernels,
+                                                  card)
+        finally:
+            be.close()
+        del be
+    # the backends' step clocks are reference cycles: free their caches
+    # before the next phase measures its peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp: phase wall {time.perf_counter() - t_phase:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held after it "
+          f"[{card}]")
+    return out
+
+
+def tp_score(model, procs, kernels, card):
+    """``MeshProcs.forward`` over 1 x TP_SCORE_LEN tokens on the tp
+    processes (heads, ff and vocabulary split; the head's columns
+    gathered) beside ``forward(mode="train")`` in one process: 32 flash
+    launches a process and none in this one, logits within 0.25; both
+    forwards' ms, each process's all-reduce ms and bytes.  Returns the
+    flash launches summed over the processes."""
+    from repro_torch.models import transformer as T
+    cfg, m = model.cfg, TP_SHAPE[1]
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, TP_SCORE_LEN))).to(DEVICE)
+    with torch.no_grad():
+        T.forward(cfg, model.params, tokens, mode="train", impl="cuda")
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        want, _ = T.forward(cfg, model.params, tokens, mode="train",
+                            impl="cuda")
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+    one = kernels["flash_attention"].launches
+    # no warm-up call: the processes have served (a forward over gloo is
+    # seconds here, and the staging buffers' growth is milliseconds of it)
+    procs.zero_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = procs.forward(tokens)
+    ms = (time.perf_counter() - t0) * 1e3
+    host = {n: fn.launches for n, fn in kernels.items()}
+    stats = procs.stats()
+    per = [st["launches"]["flash_attention"] for st in stats]
+    if per != [cfg.n_layers] * m or any(host.values()) \
+            or one != cfg.n_layers:
+        raise AssertionError(f"tp score: flash launches per process {per}, "
+                             f"in this process {host}, in one process {one}")
+    diff, agree = mesh_rows("tp score", got, want)
+    print(f"tp score: {cfg.name} forward(mode='train') over 1 x "
+          f"{TP_SCORE_LEN} tokens on the {m} processes: {ms:.1f} ms (one "
+          f"process {one_ms:.1f} ms); flash_attention launches {per}, none "
+          f"in this process; logits max abs diff {diff:.4g} (atol "
+          f"{LOGITS_ATOL}), argmax agreement {agree}/{TP_SCORE_LEN} [{card}]")
+    for rank, st in enumerate(stats):
+        tp = st["tp"]
+        print(f"tp score: process {rank}: host {st['host_s'] * 1e3:.3f} ms, "
+              f"device wait {st['device_s'] * 1e3:.3f} ms ("
+              f"{tp['wait_s'] * 1e3:.3f} of it before the collectives); "
+              f"all-reduce and gather {tp['s'] * 1e3:.3f} ms, {tp['calls']} "
+              f"calls, {tp['bytes']} bytes [{card}]")
+    if diff > LOGITS_ATOL:
+        raise AssertionError(f"tp score: logits {diff:.4g} from one "
+                             f"process's")
+    del got, want
+    torch.cuda.empty_cache()
+    return sum(per)
+
+
 def mesh_moe(kernels, card):
     """The mesh phase's expert-parallel MoE: granite-moe-1b-a400m at full
     width and depth, ``forward(mode="train")`` over 2 x 512 tokens on a
     (2, 4) mesh of processes under ``use_mesh`` (a batch row a data point,
-    the dense weights whole on every process, every MoE layer on
-    ``moe_ep`` with 8 of the 32 experts a process).  Held, in float32
-    weights at capacity factor 8.0 (no token can drop): every process
-    made one ``moe_ep`` call a layer, dropping nothing, and the logits are
-    within ``LOGITS_ATOL`` of the one-process ``moe_ragged`` forward's (a
-    top-k choice can trade on a last-bit difference of the router's
-    products, as in the mixers phase).  Printed: in bf16 at 8.0 the
-    difference (the reference's init amplifies bf16 rounding), and
-    at the config's own 1.25 the tokens dropped per layer and the
-    all_to_all bytes.  Returns each process's flash launches."""
+    the attention tensor-parallel over model, 4 of the 16 heads a process,
+    every MoE layer on ``moe_ep`` with 8 of the 32 experts a process).
+    Held, in float32 weights at capacity factor 8.0 (no token can drop):
+    every process made one ``moe_ep`` call a layer, dropping nothing, and
+    the logits are within ``LOGITS_ATOL`` of the one-process
+    ``moe_ragged`` forward's with the processes' expert choices replayed
+    (:class:`RouteReplay`: the heads' partial sums change the attention's
+    last bits, and a top-k choice can trade on them, as in the mixers
+    phase), and the one-process router, fed its own activations, chooses
+    the processes' experts on all but ``MESH_ROUTE_FLIPS`` of the token
+    routings; the forward with its own choices printed.  In bf16 at 8.0,
+    the difference printed (the reference's init amplifies bf16
+    rounding), and held within ``LOGITS_ATOL`` with the attention
+    replicated (:func:`replicate_attention`), which leaves the heads'
+    partial sums as the only difference from one process; at the config's
+    own 1.25 the tokens dropped per layer and the all_to_all bytes
+    printed.  Returns each process's flash launches."""
     import dataclasses
 
     from repro_torch.core.mesh_procs import MeshProcs
@@ -4062,10 +4326,14 @@ def mesh_moe(kernels, card):
             for cfg in ((wide, own) if dtype == "bfloat16" else (wide,)):
                 cf = cfg.pattern[0].moe.capacity_factor
                 label = f"mesh {MOE_ARCH} {dtype} capacity {cf:g}"
+                held = dtype == "float32"
+                if held:
+                    procs.run(record_routes)
                 procs.zero_stats()
                 t0 = time.perf_counter()
                 got = procs.forward(tokens, cfg)
                 secs = time.perf_counter() - t0
+                routes = procs.run(collect_routes) if held else None
                 stats = procs.stats()
                 calls = [len(st["moe"]) for st in stats]
                 dropped = [sum(st["moe"][l]["dropped"] for st in stats)
@@ -4091,18 +4359,51 @@ def mesh_moe(kernels, card):
                 if cfg is not wide:
                     continue
                 diff, agree = mesh_rows(label, got, want)
-                held = dtype == "float32"
                 print(f"{label}: logits against the one-process moe_ragged "
-                      f"forward max abs diff {diff:.4g} "
-                      + (f"(atol {LOGITS_ATOL})" if held else
-                         "(measured, not held)")
-                      + f", argmax agreement {agree}/"
+                      f"forward max abs diff {diff:.4g} (measured, not "
+                      f"held), argmax agreement {agree}/"
                       f"{MESH_MOE_BATCH * MESH_MOE_LEN} [{card}]")
-                if held and (diff > LOGITS_ATOL or any(dropped)):
-                    raise AssertionError(f"{label}: logits {diff:.4g} "
-                                         f"apart, dropped {dropped}")
+                if held:
+                    # the processes' choices, layer by layer, their token
+                    # blocks in rank order (moe_ep's split of the batch)
+                    replay = RouteReplay()
+                    replay.recorded = [
+                        torch.cat([r[layer] for r in routes]).to(DEVICE)
+                        for layer in range(own.n_layers)]
+                    replay.replay()
+                    with replay, torch.no_grad():
+                        replayed, _ = T.forward(wide, model.params, tokens,
+                                                mode="train", impl="cuda")
+                    diff, agree = mesh_rows(label, got, replayed)
+                    del replayed
+                    flips = int(MESH_ROUTE_FLIPS * replay.tokens)
+                    print(f"{label}: logits against the one-process "
+                          f"moe_ragged forward with the processes' expert "
+                          f"choices max abs diff {diff:.4g} (atol "
+                          f"{LOGITS_ATOL}), argmax agreement {agree}/"
+                          f"{MESH_MOE_BATCH * MESH_MOE_LEN}; its own would "
+                          f"have changed {replay.changed} of {replay.tokens} "
+                          f"token routings (at most {flips}) [{card}]")
+                    if diff > LOGITS_ATOL or any(dropped) \
+                            or replay.changed > flips:
+                        raise AssertionError(
+                            f"{label}: logits {diff:.4g} apart, dropped "
+                            f"{dropped}, {replay.changed} routings changed")
                 launches = [st["launches"]["flash_attention"]
                             for st in stats]
+            if dtype == "bfloat16":
+                procs.run(replicate_attention)
+                label = f"mesh {MOE_ARCH} {dtype} capacity {MESH_MOE_CF:g}"
+                got = procs.forward(tokens, wide)
+                diff, agree = mesh_rows(label, got, want)
+                print(f"{label}, the attention replicated: logits against "
+                      f"the one-process moe_ragged forward max abs diff "
+                      f"{diff:.4g} (atol {LOGITS_ATOL}), argmax agreement "
+                      f"{agree}/{MESH_MOE_BATCH * MESH_MOE_LEN} [{card}]")
+                if diff > LOGITS_ATOL:
+                    raise AssertionError(f"{label}, the attention "
+                                         f"replicated: logits {diff:.4g} "
+                                         f"apart")
         finally:
             procs.close()
         del model, want, got
@@ -4111,6 +4412,30 @@ def mesh_moe(kernels, card):
     print(f"mesh {MOE_ARCH}: phase wall {time.perf_counter() - t_phase:.2f} "
           f"s [{card}]")
     return launches
+
+
+def record_routes(rank):
+    """In a mesh process: record the expert ids of every ``router_topk``
+    call (a :class:`RouteReplay`) until :func:`collect_routes`."""
+    rank.route = RouteReplay().__enter__()
+
+
+def collect_routes(rank):
+    """In a mesh process: stop recording; the expert ids, a call each."""
+    rank.route.__exit__(None, None, None)
+    return [ids.cpu() for ids in rank.route.recorded]
+
+
+def replicate_attention(rank):
+    """In a mesh process: its view of the model with the attention whole
+    (the heads' axes dropped from its rules), the rest placed as
+    :func:`~repro_torch.sharding.rules.tensor_parallel` places it."""
+    from repro_torch.sharding.rules import (AxisRules, default_rules,
+                                            tensor_parallel)
+    table = dict(default_rules().rules)
+    table.update(heads=None, kv_heads=None, qkv=None)
+    rank.tp_cfg, rank.tp_params, rank.rules = tensor_parallel(
+        rank.cfg, rank.params, rank.mesh, AxisRules(tuple(table.items())))
 
 
 def pipe_stream_prompts(cfg):
@@ -4535,6 +4860,15 @@ def main():
         # pixtral-12b's score over 1 x 1024 vision-stub embeddings
         "flash_attention pixtral-12b": time_flash(
             fa, card, heads=(32, 8, 128), s=PIXTRAL_FRONTEND_LEN, n_sets=4),
+        # the tp phase: a process's 8 heads of llama2-7b, its serves' 4
+        # slots x 64 keys (64 sets of 1 MB of K/V exceed the L2) and its
+        # score's 1 x 2048
+        "decode_attention tp": time_decode(
+            da, card, TP_MAX_LEN, heads=TP_HEADS, c=TP_MAX_LEN, n_sets=64),
+        "paged_attention tp": time_paged(pa, card, 1, TP_MAX_LEN,
+                                         heads=TP_HEADS, n_sets=64),
+        "flash_attention tp": time_flash(fa, card, heads=TP_HEADS,
+                                         s=TP_SCORE_LEN, n_sets=4),
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
@@ -4625,6 +4959,12 @@ def main():
         "flash_attention pixtral-12b": f"pixtral-12b (H=32, KH=8, D=128) 1 x "
                                        f"{PIXTRAL_FRONTEND_LEN}, causal, "
                                        f"bf16",
+        **{f"{kind} tp": f"llama2-7b a tp process (H=KH={TP_HEADS[0]}, "
+                         f"D=128) x {SLOTS} slots x {TP_MAX_LEN} {what}, bf16"
+           for kind, what in (("paged_attention", "keys"),
+                              ("decode_attention", "-key ring, full"))},
+        "flash_attention tp": f"llama2-7b a tp process (H=KH={TP_HEADS[0]}, "
+                              f"D=128) 1 x {TP_SCORE_LEN}, causal, bf16",
     }
     for m in INT8_M:
         for k, n in INT8_PROJ:
@@ -4662,6 +5002,8 @@ def main():
     done("the pipeline procs phase")
     mesh_pipe = mesh_pipeline(model, wrappers, card)
     done("the mesh pipeline_forward")
+    tp = serve_tp(model, wrappers, card)
+    done("the tp phase")
     fleet = serve_fleet(model, pa, da, card)
     del model                       # 13.48 GB of llama2-7b weights
     gc.collect()
@@ -4772,6 +5114,16 @@ def main():
         # over the 8 processes (1 x 4096 a call, the flash row's shape)
         entry("flash_attention", "flash_attention@pipeline mesh",
               "flash_attention.cu", "flash_attention.py:86", mesh_pipe),
+        # tensor parallelism on the (1, 4) mesh: launches summed over the 4
+        # processes (8 heads a process), the serves' and the score's
+        entry("decode_attention tp", "decode_attention@tp",
+              "decode_attention.cu", "decode_attention.py:153",
+              tp["contiguous"]),
+        entry("paged_attention tp", "paged_attention@tp",
+              "paged_attention.cu", "decode_attention.py:201", tp["paged"]),
+        entry("flash_attention tp", "flash_attention@tp",
+              "flash_attention.cu", "flash_attention.py:86",
+              tp["flash_attention"]),
         # the dense configs on both layouts, starcoder2-7b's verify and
         # gemma2-2b's score
         *(entry(f"{kind} {arch}", f"{kind}@{arch}", source,

@@ -146,6 +146,81 @@ def params_to_numpy(cfg: ModelConfig, params: Dict) -> Dict:
     return tree
 
 
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of every leaf of the port's parameter tree, in its
+    structure: the reference's ``init_params`` axes (its
+    ``ParamBuilder.add`` calls), without the leading ``"layers"`` axis of
+    its stacked leaves, since the port keeps one dict a layer."""
+    def norm() -> Dict:
+        out = {"scale": ("embed",)}
+        if cfg.norm == "layernorm":
+            out["bias"] = ("embed",)
+        return out
+
+    def attention() -> Dict:
+        out = {"wq": ("embed", "qkv"), "wk": ("embed", "qkv"),
+               "wv": ("embed", "qkv"), "wo": ("qkv", "embed")}
+        if cfg.qkv_bias:
+            out.update(bq=("qkv",), bk=("qkv",), bv=("qkv",))
+        if cfg.qk_norm:
+            out.update(q_norm=(None,), k_norm=(None,))
+        return out
+
+    def recurrent() -> Dict:
+        rnn = ("embed", "rnn")
+        return {"w_gelu": rnn, "w_rnn_in": rnn, "conv_w": (None, "rnn"),
+                "conv_b": ("rnn",), "w_a": rnn, "w_x": rnn, "lam": ("rnn",),
+                "w_out": ("rnn", "embed")}
+
+    def mlstm() -> Dict:
+        return {"w_up": ("embed", "heads"), "w_gate": ("embed", "heads"),
+                **{k: ("heads", None) for k in ("wq", "wk", "wv", "w_i",
+                                                "w_f")},
+                "b_i": (None,), "b_f": (None,), "w_down": ("heads", "embed")}
+
+    def slstm() -> Dict:
+        out = {}
+        for g in ("i", "f", "z", "o"):
+            out.update({f"w_{g}": ("embed", None),
+                        f"r_{g}": ("heads", None, None), f"b_{g}": (None,)})
+        out.update(w_up=("embed", "ff"), w_down=("ff", "embed"))
+        return out
+
+    def ffn(spec: BlockSpec) -> Dict:
+        if spec.moe is None:
+            return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                    "w_down": ("ff", "embed")}
+        out = {"router": ("embed", None),
+               "w_gate": ("experts", "embed", None),
+               "w_up": ("experts", "embed", None),
+               "w_down": ("experts", None, "embed")}
+        if spec.moe.num_shared_experts:
+            out.update(s_gate=("embed", "ff"), s_up=("embed", "ff"),
+                       s_down=("ff", "embed"))
+        return out
+
+    mixers = {"attn": attention, "rglru": recurrent, "mlstm": mlstm,
+              "slstm": slstm}
+
+    def block(spec: BlockSpec) -> Dict:
+        out: Dict[str, Any] = {"norm1": norm(), "mixer": mixers[spec.kind]()}
+        if cfg.post_norm:
+            out["post_norm1"] = norm()
+        if spec.moe is not None or spec.mlp != "none":
+            out["norm2"] = norm()
+            out["ffn"] = ffn(spec)
+            if cfg.post_norm:
+                out["post_norm2"] = norm()
+        return out
+
+    axes: Dict[str, Any] = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    axes["final_norm"] = norm()
+    axes["layers"] = [block(spec) for spec in cfg.layer_specs()]
+    return axes
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Device = None,
                 dtype: Optional[torch.dtype] = None) -> Dict:

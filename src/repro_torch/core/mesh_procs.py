@@ -32,12 +32,20 @@ buffers.  Each process runs one CPU thread.
   row; the last stage runs the final norm and the LM head;
 - :meth:`MeshProcs.forward`: ``forward(mode="train")`` on every process
   under :func:`~repro_torch.sharding.rules.use_mesh`, batch rows over
-  ``data``, dense weights replicated over ``model``; every MoE layer whose
+  ``data``, tensor-parallel over ``model``
+  (:func:`~repro_torch.sharding.rules.tensor_parallel`, the reference's
+  ``param_sharding_tree`` placement): each process holds its query and
+  K/V heads, its ``ff`` columns and its vocabulary rows (views), the
+  output and down projections and the embedding are summed over
+  ``model`` and the head's columns gathered; every MoE layer whose
   experts ``model`` divides runs :func:`repro_torch.models.moe.moe_ep`.
+  The serving :class:`~repro_torch.runtime.tensor.TensorBackend` on a
+  mesh runs its processes here too (:meth:`MeshProcs.run`).
 
 ``impl="cuda"`` runs the kernels in the processes; :meth:`MeshProcs.stats`
 gathers each process's kernel launches, its seconds (dispatching, waiting
-for the device, in the hops), its hop bytes and its MoE calls.
+for the device, in the hops), its hop bytes, its MoE calls and its
+tensor-parallel collectives.
 """
 from __future__ import annotations
 
@@ -55,7 +63,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, lm_logits
 from repro_torch.sharding.rules import (P, axis_size, current_rules,
-                                        default_rules, local_slice,
+                                        default_rules, local_config,
+                                        local_slice, tensor_parallel,
                                         use_mesh)
 
 
@@ -121,11 +130,11 @@ class MeshProcs(ProcGroup):
 
     def forward(self, tokens: torch.Tensor,
                 cfg: ModelConfig = None) -> torch.Tensor:
-        """``forward(mode="train")`` on every process under ``use_mesh``:
-        tokens [B, S] -> logits [B, S, V], each data row's rows from its
-        processes.  ``cfg`` (the weights' config by default) may differ
-        from it in what the weights do not fix, e.g. the MoE capacity
-        factor."""
+        """``forward(mode="train")`` on every process under ``use_mesh``,
+        tensor-parallel over ``model``: tokens [B, S] -> logits [B, S, V],
+        each data row's rows from its processes.  ``cfg`` (the weights'
+        config by default) may differ from it in what the weights do not
+        fix, e.g. the MoE capacity factor."""
         cfg = cfg or self.cfg
         b, s = tokens.shape[:2]
         batch = default_rules("pod" in self.mesh.axis_names).spec(
@@ -140,11 +149,14 @@ class MeshProcs(ProcGroup):
 
     def stats(self) -> List[Dict]:
         """Each process's kernel launches since :meth:`zero_stats` and its
-        totals: ``host_s`` (dispatching its work), ``device_s`` (then
-        waiting for the device), ``hop_s`` and ``hop_bytes`` (the pipeline's
-        hand-offs, waiting for the neighbour included), and ``moe`` (one
+        totals: ``host_s`` (dispatching its work), ``device_s`` (waiting
+        for the device; :meth:`_MeshRank.timed`), ``hop_s`` and
+        ``hop_bytes`` (the pipeline's hand-offs, waiting for the
+        neighbour included), ``moe`` (one
         record a ``moe_ep`` call: assignments ``rows``, ``dropped``, the
-        capacity ``cap``, ``a2a_bytes`` sent, ``keep``)."""
+        capacity ``cap``, ``a2a_bytes`` sent, ``keep``) and ``tp`` (the
+        tensor-parallel sums and gathers: ``calls``, operand ``bytes``,
+        ``wait_s`` for the device before them, ``s`` in them)."""
         return self._call(("stats",))
 
     def zero_stats(self) -> None:
@@ -159,8 +171,9 @@ class MeshProcs(ProcGroup):
 
 
 class _MeshRank:
-    """One process of the mesh: its weights, its ``mesh`` (with its rank
-    and :class:`Comm`), and its totals."""
+    """One process of the mesh: its weights (``params`` whole, and its
+    tensor-parallel view ``tp_cfg``, ``tp_params`` under ``rules``), its
+    ``mesh`` (with its rank and :class:`Comm`), and its totals."""
 
     def __init__(self, rank: int, job: Dict, dist):
         from torch.distributed.device_mesh import DeviceMesh
@@ -183,6 +196,8 @@ class _MeshRank:
                          {a: grid.get_group(a) for a in mesh.axis_names},
                          mesh.axis_names)
         self.mesh = mesh.at(rank, self.comm)
+        self.tp_cfg, self.tp_params, self.rules = tensor_parallel(
+            self.cfg, self.params, self.mesh)
         self._zero()
 
     def _zero(self) -> None:
@@ -190,10 +205,28 @@ class _MeshRank:
             fn.launches = 0
         self.totals = dict(host_s=0., device_s=0., hop_s=0., hop_bytes=0)
         self.comm.moe_calls.clear()
+        self.comm.zero_tp()
 
     def sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def timed(self, fn: Callable, *args, **kw):
+        """``fn(*args, **kw)``, then a wait for the device; the wall goes
+        into the totals: ``host_s`` dispatching (the tensor-parallel
+        collectives and the waits before them excepted), ``device_s``
+        waiting for the device (before those collectives and at the
+        end)."""
+        tp, tot = self.comm.tp, self.totals
+        coll, wait = tp["s"], tp["wait_s"]
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        t1 = time.perf_counter()
+        self.sync()
+        coll, wait = tp["s"] - coll, tp["wait_s"] - wait
+        tot["host_s"] += t1 - t0 - coll - wait
+        tot["device_s"] += time.perf_counter() - t1 + wait
+        return out
 
     def handle(self, msg):
         kind = msg[0]
@@ -203,6 +236,7 @@ class _MeshRank:
                 return fn(self, *args, **kw)
         if kind == "stats":
             return dict(self.totals, moe=list(self.comm.moe_calls),
+                        tp=dict(self.comm.tp),
                         launches={k: fn.launches
                                   for k, fn in self.kernels.items()})
         if kind == "zero":
@@ -268,19 +302,15 @@ def _pipeline_rank(rank: _MeshRank, tokens: torch.Tensor,
 def _forward_rank(rank: _MeshRank, cfg: ModelConfig, tokens: torch.Tensor,
                   out: torch.Tensor) -> None:
     """This process's part of :meth:`MeshProcs.forward`: its data row's
-    rows through the whole model under ``use_mesh``; the process at
+    rows through its shard of the model under ``use_mesh``; the process at
     coordinate 0 of every other axis writes them."""
-    mesh, tot = rank.mesh, rank.totals
-    with use_mesh(mesh):
+    mesh = rank.mesh
+    with use_mesh(mesh, rank.rules):
         rows = current_rules().spec(("batch",))
-        t0 = time.perf_counter()
-        logits, _ = T.forward(cfg, rank.params,
-                              local_slice(tokens, rows, mesh).to(rank.device),
-                              mode="train", impl=rank.impl)
-        t1 = time.perf_counter()
-        rank.sync()
-        tot["host_s"] += t1 - t0
-        tot["device_s"] += time.perf_counter() - t1
+        logits, _ = rank.timed(
+            T.forward, local_config(cfg, mesh, rank.rules), rank.tp_params,
+            local_slice(tokens, rows, mesh).to(rank.device), mode="train",
+            impl=rank.impl)
     batch = (rows[0],) if isinstance(rows[0], str) else tuple(rows[0] or ())
     if not any(c for a, c in mesh.coords().items() if a not in batch):
         local_slice(out, rows, mesh).copy_(logits)

@@ -50,8 +50,8 @@ from repro_torch.core.partition import Plan
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import DEFAULT_BLOCK_SIZE
-from repro_torch.models.layers import (apply_norm, lm_logits, scale_embedding,
-                                       softcap)
+from repro_torch.models.layers import (apply_norm, embed_partial, lm_logits,
+                                       scale_embedding, softcap)
 
 
 @dataclass(frozen=True)
@@ -415,18 +415,6 @@ def vocab_params(cfg: ModelConfig, params: Dict, shard: slice) -> Dict:
     return {"embedding": emb,
             "head": emb.T if cfg.tie_embeddings
             else params["lm_head"][:, shard]}
-
-
-def embed_partial(rows: torch.Tensor, base: int,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding rows of ``tokens`` that fall in the stage's shard
-    ``rows`` (vocabulary ids ``base ..``), zero elsewhere: summed over the
-    stages they are the embedding."""
-    n = rows.shape[0]
-    ids = tokens - base
-    inside = (ids >= 0) & (ids < n)
-    got = rows[ids.clamp(0, n - 1)]
-    return torch.where(inside[..., None], got, torch.zeros_like(got))
 
 
 def logits_partial(cfg: ModelConfig, h: torch.Tensor,

@@ -70,7 +70,8 @@ from repro_torch.core import pipeline as PL
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import _check_decode_impl
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_norm, lm_logits, scale_embedding
+from repro_torch.models.layers import (apply_norm, embed_partial, lm_logits,
+                                       scale_embedding)
 
 #: seconds a stage's collectives, and the host's wait for any answer (the
 #: stages' start-up included), may take
@@ -415,7 +416,9 @@ class Comm:
     process group for each mesh axis (``axes`` names them in the mesh's
     order); the whole group needs none.  Operations that only move data
     move bytes, so every dtype goes.  ``moe_calls`` collects what each
-    expert-parallel MoE call of :mod:`repro_torch.models.moe` reports."""
+    expert-parallel MoE call of :mod:`repro_torch.models.moe` reports, and
+    ``tp`` tallies the tensor-parallel sums and gathers of
+    :mod:`repro_torch.sharding.rules`."""
 
     def __init__(self, dist, device: torch.device,
                  groups: Optional[Dict] = None, axes: Tuple[str, ...] = ()):
@@ -424,6 +427,11 @@ class Comm:
         self.groups, self.axes = groups or {}, tuple(axes)
         self._bufs: Dict[str, torch.Tensor] = {}
         self.moe_calls: List[Dict] = []
+        self.tp: Dict = {}
+        self.zero_tp()
+
+    def zero_tp(self) -> None:
+        self.tp.update(calls=0, bytes=0, wait_s=0., s=0.)
 
     def _buf(self, role: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
         n = numel * torch.empty((), dtype=dtype).element_size()
@@ -481,16 +489,18 @@ class Comm:
         self.dist.broadcast(buf.view(torch.uint8), src)
         return self.back(buf, shape)
 
-    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """Every process's ``x`` over ``axes``, concatenated along dim 0 in
-        the order of their coordinates."""
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """Every process's ``x`` over ``axes``, concatenated along ``dim``
+        in the order of their coordinates."""
         group = self.group(axes)
         n = self.dist.get_world_size(group)
+        x = x.movedim(dim, 0)
         src = self.stage("gather_in", x).view(torch.uint8)
         out = self._buf("gather_out", n * x.numel(), x.dtype)
         self.dist.all_gather(list(out.view(torch.uint8).chunk(n)), src,
                              group=group)
-        return self.back(out, (n * x.shape[0],) + tuple(x.shape[1:]))
+        out = self.back(out, (n * x.shape[0],) + tuple(x.shape[1:]))
+        return out.movedim(0, dim)
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` [n, ...] over the ``n`` processes of ``axis``: block ``j``
@@ -561,7 +571,7 @@ class _Stage:
                 positions = torch.full((1, 1), pos, dtype=torch.int32,
                                        device=self.device)
                 if self.shard is not None:
-                    rows = self._all_reduce(PL.embed_partial(
+                    rows = self._all_reduce(embed_partial(
                         self.params["embedding"], self.shard.start, tokens))
                     x = T.add_positions(cfg, scale_embedding(cfg, rows),
                                         positions) if r == 0 else x

@@ -4,7 +4,11 @@ are random, made from ``--seed``.  Two modes:
 
 - ``--mode tp`` (default) -- :class:`~repro_torch.runtime.TensorBackend`,
   optionally with speculative decoding, the prefix cache and chunked
-  prefill on the paged layout,
+  prefill on the paged layout; with ``--devices N`` tensor-parallel on a
+  ``(1, N)`` mesh of processes (``TensorBackend(..., mesh=...)``: each
+  process its 1/N of the heads, ``ff`` and vocabulary and of the K/V
+  cache, every process on the one device, the Megatron sums over gloo),
+  the reference's ``--mode tp --devices N``,
 - ``--mode pipeline`` -- the paper's deployment mode: ``LLM.from_plan``
   runs the throughput DP over ``tpu_pod_cluster(n_chips=--stages)`` and
   serves the (possibly uneven) stage plan as a no-bubbles pipeline on one
@@ -25,6 +29,9 @@ are random, made from ``--seed``.  Two modes:
         --impl cuda --batch 8 --slots 4 --prompt-len 1224 \
         --shared-prefix 1024 --prefix-cache --prefill-chunk 256 --gen 32 \
         --max-len 1280 --expect-prefix-hits
+    python -m repro_torch.launch.serve --arch llama2-7b --impl cuda \
+        --batch 4 --prompt-len 64 --varlen --gen 8 --max-len 128 \
+        --devices 4 [--cache-layout paged]
     python -m repro_torch.launch.serve --arch llama2-7b --mode pipeline \
         --stages 4 --impl cuda --batch 8 --prompt-len 64 --varlen --gen 32 \
         --max-len 128 [--stage-procs]
@@ -65,9 +72,10 @@ contiguous layout ``--impl cuda`` reads the dequantized rings with the
 ring kernel; on the paged one it reads by gather (``attn_impl=ref``, with
 a warning once), as the reference does.  ``--impl chunked`` runs prefill
 and extend as the online softmax over key blocks.  The reference's
-``--devices`` (its fake-XLA-device count, one a stage in pipeline mode) is
-``--stage-procs`` here: one process a stage, every stage on the one
-device (stages on several cards are not built yet).
+``--devices`` (its fake-XLA-device count) is ``--devices`` here in tp
+mode, a process a device of the ``(1, N)`` mesh, and ``--stage-procs`` in
+pipeline mode (one process a stage); every process runs on the one device
+(processes on several cards are not built yet).
 
 Returns ``(llm, outputs)`` when called as ``main(argv)``.
 """
@@ -90,6 +98,10 @@ def main(argv=None):
                     help="pipeline mode: run each planned stage in its own "
                          "process, all at the same time, activations over "
                          "torch.distributed (gloo)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="tp mode: tensor-parallel on a (1, N) mesh of N "
+                         "processes (heads, ff and vocabulary split over "
+                         "its model axis), every process on the one device")
     ap.add_argument("--batch", type=int, default=4,
                     help="number of requests to serve")
     ap.add_argument("--slots", type=int, default=0,
@@ -186,6 +198,9 @@ def main(argv=None):
     if args.stage_procs and args.mode != "pipeline":
         ap.error("--stage-procs runs the planned stages one a process: "
                  "pass --mode pipeline")
+    if args.devices and args.mode != "tp":
+        ap.error("--devices is tp mode's mesh of processes; pipeline mode "
+                 "runs its planned stages one a process with --stage-procs")
     if args.inject_faults and args.mode != "tp":
         ap.error("--inject-faults wraps the single tp-mode backend; chaos "
                  "over a multi-backend fleet is benchmarks/chaos_bench.py")
@@ -213,6 +228,7 @@ def main(argv=None):
     from repro_torch.core.devices import tpu_pod_cluster
     from repro_torch.core.profile import Workload
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.runtime import FaultInjectionBackend, TensorBackend
     from repro_torch.serving import LLM, SamplingParams
 
@@ -264,8 +280,14 @@ def main(argv=None):
               f"{llm.backend.spec.periods_per_stage}"
               + (" (one process a stage)" if args.stage_procs else ""))
     else:
+        mesh = Mesh(("data", "model"), (1, args.devices)) \
+            if args.devices else None
         backend = TensorBackend(cfg, params,
-                                n_slots=args.slots or args.batch, **kv_kw)
+                                n_slots=args.slots or args.batch, mesh=mesh,
+                                **kv_kw)
+        if mesh is not None:
+            print(f"tensor-parallel on a {mesh.shape} mesh of "
+                  f"{mesh.size} processes")
         if args.inject_faults:
             backend = FaultInjectionBackend(backend, args.inject_faults,
                                             seed=args.seed)
@@ -306,8 +328,9 @@ def main(argv=None):
         else:
             outs = llm.generate(prompts, sp)
     finally:
-        if args.stage_procs:
-            llm.backend.close()             # the stage processes
+        if args.stage_procs or args.devices:
+            # the stage or mesh processes (under a fault injector's wrapper)
+            getattr(llm.backend, "inner", llm.backend).close()
     dt = time.time() - t0
     total = sum(o.n_generated for o in outs)
     info = llm.backend.info

@@ -47,6 +47,11 @@ the reference, so it is gathered and read by :func:`_sdpa` with a warning
 once a process (a ``ValueError`` when ``REPRO_STRICT_IMPL`` is set), and
 :func:`effective_decode_impl` reports ``"ref"``.
 Caches update in place (``index_put_``) where the reference rebuilt them.
+
+Under tensor parallelism (:func:`repro_torch.sharding.rules.tensor_parallel`)
+a process runs a config of its own query and K/V heads, holds their
+caches, and its output projection is summed over the processes that split
+the heads (:func:`_out_proj`).
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm_headwise, softcap
+from repro_torch.sharding.rules import model_sum
 
 NEG_INF = -2.0 ** 30
 
@@ -131,6 +137,12 @@ def _project_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _out_proj(params: Dict, out: torch.Tensor) -> torch.Tensor:
+    """The output projection of the heads' outputs [..., q_dim], summed
+    over the processes that split the heads (tensor parallelism)."""
+    return model_sum(out @ params["wo"], "qkv")
 
 
 def _sdpa(cfg: ModelConfig, spec: BlockSpec, q: torch.Tensor,
@@ -250,7 +262,7 @@ def attend_full(params: Dict, cfg: ModelConfig, spec: BlockSpec,
         out = out.reshape(*x.shape[:2], cfg.q_dim)
     else:
         out = _sdpa_for(impl)(cfg, spec, q, k, v, positions, positions)
-    return out @ params["wo"]
+    return _out_proj(params, out)
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -336,7 +348,7 @@ def prefill_cache(params: Dict, cfg: ModelConfig, spec: BlockSpec,
     pos_b = positions if positions.dim() == 2 else positions[None].expand(b, s)
     valid = pos_b >= 0                                           # [B, S]
     out = _sdpa_for(impl)(cfg, spec, q, k, v, pos_b, pos_b, k_valid=valid)
-    y = out @ params["wo"]
+    y = _out_proj(params, out)
     c = cache["k"].shape[1]
     k_tail, v_tail, pos_tail, valid_tail = k, v, pos_b, valid
     if s > c:               # sliding window: only the last c tokens survive
@@ -406,7 +418,7 @@ def extend_cache(params: Dict, cfg: ModelConfig, spec: BlockSpec,
     ck, cv = _gathered(cache, nbs, k.dtype)
     out = _sdpa_for(impl)(cfg, spec, q, ck, cv, positions, key_pos,
                           k_valid=key_pos >= 0)
-    return out @ params["wo"], cache
+    return _out_proj(params, out), cache
 
 
 def attend_decode(params: Dict, cfg: ModelConfig, spec: BlockSpec,
@@ -437,7 +449,7 @@ def attend_decode(params: Dict, cfg: ModelConfig, spec: BlockSpec,
     else:
         out = _sdpa(cfg, spec, q, ck, cv, pos[:, None], key_pos,
                     k_valid=key_pos >= 0)
-    y = out @ params["wo"]
+    y = _out_proj(params, out)
     pos += 1
     return y, cache
 
@@ -495,7 +507,7 @@ def attend_decode_paged(params: Dict, cfg: ModelConfig, spec: BlockSpec,
         ck, cv = _gathered(cache, nbs, k.dtype)
         out = _sdpa(cfg, spec, q, ck, cv, pos[:, None], key_pos,
                     k_valid=key_pos >= 0)
-    y = out @ params["wo"]
+    y = _out_proj(params, out)
     pos += live.to(pos.dtype)
     return y, cache
 
@@ -551,6 +563,6 @@ def attend_verify_paged(params: Dict, cfg: ModelConfig, spec: BlockSpec,
         ck, cv = _gathered(cache, nbs, k.dtype)
         out = _sdpa(cfg, spec, q, ck, cv, positions, key_pos,
                     k_valid=key_pos >= 0)
-    y = out @ params["wo"]
+    y = _out_proj(params, out)
     pos += lens.to(pos.dtype)
     return y, cache

@@ -4,7 +4,11 @@ embeddings.
 Port of ``repro.models.layers``.  Weights keep the reference's layout
 (``x @ w`` with ``w [in, out]``) so bridged parameters need no transpose,
 and every function keeps its reference's precision rule: norms and RoPE
-compute in float32 and cast back to the input dtype.
+compute in float32 and cast back to the input dtype.  In a
+tensor-parallel process (:func:`repro_torch.sharding.rules.tensor_parallel`)
+the MLP's down projection is summed over the processes that split ``ff``,
+the embedding lookup over those that split the vocabulary, and the head's
+columns are gathered from them.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import model_gather, model_sum, shard_start
 
 # --------------------------------------------------------------------------- #
 # norms
@@ -100,7 +105,7 @@ def apply_mlp(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         act = F.gelu(gate, approximate="tanh")
     else:
         raise ValueError(f"unknown mlp {kind!r}")
-    return (act * up) @ params["w_down"]
+    return model_sum((act * up) @ params["w_down"], "ff")
 
 
 # --------------------------------------------------------------------------- #
@@ -110,8 +115,26 @@ def apply_mlp(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
 def embed_tokens(params: Dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Integer tokens -> embeddings (a frontend's float inputs take
-    ``transformer._embed_inputs``)."""
-    return scale_embedding(cfg, params["embedding"][tokens])
+    ``transformer._embed_inputs``).  Where the vocabulary is split, each
+    process looks up the tokens in its rows (zero elsewhere) and the
+    partial rows are summed."""
+    emb = params["embedding"]
+    start = shard_start("vocab", emb.shape[0])
+    rows = emb[tokens] if start is None else \
+        model_sum(embed_partial(emb, start, tokens), "vocab")
+    return scale_embedding(cfg, rows)
+
+
+def embed_partial(rows: torch.Tensor, base: int,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` that fall in a shard ``rows`` of
+    the vocabulary (ids ``base ..``), zero elsewhere: summed over the
+    shards they are the embedding."""
+    n = rows.shape[0]
+    ids = tokens - base
+    inside = (ids >= 0) & (ids < n)
+    got = rows[ids.clamp(0, n - 1)]
+    return torch.where(inside[..., None], got, torch.zeros_like(got))
 
 
 def scale_embedding(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -127,4 +150,4 @@ def lm_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         logits = x @ params["embedding"].T
     else:
         logits = x @ params["lm_head"]
-    return softcap(logits, cfg.final_logit_softcap)
+    return model_gather(softcap(logits, cfg.final_logit_softcap), "vocab")

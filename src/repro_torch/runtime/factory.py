@@ -57,7 +57,8 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
                     cache_layout: str = "contiguous", block_size: int = 16,
                     num_blocks: Optional[int] = None,
                     prefix_cache: bool = False, device=None,
-                    stage_procs: bool = False) -> InferenceBackend:
+                    stage_procs: bool = False,
+                    mesh=None) -> InferenceBackend:
     """Materialize a planned deployment as a serving backend.
 
     ``cache_layout="paged"`` provisions a shared KV block pool (``num_blocks``
@@ -70,6 +71,10 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
     is where they run (the GPU unless ``"cpu"`` is asked for).
     ``stage_procs=True`` runs the pipeline's stages one a process
     (:mod:`repro_torch.core.stage_procs`; close the backend when done).
+    ``mesh`` (a ``(1, N)`` :class:`~repro_torch.launch.mesh.Mesh`) makes
+    the tensor kind tensor-parallel over N processes, as the reference's
+    ``mesh``; the pipeline kind takes none: its stages run in this process
+    or one a process.
     """
     assert deployment.ok, f"deployment {deployment.method} is OOM-infeasible"
     plan = deployment.plan
@@ -87,6 +92,10 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
 
     if params is None:
         raise ValueError(f"kind={kind!r} needs model params")
+    if mesh is not None and kind != "tensor":
+        raise ValueError(f"a mesh shards the tensor kind over processes; "
+                         f"kind={kind!r} takes none (the pipeline's stages "
+                         f"run one a process with stage_procs)")
     if stage_procs and kind != "pipeline":
         raise ValueError(f"stage_procs runs the pipeline's stages one a "
                          f"process; kind={kind!r} has no stages")
@@ -95,7 +104,7 @@ def from_deployment(deployment: Deployment, cluster: ClusterSpec,
         from repro_torch.runtime.tensor import TensorBackend
         return TensorBackend(cfg, params,
                              n_slots=n_slots or max(deployment.batch, 1),
-                             max_len=max_len, impl=impl,
+                             max_len=max_len, mesh=mesh, impl=impl,
                              cache_dtype=cache_dtype,
                              cache_layout=cache_layout,
                              block_size=block_size, num_blocks=num_blocks,

@@ -54,15 +54,29 @@ admission first adopts the blocks a content-addressed index
 the prompt's head, copy-on-write, and prefills only the rest.  Any other
 deployment silently keeps monolithic prefill (``BackendInfo`` reports
 ``supports_extend``/``prefix_caching`` off), as in the reference.
+
+On a mesh (``mesh=``, a ``(1, N)`` :class:`~repro_torch.launch.mesh.Mesh`
+over ``("data", "model")``, as the reference's launcher builds) the
+backend is tensor-parallel over ``model``: :class:`MeshTensorBackend` is
+the host side of one process a point
+(:class:`~repro_torch.core.mesh_procs.MeshProcs`), each running a
+``TensorBackend`` over its shard of the weights
+(:func:`~repro_torch.sharding.rules.tensor_parallel`: its query and K/V
+heads, and so its share of every ring or pool, its ``ff`` columns, its
+vocabulary rows; a recurrent layer's mixer and state whole) under
+``use_mesh``, the Megatron sums and the head's gather between them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.stage_procs import DEFAULT_TIMEOUT
 from repro_torch.device import Device, resolve_device, torch_dtype
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import kvcache as KV
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import effective_decode_impl
@@ -70,6 +84,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.base import (BackendInfo, InferenceBackend,
                                       PoolExhausted, SlotEvent, SlotPager)
 from repro_torch.runtime.prefix_cache import PrefixCache
+from repro_torch.sharding.rules import use_mesh
 
 
 def _nbytes(tensors) -> int:
@@ -79,10 +94,20 @@ def _nbytes(tensors) -> int:
 class TensorBackend(InferenceBackend):
     """Masked wave prefill + batched (contiguous | paged) decode, and
     speculative verify and streamed admission on the paged layout, on one
-    device."""
+    device; with ``mesh``, a :class:`MeshTensorBackend`."""
+
+    def __new__(cls, cfg: ModelConfig = None, params: Dict = None,
+                n_slots: int = 0, max_len: int = 0,
+                mesh: Optional[Mesh] = None, *args, **kw):
+        # not a TensorBackend, so its __init__ is not run a second time
+        if mesh is not None:
+            return MeshTensorBackend(cfg, params, n_slots, max_len, mesh,
+                                     *args, **kw)
+        return super().__new__(cls)
 
     def __init__(self, cfg: ModelConfig, params: Dict, n_slots: int,
-                 max_len: int, impl: str = "ref",
+                 max_len: int, mesh: Optional[Mesh] = None,
+                 impl: str = "ref",
                  cache_dtype: Optional[torch.dtype] = None,
                  cache_layout: str = "contiguous",
                  block_size: int = KV.DEFAULT_BLOCK_SIZE,
@@ -512,6 +537,149 @@ class TensorBackend(InferenceBackend):
         self._stream_tokens.pop(slot, None)
         if self.pager is not None:
             self.pager.release(slot)
+
+
+class MeshTensorBackend(InferenceBackend):
+    """``TensorBackend(..., mesh=...)``: tensor-parallel over the mesh's
+    ``model`` axis, one process a point, every process on ``device`` (the
+    card unless ``"cpu"``).  Each method call goes to every process, whose
+    ``TensorBackend`` over its shard runs it under ``use_mesh``; their
+    pagers and prefix caches decide alike, since they see the same calls,
+    and every answer carries the process's slot positions and block
+    tables, which must agree (else :class:`RuntimeError`).  Process 0's
+    events come back, their logits whole after the head's gather; a
+    :class:`PoolExhausted` in the processes is raised here.  ``info`` is
+    process 0's, with the cache bytes a slot and a block summed over the
+    processes and the parameter bytes held once.  Call :meth:`close` when
+    done: it stops every process."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict, n_slots: int,
+                 max_len: int, mesh: Optional[Mesh] = None,
+                 impl: str = "ref",
+                 cache_dtype: Optional[torch.dtype] = None,
+                 cache_layout: str = "contiguous",
+                 block_size: int = KV.DEFAULT_BLOCK_SIZE,
+                 num_blocks: Optional[int] = None, device: Device = None,
+                 prefix_cache: bool = False,
+                 timeout: float = DEFAULT_TIMEOUT):
+        from repro_torch.core.mesh_procs import MeshProcs
+        if tuple(mesh.axis_names) != ("data", "model") \
+                or mesh.shape["data"] != 1:
+            raise ValueError(f"a tensor-parallel TensorBackend serves on a "
+                             f"(1, N) mesh over ('data', 'model'), as the "
+                             f"reference's launcher builds: not {mesh}")
+        self.cfg, self.params, self.max_len = cfg, params, max_len
+        self.mesh, self.impl = mesh, impl
+        self.device = resolve_device(device)
+        self.procs = MeshProcs(cfg, params, mesh, impl=impl,
+                               device=self.device, timeout=timeout)
+        infos = self.procs.run(_open_backend, dict(
+            n_slots=n_slots, max_len=max_len, impl=impl,
+            cache_dtype=cache_dtype, cache_layout=cache_layout,
+            block_size=block_size, num_blocks=num_blocks,
+            prefix_cache=prefix_cache))
+        #: the byte counts summed over the processes
+        self._sums = dict(
+            cache_bytes_per_slot=sum(i.cache_bytes_per_slot for i in infos),
+            bytes_per_block=sum(i.bytes_per_block for i in infos),
+            param_bytes=_nbytes(_leaves(params)))
+        self._info = infos[0]
+
+    @property
+    def info(self) -> BackendInfo:
+        return dataclasses.replace(self._info, **self._sums)
+
+    def _each(self, method: str, *args):
+        """``method(*args)`` on every process's backend; process 0's
+        result."""
+        answers = self.procs.run(_call_backend, method, args)
+        if len({a[1] for a in answers}) > 1:
+            raise RuntimeError(f"{method}: the {self.mesh.size} processes' "
+                               f"slots and block tables differ")
+        out, _, self._info = answers[0]
+        if isinstance(out, PoolExhausted):
+            raise out
+        return out
+
+    def prefill(self, slots, prompts, prompt_lens=None) -> List[SlotEvent]:
+        return self._each("prefill", slots, prompts, prompt_lens)
+
+    def decode_step(self, feeds: Dict[int, int]) -> List[SlotEvent]:
+        return self._each("decode_step", feeds) if feeds else []
+
+    def verify_step(self, feeds: Dict[int, np.ndarray]) -> List[SlotEvent]:
+        return self._each("verify_step", feeds) if feeds else []
+
+    def accept(self, counts: Dict[int, int]) -> None:
+        return self._each("accept", counts)
+
+    def cached_prefix_len(self, prompt: np.ndarray) -> int:
+        return self._each("cached_prefix_len", prompt)
+
+    def start_stream(self, slot: int, prompt: np.ndarray) -> int:
+        return self._each("start_stream", slot, prompt)
+
+    def prefill_chunk(self, slots, chunks, chunk_lens, starts,
+                      last) -> List[SlotEvent]:
+        return self._each("prefill_chunk", slots, chunks, chunk_lens, starts,
+                          last)
+
+    def free_slot(self, slot: int) -> None:
+        return self._each("free_slot", slot)
+
+    def stats(self) -> List[Dict]:
+        """Each process's totals since :meth:`zero_stats`
+        (:meth:`MeshProcs.stats`): kernel launches; ``host_s`` (running
+        the calls, the collectives and the waits before them excepted),
+        ``device_s`` (waiting for the device: before each collective and
+        at the end of each call), ``calls`` by method, and ``tp``: the
+        sums and gathers (``calls``, operand ``bytes``, ``s``)."""
+        return self.procs.stats()
+
+    def zero_stats(self) -> None:
+        self.procs.zero_stats()
+
+    def close(self) -> None:
+        """Stop every process (idempotent)."""
+        self.procs.close()
+
+
+class _Exhausted(PoolExhausted):
+    """A :class:`PoolExhausted` that pickles (its arguments are its
+    fields), for the answer of a mesh process."""
+
+    def __reduce__(self):
+        return _Exhausted, (self.needed, self.free)
+
+
+def _open_backend(rank, kw: Dict) -> BackendInfo:
+    """In a mesh process: its ``TensorBackend`` over its shard."""
+    rank.backend = TensorBackend(rank.tp_cfg, rank.tp_params,
+                                 device=rank.device, **kw)
+    return rank.backend.info
+
+
+def _call_backend(rank, method: str, args: Tuple):
+    """In a mesh process: one method of its backend under ``use_mesh``,
+    timed into its totals (``rank.timed``) and counted by method.  Returns
+    (the result on process 0 -- a :class:`PoolExhausted` as a value --,
+    the slots' positions and block tables, its live ``info``)."""
+    be = rank.backend
+
+    def call():
+        with use_mesh(rank.mesh, rank.rules):
+            try:
+                return getattr(be, method)(*args)
+            except PoolExhausted as exc:
+                return _Exhausted(exc.needed, exc.free)
+
+    out = rank.timed(call)
+    calls = rank.totals.setdefault("calls", {})
+    calls[method] = calls.get(method, 0) + 1
+    state = be._pos.tobytes() + be._active.tobytes() + (
+        be.pager.table.tobytes() + be.pager.n_alloc.tobytes()
+        if be.pager is not None else b"")
+    return (out if rank.rank == 0 else None), state, be.info
 
 
 def _leaves(tree) -> List[torch.Tensor]:

@@ -100,7 +100,8 @@ class LLM:
                   prefill_chunk: Optional[int] = None,
                   policy=None, max_preemptions: int = 3,
                   spec_k: int = 0, draft="ngram", max_retries: int = 3,
-                  device=None, stage_procs: bool = False) -> "LLM":
+                  device=None, stage_procs: bool = False,
+                  mesh=None) -> "LLM":
         """Plan -> backend -> serving in one call (the paper's Fig. 3 flow).
 
         Runs the EdgeShard joint device-selection + partition DP over
@@ -120,7 +121,8 @@ class LLM:
         serves plain decode) and ignores the prefix cache.  ``prefill_chunk``
         streams admissions on both layouts.  ``stage_procs=True`` runs each
         planned stage in its own process (the reference's one device a
-        stage); ``llm.backend.close()`` stops them.
+        stage), and a ``mesh`` makes ``kind="tensor"`` tensor-parallel
+        over its processes; ``llm.backend.close()`` stops them.
         """
         from repro_torch.core.planner import plan_deployment
         from repro_torch.core.profile import Workload
@@ -135,7 +137,7 @@ class LLM:
                                   block_size=block_size,
                                   num_blocks=num_blocks,
                                   prefix_cache=prefix_cache, device=device,
-                                  stage_procs=stage_procs)
+                                  stage_procs=stage_procs, mesh=mesh)
         llm = cls(backend, seed=seed, min_bucket=min_bucket, pad_id=pad_id,
                   prefill_chunk=prefill_chunk, policy=policy,
                   max_preemptions=max_preemptions,

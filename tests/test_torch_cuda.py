@@ -1127,3 +1127,70 @@ def test_mesh_moe_ep_forward_on_gpu(gpu):
         assert [r["dropped"] for r in st["moe"]] == [0, 0]
         assert st["launches"]["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------------------------- #
+# tensor parallelism over the mesh's model axis
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_tp_serve_launches_in_the_processes_on_gpu(gpu, layout):
+    """llama2-7b reduced to 4 layers in float32 on a (1, 2) mesh of
+    processes (``TensorBackend(..., mesh=...)``, two of its four heads a
+    process): greedy tokens those of one process, the decode (or paged)
+    kernel launched once a layer and decode step in each process and
+    never in this one."""
+    from repro_torch.launch.mesh import Mesh
+    cfg = get_config("llama2-7b").reduced(n_layers=4)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0),
+                         gpu)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (23, 19, 26, 17, 21)]
+    sp = SamplingParams(max_tokens=8)
+    kernel = PA.paged_attention if layout == "paged" else DA.decode_attention
+    kw = dict(n_slots=3, max_len=48, cache_layout=layout, block_size=8,
+              impl="cuda")
+    want = [o.tokens for o in LLM.from_backend(
+        TensorBackend(cfg, params, **kw)).generate(prompts, sp)]
+    be = TensorBackend(cfg, params, mesh=Mesh(("data", "model"), (1, 2)),
+                       **kw)
+    try:
+        before = kernel.launches
+        got = [o.tokens for o in LLM.from_backend(be).generate(prompts, sp)]
+        stats = be.stats()
+    finally:
+        be.close()
+    assert got == want
+    assert kernel.launches == before
+    for st in stats:
+        assert st["launches"][kernel.__name__] == \
+            cfg.n_layers * st["calls"]["decode_step"]
+        assert st["tp"]["calls"] > 0
+
+
+def test_tp_forward_on_gpu(gpu):
+    """llama2-7b reduced to 4 layers in float32: ``MeshProcs.forward`` on
+    a (1, 2) mesh (heads, ff and vocabulary split) equals the one-process
+    forward at 2e-4, the flash kernel launched once a layer in each
+    process."""
+    from repro_torch.core.mesh_procs import MeshProcs
+    from repro_torch.launch.mesh import Mesh
+    cfg = get_config("llama2-7b").reduced(n_layers=4)
+    params = init_params(cfg, torch.Generator(device=gpu).manual_seed(0),
+                         gpu)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 64))).to(gpu)
+    with torch.no_grad():
+        want, _ = TT.forward(cfg, params, tokens, mode="train", impl="cuda")
+    procs = MeshProcs(cfg, params, Mesh(("data", "model"), (1, 2)),
+                      impl="cuda")
+    try:
+        got = procs.forward(tokens)
+        stats = procs.stats()
+    finally:
+        procs.close()
+    for st in stats:
+        assert st["launches"]["flash_attention"] == cfg.n_layers
+        assert st["tp"]["calls"] == 2 * cfg.n_layers + 2
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

@@ -15,6 +15,7 @@ the JAX package's modules) against the reference, on the CPU.
   transients on the CPU.
 """
 import dataclasses
+import itertools
 import sys
 import types
 
@@ -61,9 +62,22 @@ def req(ns, plen=8, uid=None, gen=8, base=1, **params):
                       uid=uid)
 
 
+def _same_uids():
+    """Start both packages' automatic request ids at one number, so that a
+    scenario's uids (the keys of ``where`` and of the outputs) agree
+    whatever requests earlier tests in this process made in either."""
+    import repro.serving.types as ref_types
+    import repro_torch.serving.types as port_types
+    mods = (ref_types, port_types)
+    start = max(next(m._UIDS) for m in mods)
+    for m in mods:
+        m._UIDS = itertools.count(start)
+
+
 def both(scenario, *args):
     """The scenario's outcome over the port, after checking it equals the
-    reference's."""
+    reference's (both packages' request ids from one start)."""
+    _same_uids()
     want = scenario(NS["ref"], *args)
     got = scenario(NS["port"], *args)
     assert got == want

@@ -16,8 +16,9 @@ process of the model axis), as in the reference's
   where ``model`` does not divide the experts, ``moe_ragged`` (no
   ``moe_ep`` call) against the reference's;
 - the whole model's ``forward(mode="train")`` on the mesh (batch rows over
-  data, every MoE layer on ``moe_ep``) against the reference's unsharded
-  forward at its 5e-4; no child process is left.
+  data, heads and vocabulary tensor-parallel over model, every MoE layer
+  on ``moe_ep``) against the reference's unsharded forward at its 5e-4;
+  no child process is left.
 
 The reference runs once, in a subprocess with 8 faked XLA devices (its
 mesh's axes of type ``Auto``) started with the module; the mesh of
@@ -284,8 +285,9 @@ def test_moe_ep_needs_a_mesh_process():
 
 def test_forward_on_the_mesh_matches_the_unsharded_reference(reference):
     """``forward(mode="train")`` on the mesh's processes under
-    ``use_mesh``: batch rows over data, dense weights whole on every
-    process, all 4 MoE layers on ``moe_ep`` (one expert a process),
+    ``use_mesh``: batch rows over data, the attention's heads and the
+    vocabulary split over model (one head and 128 vocabulary rows a
+    process), all 4 MoE layers on ``moe_ep`` (one expert a process),
     against the reference's unsharded forward at its 5e-4 and the port's
     in one process; each process made one ``moe_ep`` call a layer, at
     the reduced config's capacity factor of 8.0, dropping nothing."""

@@ -37,3 +37,51 @@ def apply_moe_rows(rank, layer, x, moe, n_experts=None):
                              local_slice(x, rows, mesh).to(rank.device))
     return y.cpu(), float(aux), len(rank.comm.moe_calls) - calls
 
+
+
+def tp_shapes(rank):
+    """This process's tensor-parallel view: its config's head, K/V head and
+    ff counts, and the shapes of its first layer's leaves and its
+    vocabulary weights."""
+    cfg, params = rank.tp_cfg, rank.tp_params
+    layer = params["layers"][0]
+    leaves = {f"{part}/{k}": tuple(v.shape)
+              for part in ("mixer", "ffn", "norm1")
+              for k, v in layer.get(part, {}).items()}
+    leaves["embedding"] = tuple(params["embedding"].shape)
+    return (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff), leaves
+
+
+def tp_sum_and_gather(rank, n):
+    """Under this process's rules: ``model_sum`` over ``ff`` of bf16
+    partials [n] drawn from its model coordinate, and ``model_gather``
+    over ``vocab`` of a [2, 3] block holding its coordinate; the partials,
+    the sum and the gathered tensor."""
+    import torch
+    from repro_torch.sharding.rules import model_gather, model_sum
+    coord = rank.mesh.coords()["model"]
+    gen = torch.Generator().manual_seed(coord)
+    part = (torch.randn(n, generator=gen) * 10).to(torch.bfloat16)
+    with use_mesh(rank.mesh, rank.rules):
+        total = model_sum(part, "ff")
+        block = torch.full((2, 3), float(coord))
+        gathered = model_gather(block, "vocab")
+    return part, total, gathered
+
+
+def cache_kv_bytes(caches):
+    """The bytes of the K/V tensors (rings or pools) of ``caches``."""
+    return sum(t.numel() * t.element_size() for c in caches
+               for k, t in c.items() if k in ("k", "v", "k_pool", "v_pool"))
+
+
+def kv_bytes(rank):
+    """The bytes of this process's K/V tensors."""
+    return cache_kv_bytes(rank.backend.caches)
+
+
+def shift_position(rank, slot):
+    """Move one slot's host position on process 1 only: its state then
+    disagrees with the others'."""
+    if rank.rank == 1:
+        rank.backend._pos[slot] += 1
