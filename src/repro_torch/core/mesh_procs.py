@@ -40,12 +40,16 @@ buffers.  Each process runs one CPU thread.
   ``model`` and the head's columns gathered; every MoE layer whose
   experts ``model`` divides runs :func:`repro_torch.models.moe.moe_ep`.
   The serving :class:`~repro_torch.runtime.tensor.TensorBackend` on a
-  mesh runs its processes here too (:meth:`MeshProcs.run`).
+  mesh runs its processes here too (:meth:`MeshProcs.run`);
+- :meth:`MeshProcs.train`: :meth:`MeshProcs.run` with autograd on, the
+  commands of the mesh trainer
+  (:class:`repro_torch.training.train_loop.MeshTrainStep`), which gives
+  each process a private copy of its tensor-parallel view to train.
 
 ``impl="cuda"`` runs the kernels in the processes; :meth:`MeshProcs.stats`
 gathers each process's kernel launches, its seconds (dispatching, waiting
 for the device, in the hops), its hop bytes, its MoE calls and its
-tensor-parallel collectives.
+tensor-parallel and data-parallel collectives and its peak device memory.
 """
 from __future__ import annotations
 
@@ -108,6 +112,11 @@ class MeshProcs(ProcGroup):
         ``fn`` is pickled by name: a module-level function."""
         return self._call(("run", fn, args, kw))
 
+    def train(self, fn: Callable, *args, **kw) -> List[Any]:
+        """:meth:`run` with autograd on: the trainer's commands
+        (:mod:`repro_torch.training.train_loop`)."""
+        return self._call(("train", fn, args, kw))
+
     def pipeline_forward(self, tokens: torch.Tensor, spec: PL.PipelineSpec,
                          n_microbatches: int, stage_axis: str = "model",
                          batch_axes: Sequence[str] = ("data",),
@@ -152,7 +161,8 @@ class MeshProcs(ProcGroup):
         totals: ``host_s`` (dispatching its work), ``device_s`` (waiting
         for the device; :meth:`_MeshRank.timed`), ``hop_s`` and
         ``hop_bytes`` (the pipeline's hand-offs, waiting for the
-        neighbour included), ``moe`` (one
+        neighbour included), ``peak_bytes`` (the device memory it has
+        held at most; 0 on the CPU), ``moe`` (one
         record a ``moe_ep`` call: assignments ``rows``, ``dropped``, the
         capacity ``cap``, ``a2a_bytes`` sent, ``keep``) and ``tp`` (the
         tensor-parallel sums and gathers: ``calls``, operand ``bytes``,
@@ -230,13 +240,16 @@ class _MeshRank:
 
     def handle(self, msg):
         kind = msg[0]
-        if kind == "run":
+        if kind in ("run", "train"):
             fn, args, kw = msg[1:]
-            with torch.no_grad():
+            with torch.set_grad_enabled(kind == "train"):
                 return fn(self, *args, **kw)
         if kind == "stats":
+            peak = torch.cuda.max_memory_allocated(self.device) \
+                if self.device.type == "cuda" else 0
             return dict(self.totals, moe=list(self.comm.moe_calls),
-                        tp=dict(self.comm.tp),
+                        tp=dict(self.comm.tp), dp=dict(self.comm.dp),
+                        peak_bytes=peak,
                         launches={k: fn.launches
                                   for k, fn in self.kernels.items()})
         if kind == "zero":

@@ -416,9 +416,10 @@ class Comm:
     process group for each mesh axis (``axes`` names them in the mesh's
     order); the whole group needs none.  Operations that only move data
     move bytes, so every dtype goes.  ``moe_calls`` collects what each
-    expert-parallel MoE call of :mod:`repro_torch.models.moe` reports, and
+    expert-parallel MoE call of :mod:`repro_torch.models.moe` reports,
     ``tp`` tallies the tensor-parallel sums and gathers of
-    :mod:`repro_torch.sharding.rules`."""
+    :mod:`repro_torch.sharding.rules` (forward and backward), and ``dp``
+    the trainer's gradient sums over the batch axes."""
 
     def __init__(self, dist, device: torch.device,
                  groups: Optional[Dict] = None, axes: Tuple[str, ...] = ()):
@@ -428,10 +429,13 @@ class Comm:
         self._bufs: Dict[str, torch.Tensor] = {}
         self.moe_calls: List[Dict] = []
         self.tp: Dict = {}
+        self.dp: Dict = {}
         self.zero_tp()
 
     def zero_tp(self) -> None:
-        self.tp.update(calls=0, bytes=0, wait_s=0., s=0.)
+        """Zero the ``tp`` and ``dp`` tallies."""
+        for tally in (self.tp, self.dp):
+            tally.update(calls=0, bytes=0, wait_s=0., s=0.)
 
     def _buf(self, role: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
         n = numel * torch.empty((), dtype=dtype).element_size()

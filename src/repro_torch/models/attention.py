@@ -50,8 +50,10 @@ Caches update in place (``index_put_``) where the reference rebuilt them.
 
 Under tensor parallelism (:func:`repro_torch.sharding.rules.tensor_parallel`)
 a process runs a config of its own query and K/V heads, holds their
-caches, and its output projection is summed over the processes that split
-the heads (:func:`_out_proj`).
+caches, its input enters the projections through ``model_copy`` (whose
+backward sums the processes' shares of its gradient), and its output
+projection is summed over the processes that split the heads
+(:func:`_out_proj`).
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm_headwise, softcap
-from repro_torch.sharding.rules import model_sum
+from repro_torch.sharding.rules import model_copy, model_sum
 
 NEG_INF = -2.0 ** 30
 
@@ -122,6 +124,7 @@ def _project_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """x [B,S,d] -> q [B,S,h,hd], k/v [B,S,n_kv,hd]; RoPE applied."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    x = model_copy(x, "qkv")
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]

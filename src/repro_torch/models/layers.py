@@ -8,7 +8,9 @@ compute in float32 and cast back to the input dtype.  In a
 tensor-parallel process (:func:`repro_torch.sharding.rules.tensor_parallel`)
 the MLP's down projection is summed over the processes that split ``ff``,
 the embedding lookup over those that split the vocabulary, and the head's
-columns are gathered from them.
+columns are gathered from them; the MLP's and the head's inputs enter
+their split regions through ``model_copy``, whose backward sums the
+processes' shares of their gradients.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import model_gather, model_sum, shard_start
+from repro_torch.sharding.rules import (model_copy, model_gather, model_sum,
+                                        shard_start)
 
 # --------------------------------------------------------------------------- #
 # norms
@@ -97,6 +100,7 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int) -> torch.Tensor:
 def apply_mlp(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "none":
         return torch.zeros_like(x)
+    x = model_copy(x, "ff")
     up = x @ params["w_up"]
     gate = x @ params["w_gate"]
     if kind == "swiglu":
@@ -146,6 +150,7 @@ def scale_embedding(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = model_copy(x, "vocab")
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].T
     else:

@@ -32,8 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, MoEConfig
-from repro_torch.sharding.rules import (P, current_mesh, current_rules,
-                                        local_slice)
+from repro_torch.sharding.rules import (all_to_all, current_mesh,
+                                        current_rules, gather_blocks,
+                                        local_slice, mean_over_mesh,
+                                        take_block)
 
 
 def router_topk(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig,
@@ -122,10 +124,12 @@ def _dispatch_buckets(x: torch.Tensor, flat_ids: torch.Tensor,
 def _moe_ep_local(x: torch.Tensor, router_w: torch.Tensor,
                   w_gate: torch.Tensor, w_up: torch.Tensor,
                   w_down: torch.Tensor, *, moe: MoEConfig, ep: int, cap: int,
-                  comm, ep_axis: str = "model",
+                  mesh, ep_axis: str = "model",
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One process's part: its tokens x [t, d], its ``E / ep`` experts'
-    weights.  Returns (y [t, d], its aux loss, keep [t*k])."""
+    weights.  Returns (y [t, d], its aux loss, keep [t*k]).  Each
+    ``all_to_all`` is differentiable, its backward the same exchange of
+    the cotangent."""
     t, d = x.shape
     k, e = moe.top_k, moe.num_experts
     e_loc = e // ep
@@ -134,13 +138,13 @@ def _moe_ep_local(x: torch.Tensor, router_w: torch.Tensor,
     rep_x = torch.repeat_interleave(x, k, dim=0)                 # [T*k, d]
     buckets, slot, keep = _dispatch_buckets(rep_x, flat_ids, e, cap)
     # [E, cap, d] -> [ep, E_loc*cap, d] -> all_to_all -> [ep_src, E_loc*cap, d]
-    recv = comm.all_to_all(buckets.reshape(ep, e_loc * cap, d), ep_axis)
+    recv = all_to_all(buckets.reshape(ep, e_loc * cap, d), ep_axis, mesh)
     recv = recv.reshape(ep, e_loc, cap, d).transpose(0, 1)
     recv = recv.reshape(e_loc, ep * cap, d)
     h = F.silu(torch.bmm(recv, w_gate)) * torch.bmm(recv, w_up)
     out = torch.bmm(h, w_down)                           # [E_loc, ep*cap, d]
     out = out.reshape(e_loc, ep, cap, d).transpose(0, 1)
-    back = comm.all_to_all(out.reshape(ep, e_loc * cap, d), ep_axis)
+    back = all_to_all(out.reshape(ep, e_loc * cap, d), ep_axis, mesh)
     back = back.reshape(e, cap, d)
     gathered = back[flat_ids, slot.clamp(max=cap - 1)]           # [T*k, d]
     gathered = torch.where(keep[:, None], gathered, 0)
@@ -176,8 +180,8 @@ def moe_ep(params: Dict, moe: MoEConfig, x: torch.Tensor,
                          f"{w[0].shape[0]} a process, not "
                          f"{moe.num_experts} // {ep}")
     y, aux, keep = _moe_ep_local(x, params["router"], *w, moe=moe, ep=ep,
-                                 cap=cap, comm=mesh.comm, ep_axis=ep_axis)
-    aux = mesh.comm.all_reduce(aux.reshape(1))[0] / mesh.size
+                                 cap=cap, mesh=mesh, ep_axis=ep_axis)
+    aux = mean_over_mesh(aux.reshape(1), mesh)[0]
     mesh.comm.moe_calls.append(dict(
         rows=keep.numel(), dropped=int((~keep).sum()), cap=cap,
         a2a_bytes=2 * moe.num_experts * cap * x.shape[1] * x.element_size(),
@@ -189,14 +193,17 @@ def _moe_ep_tokens(params: Dict, moe: MoEConfig, flat: torch.Tensor,
                    mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moe_ep`` over every token of the batch, flat [T, d] on every
     process: padded to the process count and split over every process as
-    the reference splits them, each process's block of y gathered back."""
+    the reference splits them, each process's block of y gathered back.
+    Under autograd the block's gradient is summed over ``model`` and y's
+    over the batch axes (:func:`~repro_torch.sharding.rules.take_block`,
+    :func:`~repro_torch.sharding.rules.gather_blocks`)."""
     t, d = flat.shape
     pad = (-t) % mesh.size
     if pad:
         flat = torch.cat([flat, flat.new_zeros((pad, d))])
     every = tuple(mesh.axis_names)
-    y, aux = moe_ep(params, moe, local_slice(flat, P(every, None), mesh))
-    return mesh.comm.all_gather(y, every)[:t], aux
+    y, aux = moe_ep(params, moe, take_block(flat, every, mesh))
+    return gather_blocks(y, every, mesh)[:t], aux
 
 
 def apply_moe(params: Dict, cfg: ModelConfig, moe: MoEConfig,
@@ -212,7 +219,7 @@ def apply_moe(params: Dict, cfg: ModelConfig, moe: MoEConfig,
     rows of y."""
     mesh = current_mesh()
     batch = None if mesh is None else current_rules().spec(("batch",))[0]
-    whole = x if batch is None else mesh.comm.all_gather(x, batch)
+    whole = x if batch is None else gather_blocks(x, batch, mesh)
     flat = whole.reshape(-1, x.shape[-1])
     if mesh is not None and moe.num_experts % mesh.shape["model"] == 0:
         y, aux = _moe_ep_tokens(params, moe, flat, mesh)
@@ -220,7 +227,7 @@ def apply_moe(params: Dict, cfg: ModelConfig, moe: MoEConfig,
         y, aux = moe_ragged(params, moe, flat)
     y = y.reshape(whole.shape)
     if batch is not None:
-        y = local_slice(y, P(batch), mesh)
+        y = local_slice(y, (batch,), mesh)
     if moe.num_shared_experts:
         h = F.silu(x @ params["s_gate"]) * (x @ params["s_up"])
         y = y + h @ params["s_down"]

@@ -15,8 +15,14 @@ by :func:`param_sharding_tree` of :func:`repro_torch.bridge.param_axes`)
 and the config of its local head and ff counts (:func:`local_config`).
 Where the reference constrains a product over a split dimension back to
 ``("batch", None, "embed")`` and XLA inserts the all-reduce, the model
-code calls :func:`model_sum`; the vocabulary-split head calls
-:func:`model_gather`.  Both are the identity outside a mesh process.
+code calls :func:`model_sum`; where a whole value enters a split region,
+:func:`model_copy`; the vocabulary-split head calls :func:`model_gather`.
+All three are the identity outside a mesh process.  Under autograd every
+collective here has its exact adjoint for a backward (Megatron's
+conventions over ``model``, data parallelism's over the batch axes; the
+section "collectives under autograd" below), and :func:`tp_leaves` tells
+the trainer which of a process's leaves are split over ``model`` and
+which whole ones get only a process's share of their gradient.
 
 Default production mapping (single-pod (data, model) / multi-pod
 (pod, data, model)):
@@ -163,6 +169,11 @@ class NamedSharding:
 def _axes(entry: MeshAxes) -> Tuple[str, ...]:
     return () if entry is None else (entry,) if isinstance(entry, str) \
         else tuple(entry)
+
+
+def spec_axes(spec: Sequence[MeshAxes]) -> Tuple[str, ...]:
+    """Every mesh axis a spec places a dimension over, in its order."""
+    return tuple(a for entry in spec for a in _axes(entry))
 
 
 def axis_size(mesh: Mesh, entry: MeshAxes) -> int:
@@ -329,6 +340,25 @@ def local_config(cfg: ModelConfig, mesh: Mesh,
         d_ff=cfg.d_ff // ff)
 
 
+def _tp_specs(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Dict:
+    """The spec of every leaf of a tensor-parallel process's view, in the
+    parameters' structure: :func:`param_sharding_tree` of the reference's
+    axes under ``rules``, except the mixers of recurrent blocks and the MoE
+    FFNs, whole."""
+    axes = param_axes(cfg)
+
+    def whole(tree):
+        return _map(lambda a: (None,) * len(a), tree, _is_axes_leaf)
+
+    for spec, layer in zip(cfg.layer_specs(), axes["layers"]):
+        if spec.kind != "attn":
+            layer["mixer"] = whole(layer["mixer"])
+        if spec.moe is not None:
+            layer["ffn"] = whole(layer["ffn"])
+    return _map(lambda sh: sh.spec, param_sharding_tree(axes, mesh, rules),
+                lambda t: isinstance(t, NamedSharding))
+
+
 def tensor_parallel(cfg: ModelConfig, params: Dict, mesh: Mesh,
                     rules: Optional[AxisRules] = None,
                     ) -> Tuple[ModelConfig, Dict, AxisRules]:
@@ -340,20 +370,46 @@ def tensor_parallel(cfg: ModelConfig, params: Dict, mesh: Mesh,
     recurrent blocks and the MoE FFNs, whole: the former run replicated,
     and ``moe_ep`` takes its experts itself."""
     rules = tp_rules(cfg, mesh, rules)
-    axes = param_axes(cfg)
-
-    def whole(tree):
-        return _map(lambda a: (None,) * len(a), tree, _is_axes_leaf)
-
-    for spec, layer in zip(cfg.layer_specs(), axes["layers"]):
-        if spec.kind != "attn":
-            layer["mixer"] = whole(layer["mixer"])
-        if spec.moe is not None:
-            layer["ffn"] = whole(layer["ffn"])
-    placed = _map(lambda sh, x: local_slice(x, sh.spec, mesh),
-                  param_sharding_tree(axes, mesh, rules),
-                  lambda t: isinstance(t, NamedSharding), params)
+    placed = _map(lambda spec, x: local_slice(x, spec, mesh),
+                  _tp_specs(cfg, mesh, rules), lambda t: isinstance(t, P),
+                  params)
     return local_config(cfg, mesh, rules), placed, rules
+
+
+def tp_leaves(cfg: ModelConfig, mesh: Mesh, rules: AxisRules, params: Dict,
+              ) -> Tuple[list, list, list]:
+    """What a trainer needs of each leaf of a process's view (rules from
+    :func:`tp_rules`), three lists in the order of the leaves of
+    ``params`` (the parameters, or a tree of their structure;
+    :func:`repro_torch.training.adamw.tree_leaves`): its spec;
+    whether it is split over ``model`` (its squares summed over ``model``
+    in the gradient's norm); whether it is whole but read inside a region
+    split over ``model``, so that each process's gradient is its share
+    and is summed over ``model`` after the backward: ``q_norm`` and
+    ``k_norm`` on the local heads, and the router and the experts of an
+    MoE layer that runs ``moe_ep`` (each process routes its own tokens
+    and holds its own experts' gradients)."""
+    specs = _tp_specs(cfg, mesh, rules)
+    model = tuple(a for a in mesh.axis_names if a not in batch_axes(mesh))
+    split = _map(lambda spec: any(a in model and mesh.shape[a] > 1
+                                  for a in spec_axes(spec)),
+                 specs, lambda t: isinstance(t, P))
+    partial = _map(lambda _: False, specs, lambda t: isinstance(t, P))
+    heads = axis_size(mesh, rules.spec(("qkv",))[0]) > 1
+    ep = "model" in mesh.shape and mesh.shape["model"] > 1
+    for spec, layer in zip(cfg.layer_specs(), partial["layers"]):
+        if spec.kind == "attn" and heads:
+            for k in ("q_norm", "k_norm"):
+                if k in layer["mixer"]:
+                    layer["mixer"][k] = True
+        if spec.moe is not None and ep and \
+                spec.moe.num_experts % mesh.shape["model"] == 0:
+            for k in ("router", "w_gate", "w_up", "w_down"):
+                layer["ffn"][k] = True
+    out: Tuple[list, list, list] = ([], [], [])
+    _map(lambda _, *leaf: [o.append(x) for o, x in zip(out, leaf)], params,
+         lambda t: not isinstance(t, (dict, list)), specs, split, partial)
+    return out
 
 
 def _split(axis: str) -> Optional[Tuple[Mesh, MeshAxes]]:
@@ -375,29 +431,158 @@ def shard_start(axis: str, n: int) -> Optional[int]:
     return None if split is None else _block(*split) * n
 
 
-def _tally(comm, x: torch.Tensor, run) -> torch.Tensor:
-    """Run one collective of the tensor-parallel sites on operand ``x``,
-    tallied in ``comm.tp``: the wait for the device before it
-    (``wait_s``), the collective with its copies (``s``), the bytes of
-    ``x`` (what each process hands to gloo)."""
+def _tally(comm, x: torch.Tensor, run, kind: str = "tp") -> torch.Tensor:
+    """Run one collective on operand ``x``, tallied in ``comm.<kind>``
+    (``tp``: the tensor-parallel sites, forward and backward; ``dp``: the
+    trainer's gradient sums over the batch axes): the wait for the device
+    before it (``wait_s``), the collective with its copies (``s``), the
+    bytes of ``x`` (what each process hands to gloo)."""
     t0 = time.perf_counter()
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
     t1 = time.perf_counter()
     out = run()
-    tp = comm.tp
-    tp["calls"] += 1
-    tp["bytes"] += x.numel() * x.element_size()
-    tp["wait_s"] += t1 - t0
-    tp["s"] += time.perf_counter() - t1
+    tally = getattr(comm, kind)
+    tally["calls"] += 1
+    tally["bytes"] += x.numel() * x.element_size()
+    tally["wait_s"] += t1 - t0
+    tally["s"] += time.perf_counter() - t1
     return out
+
+
+# --------------------------------------------------------------------------- #
+# collectives under autograd
+# --------------------------------------------------------------------------- #
+#
+# A value that a mesh process holds whole is one logical value held by every
+# process of the axes it is replicated over, and its gradients follow two
+# conventions, one for each kind of axis:
+#
+# - over ``model`` (Megatron's): every process holds the whole gradient, the
+#   same on each.  A sum over ``model`` passes the cotangent through to each
+#   partial; where a whole value enters a region split over ``model``, each
+#   process's share of its gradient is summed over ``model``.
+# - over the batch axes (data parallelism): each data row's copy holds the
+#   gradient of its own rows' loss, and the trainer averages the parameters'
+#   gradients over the batch axes once a step.  A gather over them sums the
+#   cotangent over them before it takes its own block.
+#
+# So each collective's backward sums over the batch axes among its own where
+# its forward replicates over them, and over ``model`` where its forward
+# splits.
+
+
+class _Collective(torch.autograd.Function):
+    """``fwd(x)``, whose backward is ``bwd(cotangent)``."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.contiguous()), None, None
+
+
+def collective(x: torch.Tensor, fwd, bwd) -> torch.Tensor:
+    """``fwd(x)``, a collective, with ``bwd`` its adjoint where autograd
+    records ``x``; ``fwd(x)`` alone elsewhere."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Collective.apply(x, fwd, bwd)
+    return fwd(x)
+
+
+def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The mesh axes the installed rules give ``"batch"``: the data
+    parallel ones, whose replicas' gradients the trainer averages."""
+    rules = current_rules() or default_rules("pod" in mesh.axis_names)
+    return _axes(rules.spec(("batch",))[0])
+
+
+def reduce_over(mesh: Mesh, axes: Sequence[str], x: torch.Tensor,
+                kind: Optional[str] = None) -> torch.Tensor:
+    """The sum of ``x`` over the processes of mesh ``axes`` (the axes of
+    one point dropped), tallied in ``mesh.comm.<kind>`` when ``kind`` is
+    given; ``x`` itself where they have one point."""
+    axes = tuple(a for a in mesh.axis_names
+                 if a in axes and mesh.shape[a] > 1)
+    if not axes:
+        return x
+    run = lambda: mesh.comm.all_reduce(x, axes)  # noqa: E731
+    return _tally(mesh.comm, x, run, kind) if kind else run()
+
+
+def _model_axes(mesh: Mesh, axes: Tuple[str, ...]) -> Tuple[str, ...]:
+    data = batch_axes(mesh)
+    return tuple(a for a in axes if a not in data)
+
+
+def _data_axes(mesh: Mesh, axes: Tuple[str, ...]) -> Tuple[str, ...]:
+    data = batch_axes(mesh)
+    return tuple(a for a in axes if a in data)
+
+
+def gather_blocks(x: torch.Tensor, entry: MeshAxes,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Every process's block of a tensor split along its first dimension
+    by the mesh axes of ``entry``, concatenated in their coordinates'
+    order.  Backward: the cotangent summed over the batch axes among
+    them, and this process's block of it."""
+    mesh = mesh or current_mesh()
+    axes = _axes(entry)
+    n = x.shape[0]
+
+    def bwd(g):
+        g = reduce_over(mesh, _data_axes(mesh, axes), g)
+        return g.narrow(0, _block(mesh, entry) * n, n)
+    return collective(x, lambda t: mesh.comm.all_gather(t, entry), bwd)
+
+
+def take_block(x: torch.Tensor, entry: MeshAxes,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This process's block of ``x`` along its first dimension, split by
+    the mesh axes of ``entry`` (:func:`local_slice`).  Backward: the
+    cotangent in the block's place, zeros elsewhere, summed over the
+    axes among them other than the batch axes."""
+    mesh = mesh or current_mesh()
+    axes = _axes(entry)
+    shape = x.shape
+
+    def bwd(g):
+        whole = g.new_zeros(shape)
+        local_slice(whole, (entry,), mesh).copy_(g)
+        return reduce_over(mesh, _model_axes(mesh, axes), whole)
+    return collective(x, lambda t: local_slice(t, (entry,), mesh), bwd)
+
+
+def mean_over_mesh(x: torch.Tensor, mesh: Optional[Mesh] = None,
+                   ) -> torch.Tensor:
+    """The mean of every process's ``x``.  Backward: the cotangent summed
+    over the batch axes, over the process count."""
+    mesh = mesh or current_mesh()
+    every = tuple(mesh.axis_names)
+    return collective(
+        x, lambda t: mesh.comm.all_reduce(t) / mesh.size,
+        lambda g: reduce_over(mesh, _data_axes(mesh, every), g) / mesh.size)
+
+
+def all_to_all(x: torch.Tensor, axis: str,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``Comm.all_to_all`` of ``x`` [n, ...] over the ``n`` processes of
+    ``axis``; its own adjoint, so the backward is the same exchange of
+    the cotangent."""
+    mesh = mesh or current_mesh()
+    run = lambda t: mesh.comm.all_to_all(t, axis)  # noqa: E731
+    return collective(x, run, run)
 
 
 def model_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
     """``x``, a product that contracted a dimension the installed rules
     split by logical ``axis``, summed over the processes that split it:
     the all-reduce XLA inserts where the reference constrains the product
-    back to ``("batch", None, "embed")``.  The partials are summed in
+    back to ``("batch", None, "embed")`` (Megatron's *g*; its backward is
+    the identity on each process's partial).  The partials are summed in
     float32 and cast back: a bf16 partial was already rounded by the
     product that made it, but the running sum is not rounded between the
     processes' terms (at twice the bytes of a bf16 all-reduce).  The
@@ -407,20 +592,44 @@ def model_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
     if split is None:
         return x
     mesh, entry = split
-    x32 = x.float()
-    return _tally(mesh.comm, x32, lambda: mesh.comm.all_reduce(
-        x32, entry)).to(x.dtype)
+
+    def fwd(t):
+        t32 = t.float()
+        return _tally(mesh.comm, t32, lambda: mesh.comm.all_reduce(
+            t32, entry)).to(t.dtype)
+    return collective(x, fwd, lambda g: g)
+
+
+def model_copy(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x``, a whole value entering a region the installed rules split by
+    logical ``axis`` (Megatron's *f*): the identity, whose backward sums
+    each process's share of the gradient over the processes that split
+    ``axis`` (in float32, as :func:`model_sum`).  The identity both ways
+    exactly where :func:`model_sum` is."""
+    split = _split(axis)
+    if split is None:
+        return x
+    mesh, entry = split
+
+    def bwd(g):
+        g32 = g.float()
+        return _tally(mesh.comm, g32, lambda: mesh.comm.all_reduce(
+            g32, entry)).to(g.dtype)
+    return collective(x, lambda t: t.view_as(t), bwd)
 
 
 def model_gather(x: torch.Tensor, axis: str) -> torch.Tensor:
     """Every process's block of ``x`` along its last dimension, split by
     logical ``axis`` under the installed rules, concatenated in the order
-    of their coordinates (the vocabulary-split head's columns); the
-    identity where the rules do not split ``axis`` or outside a mesh
-    process."""
+    of their coordinates (the vocabulary-split head's columns); its
+    backward is this process's block of the cotangent.  The identity
+    where the rules do not split ``axis`` or outside a mesh process."""
     split = _split(axis)
     if split is None:
         return x
     mesh, entry = split
-    return _tally(mesh.comm, x,
-                  lambda: mesh.comm.all_gather(x, entry, dim=-1))
+    n = x.shape[-1]
+    return collective(
+        x, lambda t: _tally(mesh.comm, t, lambda: mesh.comm.all_gather(
+            t, entry, dim=-1)),
+        lambda g: g.narrow(-1, _block(mesh, entry) * n, n))

@@ -88,6 +88,7 @@ def adamw_init(params: Tree) -> AdamWState:
 
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
                  params: Tree, ndim: Optional[Tree] = None,
+                 grad_norm: Optional[torch.Tensor] = None,
                  ) -> Tuple[Tree, AdamWState, Dict[str, Any]]:
     """One AdamW step with global-norm clipping.  Returns (params, state,
     {"grad_norm", "lr"}); ``params`` and the moments are updated in place
@@ -95,8 +96,11 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
     more (matrices) only, the rank read from ``ndim`` (a tree of ints in
     the structure of ``params``) when given: the trainer passes the ranks
     of the reference's stacked tree
-    (:func:`repro_torch.bridge.reference_ndim`)."""
-    gnorm = global_norm(grads)
+    (:func:`repro_torch.bridge.reference_ndim`).  ``grad_norm``, when
+    given, is the norm to clip by in place of :func:`global_norm` of
+    ``grads``: a mesh process holds only its shard of the tree, and the
+    mesh trainer computes the whole tree's norm across the processes."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-9), max=1.0) \
         if cfg.grad_clip else 1.0
     step = state.step + 1

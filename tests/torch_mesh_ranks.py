@@ -69,6 +69,13 @@ def tp_sum_and_gather(rank, n):
     return part, total, gathered
 
 
+def trained_shards(rank):
+    """This process's private training state: its shards of the
+    parameters, of the first and of the second moments, in the order of
+    the parameters' leaves."""
+    return [[t.cpu() for t in state] for state in rank.trainer.state]
+
+
 def cache_kv_bytes(caches):
     """The bytes of the K/V tensors (rings or pools) of ``caches``."""
     return sum(t.numel() * t.element_size() for c in caches
