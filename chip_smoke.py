@@ -101,7 +101,7 @@ exits non-zero and prints no result line; no phase catches its own failure.
    then the pipeline phase, the paper's path: ``LLM.from_plan`` plans
    llama2-7b over the paper's testbed (the throughput DP: 13 uneven
    stages) and serves the plan as the no-bubbles stage pipeline on this
-   card, four requests of 16-32 prompt tokens over its 13 slots x 8 greedy
+   card, two requests of 16-32 prompt tokens over its 13 slots x 8 greedy
    tokens, ``max_len`` 64, on the contiguous layout (the contiguous-ring
    kernel once per layer and fed token) and then the paged one (the paged
    kernel likewise); each serve's logits, which chose its greedy tokens,
@@ -115,9 +115,9 @@ exits non-zero and prints no result line; no phase catches its own failure.
    at 25%): greedy tokens bit for bit the plain paged pipeline serve's,
    drafts accepted, fewer scheduler quanta, the paged kernel once a layer
    and fed token (rejected drafts included); then its streamed admission:
-   three requests sharing a 32-token prefix, plain and then with
-   16-token chunks, request 0 first so that on the paged layout, with
-   the prefix cache, the other two adopt its prefix blocks (two hits, 64
+   two requests sharing a 32-token prefix, x 4 greedy tokens, plain and
+   then with 16-token chunks, request 0 first so that on the paged layout,
+   with the prefix cache, the other adopts its prefix blocks (one hit, 32
    fewer fed tokens), on the contiguous layout with chunks alone (no
    hit); each streamed serve's tokens bit for bit its plain serve's and
    its decode kernel once a layer and fed token;
@@ -125,7 +125,7 @@ exits non-zero and prints no result line; no phase catches its own failure.
    llama2-7b four stages of 8 layers, served with each stage in its own
    process (``stage_procs=True``: the weights shared by CUDA IPC, the
    activations handed on over gloo) beside the same plan in this process,
-   4 requests x 8 over 4 slots on the contiguous layout and then the paged
+   2 requests x 8 over 4 slots on the contiguous layout and then the paged
    one: the greedy tokens bit for bit the one-process ring's, the logits
    that chose them within 0.25, the decode kernel's launches summed over
    the stage processes 32 x the fed tokens (the other kernel's and this
@@ -225,7 +225,24 @@ exits non-zero and prints no result line; no phase catches its own failure.
    teacher-forced logits, cuda against ref (the doubling scan and the ring
    or gathered sdpa), and the paged serve's against the contiguous
    serve's; then its score phase at 2 x 4096 tokens (8 windowed flash
-   launches, 18 scan launches);
+   launches, 18 scan launches); then the tp recurrent phase on the same
+   weights: a (1, 4) mesh of 4 processes, each its 640 of the 2560 RG-LRU
+   channels, 1920 ff columns and 64,000 vocabulary rows, the attention
+   whole (10 query heads over one K/V head), beside one process, four
+   requests of 16-32 tokens x 4 greedy tokens over four slots at
+   ``max_len`` 64, contiguous then paged: the scan once per RG-LRU layer
+   and prefill wave and the ring or paged kernel once per attention layer
+   and decode step in every process, none in this one; each process's K/V
+   bytes one process's and its RG-LRU state a quarter; teacher-forced
+   logits within 0.25 of one process's; ``MeshProcs.forward`` over 1 x
+   2048 (18 scans at 640 channels and 8 flash launches a process) within
+   0.25; each process's collectives a decode step and a score; then
+   xlstm-1.3b at full width and 8 layers on a (1, 2) mesh (2 of its 4
+   mLSTM heads and half its sLSTM's ff a process), contiguous, its logits
+   against one process's printed (its random weights carry any rounding
+   to about 2), each block's mixer in float32 within 2e-4 of one
+   process's and the bf16 forward at most twice one process's error
+   against the float64 forward;
 6. train   -- the hybrid's weights freed, qwen3-0.6b at full width and
    depth (28 layers, bf16 weights, float32 moments): 8 AdamW steps of the
    port's ``train`` on the synthetic stream (batch 4 x 512 tokens,
@@ -315,20 +332,22 @@ STREAM_CHUNK = 256
 STREAM_MAX_LEN = 1280               # 1024 + 200 + 16 = 1240, in whole blocks
 # the pipeline phase: LLM.from_plan over the paper's testbed (13 planned
 # stages for llama2-7b), PIPE_REQUESTS requests over its 13 slots (13 until
-# the pipeline-procs phase took their time, 6 until the mesh phases did: the
-# serves' time follows the fed tokens), prompts of 16-32 tokens, 8 greedy tokens each; its profiled
+# the pipeline-procs phase took their time, 6 until the mesh phases did, 4
+# until the tp recurrent phase did: the serves' time follows the fed
+# tokens), prompts of 16-32 tokens, 8 greedy tokens each; its profiled
 # window with one request a slot, so the ring is full; its microbatched
 # forward over the score phase's 2 x 4096 tokens in 2 micro-batches
 # (prompts of 16-48 tokens until the train mesh phase took its time: a
 # serve's ticks follow its longest prompt)
 PIPE_PROMPT_LENS, PIPE_TOKENS, PIPE_MAX_LEN = (16, 32), 8, 64
-PIPE_REQUESTS, PIPE_MICROBATCHES = 4, 2
+PIPE_REQUESTS, PIPE_MICROBATCHES = 2, 2
 # the pipeline-procs phase: llama2-7b planned over four chips, (8, 8, 8, 8),
-# each stage in its own process; 4 requests of 16-32 tokens x 8 over 4
-# slots (8 until the mesh phases took their time) on both layouts, beside the same plan in one process; then 64
+# each stage in its own process; 2 requests of 16-32 tokens x 8 over 4
+# slots (8 until the mesh phases took their time, 4 until the tp recurrent
+# phase did) on both layouts, beside the same plan in one process; then 32
 # teacher-forced ticks through a plain and a vocab-sharded ring
 # (64 vocab-sharded ticks until the train mesh phase took its time)
-PROCS_CHIPS, PROCS_REQUESTS, PROCS_VOCAB_TICKS = 4, 4, 32
+PROCS_CHIPS, PROCS_REQUESTS, PROCS_VOCAB_TICKS = 4, 2, 32
 # the mesh phase: a (2, 4) mesh of processes, one process a point.
 # llama2-7b over four chips' plan, (8, 8, 8, 8), the stages over model:
 # pipeline_forward over 4 x 4096 tokens in 2 micro-batches, each
@@ -368,14 +387,24 @@ MESH_BF16_FACTOR = 2
 # (TP_TOKENS 8 and TP_FORCED 4 until the train mesh phase took its time)
 TP_SHAPE, TP_REQUESTS, TP_TOKENS, TP_FORCED = (1, 4), 4, 4, 2
 TP_MAX_LEN, TP_SCORE_LEN = 64, 2048
+TP_WAVE_LEN = 32                    # the bucket of the tp serves' prompts
 TP_HEADS = (32 // TP_SHAPE[1], 32 // TP_SHAPE[1], 128)   # a process's
+# the tp recurrent phase: recurrentgemma-2b at full size on the tp phase's
+# (1, 4) mesh (640 of the 2560 RG-LRU channels a process, its attention
+# whole: 10 query heads over one K/V head of 256), the tp phase's requests,
+# tokens and score; then xlstm-1.3b at full width and XLSTM_LAYERS layers
+# on (1, 2) (2 of its 4 mLSTM heads and 1365 of its sLSTM's 2730 ff
+# columns a process; 2730 does not split in 4), contiguous
+TP_RNN = 2560 // TP_SHAPE[1]
+TP_XLSTM_SHAPE = (1, 2)
 # the pipeline's streamed serves: requests sharing a 32-token prefix (two
 # blocks of 16; three until the mesh phases took their time: a token costs
-# a turn of the 13-stage ring) plus 1-16 tokens of their own, 8 greedy
+# a turn of the 13-stage ring) plus 1-16 tokens of their own, 4 greedy
 # tokens each, chunks of 16; the first request alone, then the rest, which
-# adopt its prefix
-PIPE_STREAM_REQUESTS, PIPE_STREAM_SHARED, PIPE_STREAM_TAIL = 3, 32, (1, 16)
-PIPE_STREAM_TOKENS, PIPE_STREAM_CHUNK, PIPE_STREAM_MAX_LEN = 8, 16, 80
+# adopt its prefix (3 requests x 8 tokens until the tp recurrent phase
+# took their time)
+PIPE_STREAM_REQUESTS, PIPE_STREAM_SHARED, PIPE_STREAM_TAIL = 2, 32, (1, 16)
+PIPE_STREAM_TOKENS, PIPE_STREAM_CHUNK, PIPE_STREAM_MAX_LEN = 4, 16, 80
 # the dense configs on the TensorBackend: (arch, layers served, None for
 # all; prompt lengths; max_len; slots).  gemma2-2b's prompts of 4200-4400
 # tokens wrap its local layers' 4096-key window, in waves of two slots (a
@@ -1205,11 +1234,11 @@ def rglru_sets(b, s, r=2560):
     return [scan_inputs(b, s, r, seed=600 + i) for i in range(n_sets)]
 
 
-def time_rglru(rs, card, s, b=SLOTS):
+def time_rglru(rs, card, s, b=SLOTS, r=2560):
     """rglru_scan at the hybrid serve's wave (4 slots x ``s`` steps) or its
-    score (``b`` = 2 x 4096) at R = 2560, float32.  No PyTorch call
-    computes a linear recurrence, so there is no library time."""
-    r = 2560
+    score (``b`` = 2 x 4096) at ``r`` channels (2560, or a tensor-parallel
+    process's share), float32.  No PyTorch call computes a linear
+    recurrence, so there is no library time."""
     sets = rglru_sets(b, s, r)
     n_sets = len(sets)
     err = max(compare(f"rglru_scan timing set {i} B={b} S={s}",
@@ -4116,6 +4145,7 @@ def tp_serve(be, prompts, sp, kernels):
     wall = time.perf_counter() - t0
     return dict(tokens=[o.tokens for o in outs],
                 decode_ms=list(clock.decode_ms), wall=wall,
+                waves=len(clock.prefill_ms),
                 launches={n: fn.launches for n, fn in kernels.items()},
                 stats=be.stats() if procs else None)
 
@@ -4150,25 +4180,145 @@ def serve_tp(model, kernels, card):
     views of the weights shared by CUDA IPC; the output and down
     projections and the embedding summed over gloo in float32, the head's
     columns gathered) beside the one-process ``TensorBackend``, on the
-    contiguous layout and then the paged one.  Held: each process's ring
-    or paged kernel 32 x its decode steps and none in this process, each
-    process's K/V bytes a quarter of one process's, the teacher-forced
-    logits within 0.25 of one process's; printed: the greedy tokens'
-    agreement (bf16 sums in another order), decode medians, each process's
-    host, device-wait and all-reduce ms and bytes a decode step.  Then
-    :func:`tp_score` on the paged backend's processes.  Returns the
-    launches summed over the processes."""
+    contiguous layout and then the paged one, and its score
+    (:func:`tp_phase`).  Returns the launches summed over the
+    processes."""
+    return tp_phase(model, kernels, card, "tp", TP_SHAPE,
+                    ("contiguous", "paged"),
+                    lambda procs: tp_score(model, procs, kernels, card))
+
+
+def serve_tp_recurrent(model, kernels, card):
+    """The recurrent mixers over the mesh's model axis (:func:`tp_phase`):
+    recurrentgemma-2b at full size (``model``'s weights) on a (1, 4) mesh
+    of processes, each its 640 of the 2560 RG-LRU channels (the scan
+    kernel over them in every prefill wave and the score), 1920 ff
+    columns and 64,000 vocabulary rows, its attention whole (10 query
+    heads over one K/V head do not split), contiguous then paged and the
+    score; then xlstm-1.3b at full width and ``XLSTM_LAYERS`` layers on a
+    (1, 2) mesh, each process 2 of the 4 mLSTM heads and 1365 of the
+    sLSTM's 2730 ff columns, contiguous, its logits printed against one
+    process's and held by :func:`xlstm_tp_checks`.  Returns the launches
+    summed over the processes by kernel and path."""
+    label = "tp recurrent"
+    out = tp_phase(model, kernels, card, label, TP_SHAPE,
+                   ("contiguous", "paged"),
+                   lambda procs: tp_score(model, procs, kernels, card, label))
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl = Model(XLSTM_ARCH, n_layers=XLSTM_LAYERS)
+    label = f"tp recurrent {XLSTM_ARCH}"
+    tp_phase(xl, kernels, card, label, TP_XLSTM_SHAPE, ("contiguous",),
+             lambda procs: xlstm_tp_checks(xl, procs, card, label),
+             held=False)
+    del xl
+    return out
+
+
+def xlstm_tp_checks(model, procs, card, label):
+    """xlstm-1.3b's tensor parallelism held where its rounding lets a check
+    hold.  At full width its random weights carry any rounding to the
+    logits (one bf16 process is about 2 from the float64 forward, as this
+    check prints), so 0.25 of one process's cannot hold; instead:
+
+    - each block's mixer on the processes (float32, every mLSTM's heads
+      split, the sLSTM's ff) against one process's, on the same input,
+      within the reference's parallel-equals-recurrent 2e-4;
+    - the whole forward in bf16 over 2 x 32 tokens on the processes at
+      most ``MESH_BF16_FACTOR`` times as far from the one-process float64
+      forward as the one-process bf16 forward is."""
+    import dataclasses
+
+    import torch_mesh_ranks as ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.training.adamw import tree_map
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 6)
+    x = torch.randn((2, 32, cfg.d_model), generator=gen, device=DEVICE)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    worst = 0.0
+    for i, spec in enumerate(cfg.layer_specs()):
+        got = procs.run(ranks.tp_block, i, x)
+        mixer = {k: t.float() for k, t in
+                 model.params["layers"][i]["mixer"].items()}
+        with torch.no_grad():
+            want = T._RECURRENT[spec.kind][0](mixer, cfg32, x)[0]
+        for g in got:
+            torch.testing.assert_close(g.to(DEVICE), want, **RECURRENT_TOL)
+            worst = max(worst, (g.to(DEVICE) - want).abs().max().item())
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (2, 32))).to(DEVICE)
+    got = procs.forward(tokens).double()
+    with torch.no_grad():
+        one = T.forward(cfg, model.params, tokens, mode="train")[0].double()
+        wide = tree_map(lambda t: t.double(), model.params)
+        ref = T.forward(dataclasses.replace(cfg, dtype="float64"), wide,
+                        tokens, mode="train")[0]
+        del wide
+    e_tp = (got - ref).abs().max().item()
+    e_one = (one - ref).abs().max().item()
+    print(f"{label}: each block's mixer on the processes (float32) against "
+          f"one process's: max abs diff {worst:.3g} (rtol/atol "
+          f"{RECURRENT_TOL['rtol']:g}); the bf16 forward over 2 x 32 tokens "
+          f"against the one-process float64 forward: the processes "
+          f"{e_tp:.4g}, one process {e_one:.4g}: x{e_tp / e_one:.3f} (at "
+          f"most x{MESH_BF16_FACTOR}); the processes against one bf16 "
+          f"process {(got - one).abs().max().item():.4g} [{card}]")
+    if not bool(torch.isfinite(got).all()) or e_tp > MESH_BF16_FACTOR * e_one:
+        raise AssertionError(f"{label}: the processes' bf16 error "
+                             f"{e_tp:.4g} against one process's {e_one:.4g}")
+    del got, one, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def tp_phase(model, kernels, card, label, shape, layouts, after,
+             held=True):
+    """``model`` on a ``shape`` mesh of processes
+    (``TensorBackend(..., mesh=...)``, the split the rules take: heads,
+    ``ff``, RG-LRU channels, vocabulary) beside the one-process
+    ``TensorBackend``, on each of ``layouts``; then, after the last
+    layout's serve, ``after(procs)`` on its processes (:func:`tp_score`).
+    Held: each process's ring or paged kernel once an attention layer and
+    decode step, its scan once a RG-LRU layer and prefill wave, no other
+    kernel, none in this process; each
+    process's K/V bytes one process's over the heads' split, its split
+    recurrent state (RG-LRU ``h`` and ``conv``, mLSTM ``C``, ``n``, ``m``)
+    one process's over the model axis and the rest whole; the
+    teacher-forced logits within 0.25 of one process's (with ``held``
+    False measured only: ``after`` holds the model).  Printed: the
+    greedy tokens' agreement (bf16 sums in another order), decode medians,
+    each process's host, device-wait and all-reduce ms and bytes a decode
+    step.  Returns the launches summed over the processes: the attention
+    kernel by layout, the scan's (``rglru_scan serve``, both layouts),
+    and ``after``'s result (``score``)."""
     import torch_mesh_ranks as ranks
     from repro_torch.launch.mesh import Mesh
     from repro_torch.runtime import TensorBackend
     from repro_torch.serving import SamplingParams
-    cfg, m = model.cfg, TP_SHAPE[1]
-    mesh = Mesh(("data", "model"), TP_SHAPE)
+    from repro_torch.sharding.rules import local_config, tp_rules
+    cfg, m = model.cfg, shape[1]
+    mesh = Mesh(("data", "model"), shape)
+    rules = tp_rules(cfg, mesh)
+    local = local_config(cfg, mesh, rules)
+    heads = m if rules.spec(("qkv",))[0] is not None else 1
+    kinds = [s.kind for s in cfg.layer_specs()]
+    n_scan, n_attn = kinds.count("rglru"), kinds.count("attn")
+    vocab = cfg.vocab_size // (m if rules.spec(("vocab",))[0] else 1)
+    split = (f"{local.n_heads} of {cfg.n_heads} heads, {local.d_ff} ff "
+             f"columns, {vocab} vocabulary rows")
+    if n_scan:
+        split += f", {local.rnn_dim} of {cfg.rnn_dim} RG-LRU channels"
+    if "slstm" in kinds:
+        ff = "split" if rules.spec(("ff",))[0] else "whole"
+        width = int(cfg.d_model * cfg.slstm_proj_factor)
+        split += f", the sLSTM's ff of {width} {ff}"
     sp = SamplingParams(max_tokens=TP_TOKENS)
     prompts = pipeline_prompts(cfg, TP_REQUESTS)
     t_phase = time.perf_counter()
-    out = {}
-    for layout in ("contiguous", "paged"):
+    out = {"rglru_scan serve": 0}
+    for layout in layouts:
         kernel = "decode_attention" if layout == "contiguous" \
             else "paged_attention"
         kw = dict(n_slots=SLOTS, max_len=TP_MAX_LEN, impl="cuda",
@@ -4176,6 +4326,7 @@ def serve_tp(model, kernels, card):
         one = TensorBackend(cfg, model.params, **kw)
         base = tp_serve(one, prompts, sp, kernels)
         kv_one = ranks.cache_kv_bytes(one.caches)
+        state_one = ranks.state_bytes(one.caches, cfg)
         base_logits, base_ms, _ = tp_forced(one, prompts, base["tokens"])
         del one
         torch.cuda.empty_cache()
@@ -4183,28 +4334,40 @@ def serve_tp(model, kernels, card):
         be = TensorBackend(cfg, model.params, mesh=mesh, **kw)
         spawn_s = time.perf_counter() - t0
         try:
-            if be.info.attn_impl != "cuda":
-                raise AssertionError(f"tp {layout}: attn_impl "
+            if n_attn and be.info.attn_impl != "cuda":
+                raise AssertionError(f"{label} {layout}: attn_impl "
                                      f"{be.info.attn_impl}")
             run = tp_serve(be, prompts, sp, kernels)
             stats = run["stats"]
             steps = [st["calls"]["decode_step"] for st in stats]
-            per = [st["launches"][kernel] for st in stats]
+            waves = [st["calls"]["prefill"] for st in stats]
+            want = [{kernel: n_attn * k, "rglru_scan": n_scan * w}
+                    for k, w in zip(steps, waves)]
+            got = [{n: st["launches"][n] for n in (kernel, "rglru_scan")}
+                   for st in stats]
             others = {n: sum(st["launches"][n] for st in stats)
-                      for n in kernels if n != kernel}
-            one_steps = len(base["decode_ms"])
-            if per != [cfg.n_layers * k for k in steps] \
-                    or any(others.values()) or any(run["launches"].values()) \
-                    or base["launches"][kernel] != cfg.n_layers * one_steps:
+                      for n in kernels if n not in (kernel, "rglru_scan")}
+            one_want = {kernel: n_attn * len(base["decode_ms"]),
+                        "rglru_scan": n_scan * base["waves"]}
+            if got != want or any(others.values()) \
+                    or any(run["launches"].values()) \
+                    or {n: base["launches"][n] for n in one_want} \
+                    != one_want:
                 raise AssertionError(
-                    f"tp {layout}: {kernel} launches per process {per} over "
-                    f"{steps} decode steps, other kernels {others}, in this "
+                    f"{label} {layout}: launches per process {got} over "
+                    f"{steps} decode steps and {waves} prefill waves "
+                    f"(expected {want}), other kernels {others}, in this "
                     f"process {run['launches']}, in one process "
-                    f"{base['launches']} over {one_steps} steps")
+                    f"{base['launches']} (expected {one_want})")
             kv = be.procs.run(ranks.kv_bytes)
-            if kv != [kv_one // m] * m:
-                raise AssertionError(f"tp {layout}: K/V bytes a process {kv},"
-                                     f" one process {kv_one}")
+            state = be.procs.run(ranks.recurrent_state_bytes)
+            state_want = (state_one[0] // m, state_one[1])
+            if kv != [kv_one // heads] * m \
+                    or [st[:2] for st in state] != [state_want] * m:
+                raise AssertionError(
+                    f"{label} {layout}: K/V bytes a process {kv} (one "
+                    f"process {kv_one}), recurrent state (split, whole) "
+                    f"{[st[:2] for st in state]} (one process {state_one})")
             logits, ms, fstats = tp_forced(be, prompts, base["tokens"])
             diff = np.abs(logits - base_logits)
             agree = int((logits.argmax(-1) == base_logits.argmax(-1)).sum())
@@ -4212,46 +4375,51 @@ def serve_tp(model, kernels, card):
                                                    base["tokens"])
                        for a, b in zip(t, u))
             total = TP_REQUESTS * TP_TOKENS
-            print(f"tp {layout}: {cfg.name} on a {mesh.shape} mesh of "
-                  f"{m} processes ({cfg.n_heads // m} heads, "
-                  f"{cfg.d_ff // m} ff columns, {cfg.vocab_size // m} "
-                  f"vocabulary rows a process); {TP_REQUESTS} requests of "
+            print(f"{label} {layout}: {cfg.name} ({cfg.n_layers} layers) on "
+                  f"a {mesh.shape} mesh of {m} processes ({split} a "
+                  f"process); {TP_REQUESTS} requests of "
                   f"{[len(p) for p in prompts]} prompt tokens x "
                   f"{TP_TOKENS} over {SLOTS} slots, max_len {TP_MAX_LEN}: "
-                  f"{kernel} launches per process {per} = {cfg.n_layers} "
-                  f"layers x {steps} decode steps, none in this process; "
-                  f"K/V bytes a process {kv[0]} (one process {kv_one}); "
-                  f"greedy tokens equal to one process's {same}/{total}; "
-                  f"teacher-forced logits {list(logits.shape)} max abs diff "
-                  f"{diff.max():.4g} (mean {diff.mean():.3g}; atol "
-                  f"{LOGITS_ATOL}), argmax agreement "
+                  f"launches per process {got} = {n_attn} attention layers "
+                  f"x {steps} decode steps and {n_scan} RG-LRU layers x "
+                  f"{waves} prefill waves, none in this process; K/V bytes "
+                  f"a process {kv[0]} (one process {kv_one}); recurrent "
+                  f"state a process {state[0][0]} split + {state[0][1]} "
+                  f"whole bytes (one process {state_one[0]} + "
+                  f"{state_one[1]}); greedy tokens equal to one process's "
+                  f"{same}/{total}; teacher-forced logits "
+                  f"{list(logits.shape)} max abs diff {diff.max():.4g} "
+                  f"(mean {diff.mean():.3g}; "
+                  f"{f'atol {LOGITS_ATOL}' if held else 'measured, not held'}"
+                  f"), argmax agreement "
                   f"{agree}/{diff.shape[0] * diff.shape[1]} [{card}]")
-            if not np.isfinite(logits).all() or diff.max() > LOGITS_ATOL:
-                raise AssertionError(f"tp {layout}: logits {diff.max():.4g} "
-                                     f"from one process's")
+            if not np.isfinite(logits).all() \
+                    or (held and diff.max() > LOGITS_ATOL):
+                raise AssertionError(f"{label} {layout}: logits "
+                                     f"{diff.max():.4g} from one process's")
             for name, r in (("one process", base), ("processes", run)):
                 t = r["decode_ms"]
-                print(f"tp {layout}: {name}: decode ms per step median "
+                print(f"{label} {layout}: {name}: decode ms per step median "
                       f"{statistics.median(t):.3f} (min {min(t):.3f}, max "
                       f"{max(t):.3f}), {total / r['wall']:.1f} tokens/s "
                       f"over {r['wall']:.2f} s [{card}]")
-            print(f"tp {layout}: teacher-forced decode ms per step median: "
-                  f"one process {statistics.median(base_ms):.3f}, processes "
-                  f"{statistics.median(ms):.3f} [{card}]")
+            print(f"{label} {layout}: teacher-forced decode ms per step "
+                  f"median: one process {statistics.median(base_ms):.3f}, "
+                  f"processes {statistics.median(ms):.3f} [{card}]")
             n = TP_FORCED - 1
             for rank, st in enumerate(fstats):
                 tp = st["tp"]
-                print(f"tp {layout}: process {rank}: ms a decode step: host "
-                      f"{st['host_s'] / n * 1e3:.3f}, device wait "
+                print(f"{label} {layout}: process {rank}: ms a decode step: "
+                      f"host {st['host_s'] / n * 1e3:.3f}, device wait "
                       f"{st['device_s'] / n * 1e3:.3f}, all-reduce and "
                       f"gather {tp['s'] / n * 1e3:.3f} ({tp['calls'] // n} "
                       f"calls, {tp['bytes'] // n} bytes a step) [{card}]")
-            print(f"tp {layout}: spawn {spawn_s:.2f} s (the processes' start "
-                  f"{be.procs.spawn_s:.2f} s)")
-            out[layout] = sum(per)
-            if layout == "paged":
-                out["flash_attention"] = tp_score(model, be.procs, kernels,
-                                                  card)
+            print(f"{label} {layout}: spawn {spawn_s:.2f} s (the processes' "
+                  f"start {be.procs.spawn_s:.2f} s)")
+            out[layout] = sum(g[kernel] for g in got)
+            out["rglru_scan serve"] += sum(g["rglru_scan"] for g in got)
+            if layout == layouts[-1]:
+                out["score"] = after(be.procs)
         finally:
             be.close()
         del be
@@ -4259,21 +4427,24 @@ def serve_tp(model, kernels, card):
     # before the next phase measures its peak memory
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"tp: phase wall {time.perf_counter() - t_phase:.2f} s; "
+    print(f"{label}: phase wall {time.perf_counter() - t_phase:.2f} s; "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held after it "
           f"[{card}]")
     return out
 
 
-def tp_score(model, procs, kernels, card):
+def tp_score(model, procs, kernels, card, label="tp"):
     """``MeshProcs.forward`` over 1 x TP_SCORE_LEN tokens on the tp
-    processes (heads, ff and vocabulary split; the head's columns
-    gathered) beside ``forward(mode="train")`` in one process: 32 flash
-    launches a process and none in this one, logits within 0.25; both
-    forwards' ms, each process's all-reduce ms and bytes.  Returns the
-    flash launches summed over the processes."""
+    processes (each its split of the model; the head's columns gathered)
+    beside ``forward(mode="train")`` in one process: the flash kernel once
+    an attention layer and the scan once a RG-LRU layer in each process,
+    none in this one, logits within 0.25; both forwards' ms, each
+    process's all-reduce ms and bytes.  Returns the launches summed over
+    the processes by kernel."""
     from repro_torch.models import transformer as T
-    cfg, m = model.cfg, TP_SHAPE[1]
+    cfg, m = model.cfg, procs.mesh.size
+    n_scan = sum(s.kind == "rglru" for s in cfg.layer_specs())
+    want = dict(flash_attention=cfg.n_layers - n_scan, rglru_scan=n_scan)
     tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (1, TP_SCORE_LEN))).to(DEVICE)
     with torch.no_grad():
@@ -4281,11 +4452,11 @@ def tp_score(model, procs, kernels, card):
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        want, _ = T.forward(cfg, model.params, tokens, mode="train",
-                            impl="cuda")
+        one_out, _ = T.forward(cfg, model.params, tokens, mode="train",
+                               impl="cuda")
         torch.cuda.synchronize()
         one_ms = (time.perf_counter() - t0) * 1e3
-    one = kernels["flash_attention"].launches
+    one = {n: kernels[n].launches for n in want}
     # no warm-up call: the processes have served (a forward over gloo is
     # seconds here, and the staging buffers' growth is milliseconds of it)
     procs.zero_stats()
@@ -4296,30 +4467,34 @@ def tp_score(model, procs, kernels, card):
     ms = (time.perf_counter() - t0) * 1e3
     host = {n: fn.launches for n, fn in kernels.items()}
     stats = procs.stats()
-    per = [st["launches"]["flash_attention"] for st in stats]
-    if per != [cfg.n_layers] * m or any(host.values()) \
-            or one != cfg.n_layers:
-        raise AssertionError(f"tp score: flash launches per process {per}, "
+    per = [{n: st["launches"][n] for n in want} for st in stats]
+    others = {n: sum(st["launches"][n] for st in stats)
+              for n in kernels if n not in want}
+    if per != [want] * m or one != want or any(host.values()) \
+            or any(others.values()):
+        raise AssertionError(f"{label} score: launches per process {per} "
+                             f"(expected {want}), other kernels {others}, "
                              f"in this process {host}, in one process {one}")
-    diff, agree = mesh_rows("tp score", got, want)
-    print(f"tp score: {cfg.name} forward(mode='train') over 1 x "
+    diff, agree = mesh_rows(f"{label} score", got, one_out)
+    print(f"{label} score: {cfg.name} forward(mode='train') over 1 x "
           f"{TP_SCORE_LEN} tokens on the {m} processes: {ms:.1f} ms (one "
-          f"process {one_ms:.1f} ms); flash_attention launches {per}, none "
+          f"process {one_ms:.1f} ms); launches per process {per[0]}, none "
           f"in this process; logits max abs diff {diff:.4g} (atol "
           f"{LOGITS_ATOL}), argmax agreement {agree}/{TP_SCORE_LEN} [{card}]")
     for rank, st in enumerate(stats):
         tp = st["tp"]
-        print(f"tp score: process {rank}: host {st['host_s'] * 1e3:.3f} ms, "
-              f"device wait {st['device_s'] * 1e3:.3f} ms ("
-              f"{tp['wait_s'] * 1e3:.3f} of it before the collectives); "
-              f"all-reduce and gather {tp['s'] * 1e3:.3f} ms, {tp['calls']} "
-              f"calls, {tp['bytes']} bytes [{card}]")
+        print(f"{label} score: process {rank}: host "
+              f"{st['host_s'] * 1e3:.3f} ms, device wait "
+              f"{st['device_s'] * 1e3:.3f} ms ({tp['wait_s'] * 1e3:.3f} of "
+              f"it before the collectives); all-reduce and gather "
+              f"{tp['s'] * 1e3:.3f} ms, {tp['calls']} calls, {tp['bytes']} "
+              f"bytes [{card}]")
     if diff > LOGITS_ATOL:
-        raise AssertionError(f"tp score: logits {diff:.4g} from one "
+        raise AssertionError(f"{label} score: logits {diff:.4g} from one "
                              f"process's")
-    del got, want
+    del got, one_out
     torch.cuda.empty_cache()
-    return sum(per)
+    return {n: sum(p[n] for p in per) for n in want}
 
 
 def mesh_moe(kernels, card):
@@ -5140,6 +5315,22 @@ def main():
                                          heads=TP_HEADS, n_sets=64),
         "flash_attention tp": time_flash(fa, card, heads=TP_HEADS,
                                          s=TP_SCORE_LEN, n_sets=4),
+        # the tp recurrent phase: a process's 640 RG-LRU channels in a
+        # prefill wave (4 slots of the 32-token bucket) and in the score
+        # (1 x 2048); recurrentgemma-2b's whole attention at its serves' 4
+        # slots x 64 keys and its score's 1 x 2048 in the 2048 window
+        "rglru_scan tp": time_rglru(rs, card, TP_WAVE_LEN, r=TP_RNN),
+        "rglru_scan tp score": time_rglru(rs, card, TP_SCORE_LEN, b=1,
+                                          r=TP_RNN),
+        "decode_attention tp recurrent": time_decode(
+            da, card, TP_MAX_LEN, heads=(10, 1, 256), c=TP_MAX_LEN,
+            n_sets=64),
+        "paged_attention tp recurrent": time_paged(
+            pa, card, 1, TP_MAX_LEN, heads=(10, 1, 256), n_sets=64,
+            window=HYBRID_WINDOW),
+        "flash_attention tp recurrent": time_flash(
+            fa, card, heads=(10, 1, 256), window=HYBRID_WINDOW,
+            s=TP_SCORE_LEN, n_sets=4),
         # the train mesh phase's evaluation: a process's 2 of the 4 rows x
         # 512 tokens at 8 of qwen3-0.6b's 16 query and 4 of its 8 K/V
         # heads, float32 (its weights' dtype)
@@ -5243,6 +5434,21 @@ def main():
                               ("decode_attention", "-key ring, full"))},
         "flash_attention tp": f"llama2-7b a tp process (H=KH={TP_HEADS[0]}, "
                               f"D=128) 1 x {TP_SCORE_LEN}, causal, bf16",
+        "rglru_scan tp": f"{HYBRID} a tp process {SLOTS} x {TP_WAVE_LEN} x "
+                         f"{TP_RNN} f32 (a prefill wave)",
+        "rglru_scan tp score": f"{HYBRID} a tp process 1 x {TP_SCORE_LEN} x "
+                               f"{TP_RNN} f32 (the score)",
+        "decode_attention tp recurrent": f"{HYBRID} a tp process (H=10, "
+                                         f"KH=1, D=256) x {SLOTS} slots x "
+                                         f"{TP_MAX_LEN}-key ring, full, "
+                                         f"bf16",
+        "paged_attention tp recurrent": f"{HYBRID} a tp process (H=10, "
+                                        f"KH=1, D=256) x {SLOTS} slots x "
+                                        f"{TP_MAX_LEN} keys, window "
+                                        f"{HYBRID_WINDOW}, bf16",
+        "flash_attention tp recurrent": f"{HYBRID} a tp process (H=10, "
+                                        f"KH=1, D=256) 1 x {TP_SCORE_LEN}, "
+                                        f"window {HYBRID_WINDOW}, bf16",
         "flash_attention train mesh": f"{TRAIN_ARCH} a train mesh process "
                                       f"(H={TRAIN_MESH_HEADS[0]}, "
                                       f"KH={TRAIN_MESH_HEADS[1]}, D=128) "
@@ -5328,6 +5534,7 @@ def main():
                   HYBRID_PROMPT_LENS)
     hybrid = phase("hybrid serves", serve_hybrid, model, pa, da, rs, card)
     hybrid_scored = phase("hybrid score", score, model, wrappers, card)
+    tp_rec = phase("tp recurrent", serve_tp_recurrent, model, wrappers, card)
     del model
     free()
     done("the hybrid")
@@ -5430,7 +5637,25 @@ def main():
               "paged_attention.cu", "decode_attention.py:201", tp["paged"]),
         entry("flash_attention tp", "flash_attention@tp",
               "flash_attention.cu", "flash_attention.py:86",
-              tp["flash_attention"]),
+              tp["score"]["flash_attention"]),
+        # the recurrent mixers over the (1, 4) mesh: recurrentgemma-2b's
+        # launches summed over the 4 processes, the scan at 640 channels a
+        # process in both layouts' prefill waves and in the score; its
+        # whole attention in the serves and the score
+        entry("rglru_scan tp", "rglru_scan@tp recurrent", "rglru_scan.cu",
+              "rglru_scan.py:36", tp_rec["rglru_scan serve"]),
+        entry("rglru_scan tp score", "rglru_scan@tp recurrent score",
+              "rglru_scan.cu", "rglru_scan.py:36",
+              tp_rec["score"]["rglru_scan"]),
+        entry("decode_attention tp recurrent",
+              "decode_attention@tp recurrent", "decode_attention.cu",
+              "decode_attention.py:153", tp_rec["contiguous"]),
+        entry("paged_attention tp recurrent", "paged_attention@tp recurrent",
+              "paged_attention.cu", "decode_attention.py:201",
+              tp_rec["paged"]),
+        entry("flash_attention tp recurrent", "flash_attention@tp recurrent",
+              "flash_attention.cu", "flash_attention.py:86",
+              tp_rec["score"]["flash_attention"]),
         # training over the (2, 2) mesh: the trained shards' evaluation,
         # launches summed over the 4 processes (2 x 512 tokens, 8 query
         # and 4 K/V heads a process, float32)

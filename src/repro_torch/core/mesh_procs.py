@@ -34,8 +34,9 @@ buffers.  Each process runs one CPU thread.
   under :func:`~repro_torch.sharding.rules.use_mesh`, batch rows over
   ``data``, tensor-parallel over ``model``
   (:func:`~repro_torch.sharding.rules.tensor_parallel`, the reference's
-  ``param_sharding_tree`` placement): each process holds its query and
-  K/V heads, its ``ff`` columns and its vocabulary rows (views), the
+  ``param_sharding_tree`` placement, the mLSTM's in Megatron's form):
+  each process holds its query and K/V heads, its ``ff`` columns, its
+  RG-LRU channels, its mLSTM heads and its vocabulary rows (views), the
   output and down projections and the embedding are summed over
   ``model`` and the head's columns gathered; every MoE layer whose
   experts ``model`` divides runs :func:`repro_torch.models.moe.moe_ep`.

@@ -6,8 +6,9 @@ are random, made from ``--seed``.  Two modes:
   optionally with speculative decoding, the prefix cache and chunked
   prefill on the paged layout; with ``--devices N`` tensor-parallel on a
   ``(1, N)`` mesh of processes (``TensorBackend(..., mesh=...)``: each
-  process its 1/N of the heads, ``ff`` and vocabulary and of the K/V
-  cache, every process on the one device, the Megatron sums over gloo),
+  process its 1/N of the heads, ``ff``, RG-LRU channels and vocabulary
+  and of the K/V cache and recurrent state, every process on the one
+  device, the Megatron sums over gloo),
   the reference's ``--mode tp --devices N``,
 - ``--mode pipeline`` -- the paper's deployment mode: ``LLM.from_plan``
   runs the throughput DP over ``tpu_pod_cluster(n_chips=--stages)`` and

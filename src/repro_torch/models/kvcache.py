@@ -20,6 +20,11 @@ paged block pool.  Port of the attention part of ``repro.models.kvcache``.
   ``pos [B]``.
 - slstm: ``c``, ``n``, ``h``, ``m`` ``[B, d]`` float32, and ``pos [B]``.
 
+A tensor-parallel process's config (``sharding.rules.local_config``)
+counts its own RG-LRU channels ``R`` and mLSTM heads ``h`` (the head
+width ``hd`` whole), so its caches hold its share of that state; the
+sLSTM's state is whole on every process.
+
 Caches are plain dicts of tensors, one dict per layer.  Unlike the
 reference's immutable pytrees, the port updates them in place.  In the
 paged layout only attention layers page: recurrent layers (a hybrid's

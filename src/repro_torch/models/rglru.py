@@ -20,6 +20,14 @@ on CPU tensors) and with ``impl="ref"`` through :func:`rglru_scan`, a
 log-depth doubling scan written in plain torch (the reference's associative
 scan).  Decode is the O(1) single-step update in plain torch, as in the
 reference.  The state (``h``, ``conv``, ``pos``) updates in place.
+
+The mixer is diagonal in its channels, so under tensor parallelism
+(:func:`repro_torch.sharding.rules.tensor_parallel`, ``rnn`` over
+``model``) a process runs its own ``R / m`` channels end to end -- the
+gate and input projections, the conv, the scan and its state -- its
+input entering through ``model_copy`` and ``w_out``'s partial product
+summed over the processes (``model_sum``, the reference's constraint
+after ``w_out``).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rglru_scan import rglru_scan as rglru_scan_kernel
 from repro_torch.models.attention import _check_decode_impl
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import model_copy, model_sum
 
 _C = 8.0  # Griffin's fixed scaling constant
 
@@ -99,6 +108,7 @@ def apply_rglru_seq(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     place; ``pos`` advances by each row's real length.
     """
     _check_decode_impl(impl)
+    x = model_copy(x, "rnn")
     gelu_branch = F.gelu(x @ params["w_gelu"], approximate="tanh")
     u = x @ params["w_rnn_in"]
     if seq_valid is not None:
@@ -118,7 +128,7 @@ def apply_rglru_seq(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         h = rglru_scan_kernel(log_a, b, h0)
     else:
         h = rglru_scan(log_a, b, h0)
-    y = (h.to(x.dtype) * gelu_branch) @ params["w_out"]
+    y = model_sum((h.to(x.dtype) * gelu_branch) @ params["w_out"], "rnn")
     if state is None:
         return y, None
     n_real = x.shape[1] if seq_valid is None \
@@ -132,7 +142,7 @@ def apply_rglru_seq(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 def apply_rglru_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                        state: Dict) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode. x: [B, 1, d]; ``state`` updates in place."""
-    xt = x[:, 0]
+    xt = model_copy(x[:, 0], "rnn")
     gelu_branch = F.gelu(xt @ params["w_gelu"], approximate="tanh")
     u = xt @ params["w_rnn_in"]                                  # [B, R]
     window = torch.cat([state["conv"].to(u.dtype), u[:, None]], dim=1)
@@ -143,7 +153,7 @@ def apply_rglru_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     log_a = _log_a(params, gate_a)
     i_t = torch.sigmoid(gate_x)
     h = torch.exp(log_a) * state["h"] + _mult(log_a) * i_t * u_conv.float()
-    y = (h.to(x.dtype) * gelu_branch) @ params["w_out"]
+    y = model_sum((h.to(x.dtype) * gelu_branch) @ params["w_out"], "rnn")
     state["h"].copy_(h)
     state["conv"].copy_(window[:, 1:])
     state["pos"] += 1

@@ -19,6 +19,17 @@ taken for every step at once before the loop.
 
 Every state leaf is float32 whatever the model dtype, and the states
 update in place, as the port's other caches do.
+
+Under tensor parallelism (:func:`repro_torch.sharding.rules.tensor_parallel`)
+the mLSTM splits by heads in Megatron's form: the up-projection ``u`` is
+computed whole, each process projects its own heads' q, k, v, gates and
+output gate from it (column blocks of ``wq``, ``wk``, ``wv``, ``w_gate``,
+``w_i``, ``w_f``), runs their recurrence and state, and its rows of
+``w_down`` give a partial output summed over the processes
+(``model_sum``): one collective a layer.  The sLSTM's state is whole in
+the reference, so its recurrence runs whole on every process; only its
+up/down-projection splits, by ``ff``, with one sum.  Each block's input
+enters its split region through ``model_copy``.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import model_copy, model_sum
 
 _GATES = ("i", "f", "z", "o")
 
@@ -41,6 +53,7 @@ def _mlstm_qkv_gates(params: Dict, cfg: ModelConfig, x: torch.Tensor):
     gate [B,S,dp]."""
     b, s, _ = x.shape
     h = cfg.n_heads
+    x = model_copy(x, "heads")
     u = x @ params["w_up"]
     gate = x @ params["w_gate"]
     q = (u @ params["wq"]).reshape(b, s, h, -1)
@@ -94,7 +107,7 @@ def apply_mlstm_seq(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     hseq, m, cum = mlstm_parallel(q, k, v, log_i, log_f)
     hd = q.shape[-1]
     out = hseq.reshape(b, s, -1).to(x.dtype) * F.silu(gate)
-    y = out @ params["w_down"]
+    y = model_sum(out @ params["w_down"], "heads")
     if state is None:
         return y, None
     # C_S = sum_s exp(F_S - F_s + log i_s - m_S) k_s v_s^T
@@ -132,7 +145,8 @@ def apply_mlstm_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n).abs(),
                         torch.exp(-m_new))
     h = (num / den[..., None]).reshape(b, -1)
-    y = (h.to(x.dtype) * F.silu(gate)) @ params["w_down"]
+    y = model_sum((h.to(x.dtype) * F.silu(gate)) @ params["w_down"],
+                  "heads")
     state["C"].copy_(c)
     state["n"].copy_(n)
     state["m"].copy_(m_new)
@@ -152,14 +166,15 @@ def _slstm_inputs(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return xw.permute(2, 0, 1, 3)
 
 
-def _slstm_step(params: Dict, cfg: ModelConfig, carry: Tuple, xw: torch.Tensor,
+def _slstm_step(params: Dict, carry: Tuple, xw: torch.Tensor,
                 rec_w: torch.Tensor) -> Tuple[Tuple, torch.Tensor]:
     """One sLSTM step. carry: (c, n, h, m) each [B, d] float32; xw [4, B, d]
     the step's input projections; rec_w [4, h, dh, dh] float32 the
-    recurrent weights."""
+    recurrent weights (whose shape gives the head count: a tensor-parallel
+    process's config counts its mLSTM heads)."""
     c, n, h, m = carry
     b = h.shape[0]
-    heads = cfg.n_heads
+    heads = rec_w.shape[1]
     hh = h.reshape(b, heads, -1)
     rec = torch.einsum("bhd,ghde->gbhe", hh, rec_w).reshape(4, b, -1)
     pre = [(xw[j].float() + rec[j]) + params[f"b_{g}"].float()
@@ -182,7 +197,9 @@ def _rec_weights(params: Dict) -> torch.Tensor:
 
 
 def _slstm_out(params: Dict, hs: torch.Tensor) -> torch.Tensor:
-    return F.gelu(hs @ params["w_up"], approximate="tanh") @ params["w_down"]
+    hs = model_copy(hs, "ff")
+    return model_sum(F.gelu(hs @ params["w_up"], approximate="tanh")
+                     @ params["w_down"], "ff")
 
 
 def apply_slstm_seq(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -206,7 +223,7 @@ def apply_slstm_seq(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     rec_w = _rec_weights(params)
     hs = []
     for t in range(s):
-        new, ht = _slstm_step(params, cfg, carry, xw[t], rec_w)
+        new, ht = _slstm_step(params, carry, xw[t], rec_w)
         if seq_valid is not None:
             vt = seq_valid[:, t, None]
             new = tuple(torch.where(vt, a, old) for a, old in zip(new, carry))
@@ -227,7 +244,7 @@ def apply_slstm_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                        state: Dict) -> Tuple[torch.Tensor, Dict]:
     """One step. x [B, 1, d]; ``state`` updates in place."""
     carry = (state["c"], state["n"], state["h"], state["m"])
-    new, ht = _slstm_step(params, cfg, carry, _slstm_inputs(params, x)[0],
+    new, ht = _slstm_step(params, carry, _slstm_inputs(params, x)[0],
                           _rec_weights(params))
     for key, t in zip(("c", "n", "h", "m"), new):
         state[key].copy_(t)

@@ -63,8 +63,10 @@ the host side of one process a point
 ``TensorBackend`` over its shard of the weights
 (:func:`~repro_torch.sharding.rules.tensor_parallel`: its query and K/V
 heads, and so its share of every ring or pool, its ``ff`` columns, its
-vocabulary rows; a recurrent layer's mixer and state whole) under
-``use_mesh``, the Megatron sums and the head's gather between them.
+vocabulary rows, an RG-LRU layer's channels and an mLSTM layer's heads
+with their share of the recurrent state; an sLSTM layer's recurrence and
+state whole) under ``use_mesh``, the Megatron sums and the head's gather
+between them.
 """
 from __future__ import annotations
 

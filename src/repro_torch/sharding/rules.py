@@ -12,7 +12,8 @@ Tensor parallelism over ``model`` (Megatron): :func:`tensor_parallel`
 gives a mesh process its view of the model -- the rules it places and
 computes by (:func:`tp_rules`), its shard of every split weight (views,
 by :func:`param_sharding_tree` of :func:`repro_torch.bridge.param_axes`)
-and the config of its local head and ff counts (:func:`local_config`).
+and the config of its local head, ff and RG-LRU channel counts
+(:func:`local_config`).
 Where the reference constrains a product over a split dimension back to
 ``("batch", None, "embed")`` and XLA inserts the all-reduce, the model
 code calls :func:`model_sum`; where a whole value enters a split region,
@@ -32,6 +33,7 @@ Default production mapping (single-pod (data, model) / multi-pod
     kv_heads -> model
     ff       -> model              MLP TP
     experts  -> model              expert parallelism
+    rnn      -> model              RG-LRU channels
     vocab    -> model              embedding / logits TP
     stage    -> model              EdgeShard pipeline mode
 """
@@ -299,14 +301,17 @@ def tp_rules(cfg: ModelConfig, mesh: Mesh,
     cannot take whole dropped.
 
     - ``qkv`` (and ``heads``, ``kv_heads``): a process must hold whole
-      query heads and the K/V heads of exactly those, so the attention
-      splits only where both head counts divide by the axis, read from the
-      config (a flattened ``qkv`` width may divide where one head does
-      not: recurrentgemma-2b's ``wk`` is one head of 256), and only where
-      no mLSTM or sLSTM block reads ``cfg.n_heads`` for its own heads;
-    - ``ff`` where ``d_ff`` divides, ``vocab`` where ``vocab_size``
-      divides (as :func:`shape_aware_sharding_tree` drops an axis);
-    - ``rnn`` never: the recurrent mixers run whole on every process."""
+      query heads and the K/V heads of exactly those, so the heads split
+      only where both head counts divide by the axis, read from the config
+      (a flattened ``qkv`` width may divide where one head does not:
+      recurrentgemma-2b's ``wk`` is one head of 256), and where an mLSTM
+      block's up-projection width divides too (its heads are
+      ``cfg.n_heads`` blocks of that width);
+    - ``ff`` where every ``ff`` width divides: ``d_ff`` and an sLSTM
+      block's up-projection ``int(d_model * slstm_proj_factor)`` (as
+      :func:`shape_aware_sharding_tree` drops an axis); ``vocab`` where
+      ``vocab_size`` divides;
+    - ``rnn`` where the RG-LRU width ``cfg.rnn_dim`` divides."""
     rules = rules or default_rules("pod" in mesh.axis_names)
     table = dict(rules.rules)
 
@@ -315,44 +320,85 @@ def tp_rules(cfg: ModelConfig, mesh: Mesh,
         return all(c > 0 and c % n == 0 for c in counts)
 
     kinds = {spec.kind for spec in cfg.layer_specs()}
-    if not ("attn" in kinds and not kinds & {"mlstm", "slstm"}
-            and divides("qkv", cfg.n_heads, cfg.n_kv_heads)):
+    if not (kinds & {"attn", "mlstm"}
+            and divides("qkv", cfg.n_heads, cfg.n_kv_heads)
+            and ("mlstm" not in kinds or divides("qkv", _mlstm_width(cfg)))):
         table.update({a: None for a in _HEAD_AXES})
-    if not divides("ff", cfg.d_ff):
+    ff = ([cfg.d_ff] if cfg.d_ff else []) + (
+        [int(cfg.d_model * cfg.slstm_proj_factor)] if "slstm" in kinds
+        else [])
+    if not (ff and divides("ff", *ff)):
         table["ff"] = None
     if not divides("vocab", cfg.vocab_size):
         table["vocab"] = None
-    table["rnn"] = None
+    if not ("rglru" in kinds and divides("rnn", cfg.rnn_dim)):
+        table["rnn"] = None
     return AxisRules(tuple(table.items()))
+
+
+def _mlstm_width(cfg: ModelConfig) -> int:
+    """An mLSTM block's up-projection width: its ``n_heads`` heads."""
+    return int(cfg.d_model * cfg.mlstm_proj_factor)
 
 
 def local_config(cfg: ModelConfig, mesh: Mesh,
                  rules: AxisRules) -> ModelConfig:
     """``cfg`` as one process of ``mesh`` runs it under ``rules``
-    (:func:`tp_rules`): its query and K/V heads and its ``d_ff`` the
-    local counts, the head width fixed; the vocabulary stays whole, as
-    sampling sees it."""
+    (:func:`tp_rules`): its query and K/V heads, its ``d_ff`` and its
+    RG-LRU width the local counts, every head width whole; the vocabulary
+    stays whole, as sampling sees it.  An mLSTM block reads its head width
+    as ``d_model * mlstm_proj_factor // n_heads``, so the factor is divided
+    with the heads; an sLSTM block, whole on every process, reads its head
+    count from its recurrent weights."""
     heads = axis_size(mesh, rules.spec(("qkv",))[0])
     ff = axis_size(mesh, rules.spec(("ff",))[0])
-    return dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // heads,
-        n_kv_heads=cfg.n_kv_heads // heads, head_dim=cfg.resolved_head_dim,
-        d_ff=cfg.d_ff // ff)
+    rnn = axis_size(mesh, rules.spec(("rnn",))[0])
+    local = dict(n_heads=cfg.n_heads // heads,
+                 n_kv_heads=cfg.n_kv_heads // heads,
+                 head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // ff)
+    if rnn > 1:
+        local["rnn_width"] = cfg.rnn_dim // rnn
+    if heads > 1 and any(s.kind == "mlstm" for s in cfg.layer_specs()):
+        pf = cfg.mlstm_proj_factor / heads
+        if int(cfg.d_model * pf) * heads != _mlstm_width(cfg):
+            raise ValueError(f"an mLSTM width of {_mlstm_width(cfg)} does "
+                             f"not split into {heads} blocks")
+        local["mlstm_proj_factor"] = pf
+    return dataclasses.replace(cfg, **local)
+
+
+#: the mLSTM's placement under tensor parallelism, Megatron's (one sum a
+#: layer): the up-projection whole, every head's q/k/v columns, gates and
+#: output gate on its process, the down-projection split by rows.  The
+#: reference's axes split ``w_up``'s columns and the q/k/v rows instead,
+#: which would contract a split dimension five times a layer.
+_MLSTM_TP = {"w_up": (None, None), "w_gate": (None, "heads"),
+             **{k: (None, "heads") for k in ("wq", "wk", "wv", "w_i",
+                                             "w_f")},
+             "b_i": ("heads",), "b_f": ("heads",),
+             "w_down": ("heads", None)}
 
 
 def _tp_specs(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Dict:
     """The spec of every leaf of a tensor-parallel process's view, in the
     parameters' structure: :func:`param_sharding_tree` of the reference's
-    axes under ``rules``, except the mixers of recurrent blocks and the MoE
-    FFNs, whole."""
+    axes under ``rules``, except where the port places otherwise: the
+    mLSTM in Megatron's form (``_MLSTM_TP``), an sLSTM's recurrent weights
+    whole (its recurrence runs whole on every process; only its
+    up/down-projection splits, by ``ff``), and the MoE FFNs whole
+    (``moe_ep`` takes its experts itself)."""
     axes = param_axes(cfg)
 
     def whole(tree):
         return _map(lambda a: (None,) * len(a), tree, _is_axes_leaf)
 
     for spec, layer in zip(cfg.layer_specs(), axes["layers"]):
-        if spec.kind != "attn":
-            layer["mixer"] = whole(layer["mixer"])
+        if spec.kind == "mlstm":
+            layer["mixer"] = dict(_MLSTM_TP)
+        elif spec.kind == "slstm":
+            layer["mixer"].update(whole({k: v for k, v in
+                                         layer["mixer"].items()
+                                         if k.startswith("r_")}))
         if spec.moe is not None:
             layer["ffn"] = whole(layer["ffn"])
     return _map(lambda sh: sh.spec, param_sharding_tree(axes, mesh, rules),
@@ -364,11 +410,11 @@ def tensor_parallel(cfg: ModelConfig, params: Dict, mesh: Mesh,
                     ) -> Tuple[ModelConfig, Dict, AxisRules]:
     """One process's view of the model on ``mesh``: (its config, its
     parameters, the rules to install with :func:`use_mesh`).  Every leaf
-    is :func:`local_slice`\\ d by :func:`param_sharding_tree` of the
-    reference's axes under :func:`tp_rules` -- views of ``params``'
-    tensors, so the weights stay held once -- except the mixers of
-    recurrent blocks and the MoE FFNs, whole: the former run replicated,
-    and ``moe_ep`` takes its experts itself."""
+    is :func:`local_slice`\\ d by :func:`_tp_specs` under
+    :func:`tp_rules` -- views of ``params``' tensors, so the weights stay
+    held once: its heads (attention's, an mLSTM's), ``ff`` columns,
+    RG-LRU channels and vocabulary rows; an sLSTM's recurrence and the MoE
+    FFNs whole (``moe_ep`` takes its experts itself)."""
     rules = tp_rules(cfg, mesh, rules)
     placed = _map(lambda spec, x: local_slice(x, spec, mesh),
                   _tp_specs(cfg, mesh, rules), lambda t: isinstance(t, P),
@@ -386,9 +432,10 @@ def tp_leaves(cfg: ModelConfig, mesh: Mesh, rules: AxisRules, params: Dict,
     in the gradient's norm); whether it is whole but read inside a region
     split over ``model``, so that each process's gradient is its share
     and is summed over ``model`` after the backward: ``q_norm`` and
-    ``k_norm`` on the local heads, and the router and the experts of an
-    MoE layer that runs ``moe_ep`` (each process routes its own tokens
-    and holds its own experts' gradients)."""
+    ``k_norm`` on the local heads, an mLSTM's whole up-projection ``w_up``
+    (whose output feeds the local heads), and the router and the experts
+    of an MoE layer that runs ``moe_ep`` (each process routes its own
+    tokens and holds its own experts' gradients)."""
     specs = _tp_specs(cfg, mesh, rules)
     model = tuple(a for a in mesh.axis_names if a not in batch_axes(mesh))
     split = _map(lambda spec: any(a in model and mesh.shape[a] > 1
@@ -402,6 +449,8 @@ def tp_leaves(cfg: ModelConfig, mesh: Mesh, rules: AxisRules, params: Dict,
             for k in ("q_norm", "k_norm"):
                 if k in layer["mixer"]:
                     layer["mixer"][k] = True
+        if spec.kind == "mlstm" and heads:
+            layer["mixer"]["w_up"] = True
         if spec.moe is not None and ep and \
                 spec.moe.num_experts % mesh.shape["model"] == 0:
             for k in ("router", "w_gate", "w_up", "w_down"):

@@ -8,8 +8,9 @@ mesh=)``), each process of a :class:`~repro_torch.core.mesh_procs.MeshProcs`
 trains a private copy of its tensor-parallel view
 (:func:`~repro_torch.sharding.rules.tensor_parallel`, the reference's
 ``param_sharding_tree`` placement) with float32 moments of the same shapes:
-its data row's rows of the batch, its heads, ``ff`` columns and vocabulary
-rows, and ``moe_ep`` where ``model`` divides the experts.  Autograd runs
+its data row's rows of the batch, its heads (attention's and an mLSTM's),
+``ff`` columns, RG-LRU channels and vocabulary rows, and ``moe_ep`` where
+``model`` divides the experts.  Autograd runs
 through the collectives (:mod:`repro_torch.sharding.rules`).  A step reads
 the host's whole trees into the private copies, takes the gradients,
 sums the whole leaves' shares over ``model``

@@ -402,6 +402,25 @@ def test_rglru_kernel_matches_plain_on_gpu(gpu, b, s, r, offset, with_h0):
         assert torch.equal(padded[:, pad:], tail)
 
 
+@pytest.mark.parametrize("r", [640, 1280])
+@pytest.mark.parametrize("b,s", [(1, 2048), (4, 48)])
+def test_rglru_kernel_at_a_tp_process_channels(gpu, b, s, r):
+    """The scan at a tensor-parallel process's share of recurrentgemma-2b's
+    2560 channels (640 on a model axis of 4, 1280 on 2): the tp score's
+    1 x 2048 and a tp prefill wave of 4 slots, against its plain version
+    with h0, once a call."""
+    gen = torch.Generator(device=gpu).manual_seed(61)
+    la = -torch.randn((b, s, r), generator=gen, device=gpu).abs()
+    bv = torch.randn((b, s, r), generator=gen, device=gpu)
+    h0 = torch.randn((b, r), generator=gen, device=gpu)
+    before = RS.rglru_scan.launches
+    got = RS.rglru_scan(la, bv, h0)
+    torch.cuda.synchronize()
+    assert RS.rglru_scan.launches == before + 1
+    torch.testing.assert_close(got, RS.rglru_scan_plain(la, bv, h0),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_rglru_wrapper_raises_on_what_the_kernel_does_not_take(gpu):
     la = torch.zeros((2, 5, 64), device=gpu)
     b = torch.zeros((2, 5, 64), device=gpu)

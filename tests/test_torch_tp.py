@@ -8,7 +8,9 @@ CPU, in float32, with the reference's own weights.
   without their ``"layers"`` axis;
 - ``tp_rules`` keeps whole heads (recurrentgemma-2b's one K/V head of 256
   stays whole on 4 though its width divides), drops what does not divide
-  (granite-moe's vocabulary of 49155) and never splits a recurrent mixer;
+  (granite-moe's vocabulary of 49155, xlstm-1.3b's sLSTM ``ff`` of 2730 on
+  4) and splits the RG-LRU's channels and the mLSTM's heads
+  (``tests/test_torch_tp_recurrent.py`` holds their forward and serves);
 - every process's parameters are views of the whole tensors, cut to its
   config's local counts, the blocks over the model axis tiling the whole;
 - ``MeshProcs.forward`` on a (2, 4) mesh of processes for qwen3-0.6b,
@@ -183,32 +185,41 @@ def _rules(arch, m, reduced=False):
 
 @pytest.mark.parametrize("arch, m, split", [
     ("llama2-7b", 4, dict(qkv="model", ff="model", vocab="model")),
-    # one K/V head of 256: its width divides, the head does not
-    ("recurrentgemma-2b", 4, dict(qkv=None, ff="model", vocab="model")),
-    ("recurrentgemma-2b", 2, dict(qkv=None, ff="model", vocab="model")),
+    # one K/V head of 256: its width divides, the head does not; the
+    # RG-LRU's 2560 channels split
+    ("recurrentgemma-2b", 4, dict(qkv=None, ff="model", vocab="model",
+                                  rnn="model")),
+    ("recurrentgemma-2b", 2, dict(qkv=None, ff="model", vocab="model",
+                                  rnn="model")),
     # a vocabulary of 49155
     ("granite-moe-1b-a400m", 4, dict(qkv="model", vocab=None)),
     # 40 heads: whole on 16, split on 4
     ("qwen1.5-32b", 16, dict(qkv=None, ff="model", vocab="model")),
     ("qwen1.5-32b", 4, dict(qkv="model", ff="model", vocab="model")),
-    # no attention layer; mLSTM blocks read cfg.n_heads
-    ("xlstm-1.3b", 4, dict(qkv=None)),
+    # no attention layer: the mLSTM's 4 heads split; the sLSTM's ff of
+    # 2730 does not divide by 4
+    ("xlstm-1.3b", 4, dict(qkv="model", ff=None, vocab="model")),
 ])
 def test_tp_rules_take_whole_heads(arch, m, split):
     """The rules split what the model takes whole, by its head counts, and
-    never the recurrent mixers' ``rnn``; the local config keeps the head
-    width."""
+    the RG-LRU's ``rnn`` where its width divides; the local config keeps
+    every head width (the mLSTM's too) and counts its local channels."""
     cfg, _, rules, local = _rules(arch, m)
     for axis, entry in split.items():
         assert rules.spec((axis,))[0] == entry, axis
     assert rules.spec(("heads",)) == rules.spec(("kv_heads",)) \
         == rules.spec(("qkv",))
-    assert rules.spec(("rnn",))[0] is None
+    assert rules.spec(("rnn",))[0] == split.get("rnn")
     assert rules.spec(("experts",))[0] == "model"
     assert local.resolved_head_dim == cfg.resolved_head_dim
     n = m if split.get("qkv") else 1
     assert (local.n_heads * n, local.n_kv_heads * n) == \
         (cfg.n_heads, cfg.n_kv_heads)
+    assert local.rnn_dim * (m if split.get("rnn") else 1) == cfg.rnn_dim
+    if any(s.kind == "mlstm" for s in cfg.layer_specs()):
+        assert int(local.d_model * local.mlstm_proj_factor) \
+            // local.n_heads == int(cfg.d_model * cfg.mlstm_proj_factor) \
+            // cfg.n_heads
     assert local.vocab_size == cfg.vocab_size
     if arch == "llama2-7b":
         assert (local.n_heads, local.n_kv_heads, local.d_ff) == (8, 8, 2752)
@@ -223,9 +234,12 @@ def _same_storage(a, b):
 def test_placement_is_views_at_the_local_counts(arch, m):
     """Every process's leaves are views of the whole tensors at its local
     config's counts: attention projections of its heads, dense FFNs of its
-    ``ff`` columns, the vocabulary rows, norms whole, recurrent mixers and
-    MoE FFNs whole; the model axis's blocks tile each whole tensor in
-    coordinate order."""
+    ``ff`` columns, the vocabulary rows, an RG-LRU's leaves of its
+    channels, an mLSTM's q/k/v, gate and gate-bias columns and
+    down-projection rows of its heads (its up-projection whole), an
+    sLSTM's up/down-projection of its ``ff`` columns (its recurrence
+    whole), norms and MoE FFNs whole; the model axis's blocks tile each
+    whole tensor in coordinate order."""
     cfg, mesh, rules, local = _rules(arch, m, reduced=True)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     views = [R.tensor_parallel(cfg, params, mesh.at(r)) for r in range(m)]
@@ -245,6 +259,29 @@ def test_placement_is_views_at_the_local_counts(arch, m):
                            f"layers/{i}/mixer/bq": (q,),
                            f"layers/{i}/mixer/bk": (kv,),
                            f"layers/{i}/mixer/bv": (kv,)})
+        if spec.kind == "rglru":
+            r = local.rnn_dim
+            shapes.update({f"layers/{i}/mixer/{k}": (d, r) for k in
+                           ("w_gelu", "w_rnn_in", "w_a", "w_x")})
+            shapes.update({f"layers/{i}/mixer/conv_w": (cfg.conv_width, r),
+                           f"layers/{i}/mixer/conv_b": (r,),
+                           f"layers/{i}/mixer/lam": (r,),
+                           f"layers/{i}/mixer/w_out": (r, d)})
+        if spec.kind == "mlstm":
+            dp, h = int(d * cfg.mlstm_proj_factor), local.n_heads
+            dl = int(d * local.mlstm_proj_factor)
+            shapes.update({f"layers/{i}/mixer/{k}": (dp, dl) for k in
+                           ("wq", "wk", "wv")})
+            shapes.update({f"layers/{i}/mixer/w_gate": (d, dl),
+                           f"layers/{i}/mixer/w_i": (dp, h),
+                           f"layers/{i}/mixer/w_f": (dp, h),
+                           f"layers/{i}/mixer/b_i": (h,),
+                           f"layers/{i}/mixer/b_f": (h,),
+                           f"layers/{i}/mixer/w_down": (dl, d)})
+        if spec.kind == "slstm" and rules.spec(("ff",))[0] is not None:
+            f = int(d * cfg.slstm_proj_factor) // m
+            shapes.update({f"layers/{i}/mixer/w_up": (d, f),
+                           f"layers/{i}/mixer/w_down": (f, d)})
         if spec.moe is None and spec.mlp != "none":
             f = local.d_ff
             shapes.update({f"layers/{i}/ffn/w_gate": (d, f),

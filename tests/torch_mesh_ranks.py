@@ -92,3 +92,48 @@ def shift_position(rank, slot):
     disagrees with the others'."""
     if rank.rank == 1:
         rank.backend._pos[slot] += 1
+
+
+#: the recurrent state leaves a tensor-parallel process holds 1/N of (the
+#: others it holds whole)
+SPLIT_STATE = {"rglru": ("h", "conv"), "mlstm": ("C", "n", "m")}
+
+
+def state_bytes(caches, cfg):
+    """The bytes of the recurrent state of ``caches`` (one a layer of
+    ``cfg``): (the split leaves', the whole leaves')."""
+    split = whole = 0
+    for spec, cache in zip(cfg.layer_specs(), caches):
+        if spec.kind == "attn":
+            continue
+        for key, t in cache.items():
+            n = t.numel() * t.element_size()
+            if key in SPLIT_STATE.get(spec.kind, ()):
+                split += n
+            else:
+                whole += n
+    return split, whole
+
+
+def recurrent_state_bytes(rank):
+    """This process's recurrent state bytes (:func:`state_bytes`) and its
+    backend's cache bytes a slot."""
+    be = rank.backend
+    return (*state_bytes(be.caches, rank.tp_cfg),
+            be.info.cache_bytes_per_slot)
+
+
+def tp_block(rank, layer, x):
+    """Layer ``layer``'s recurrent mixer in sequence mode on this process's
+    shard, in float32, under its rules: its output for x [B, S, d] (the
+    whole output, after its sum over ``model``)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(rank.tp_cfg, dtype="float32")
+    kind = cfg.layer_specs()[layer].kind
+    mixer = {k: t.float()
+             for k, t in rank.tp_params["layers"][layer]["mixer"].items()}
+    with use_mesh(rank.mesh, rank.rules):
+        y, _ = T._RECURRENT[kind][0](mixer, cfg, x.to(rank.device))
+    return y.cpu()
