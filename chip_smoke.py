@@ -260,7 +260,24 @@ exits non-zero and prints no result line; no phase catches its own failure.
    flash kernel (28 launches a process, 112 summed) within 2e-3 of
    ``impl="ref"``; each process's collectives (tp and data: count, bytes,
    seconds) and peak memory printed;
-7. result  -- the walls of every phase, one JSON line of per-kernel
+7. dry run -- the dry runs (``launch/dryrun.py``,
+   ``launch/dryrun_pipeline.py``: one mesh process's step on the ``meta``
+   device, counted; no kernel, no device memory, nothing spawned) held
+   against what the phases above measured: llama2-7b's decode step on the
+   tp phase's (1, 4) mesh at its slots and ``max_len`` gives each
+   process's collective calls and bytes a decode step exactly (both
+   layouts); qwen3-0.6b's float32 step on the train mesh phase's (2, 2)
+   mesh at 4 x 512 gives each process's last-step tp and data calls and
+   bytes exactly, and its arguments plus its temp peak are within
+   ``DRYRUN_PEAK_RTOL`` of each process's peak device memory; the
+   pipeline dry run of llama2-7b's (8, 8, 8, 8) plan gives each stage's
+   hop bytes a live tick in the pipeline procs phase (both layouts) and
+   the vocab-sharded ring's all-reduce and broadcast calls and bytes;
+   then two production records (``run_one`` of llama2-7b's
+   ``decode_32k`` on 16 x 16 and ``run_pipeline_one`` with the planner's
+   layout), printed with their walls; ``torch.cuda.memory_allocated()``
+   is the same before and after;
+8. result  -- the walls of every phase, one JSON line of per-kernel
    numbers, then the result line.
 
 It imports torch, numpy and the port only, never jax and nothing of
@@ -388,6 +405,11 @@ MESH_BF16_FACTOR = 2
 TP_SHAPE, TP_REQUESTS, TP_TOKENS, TP_FORCED = (1, 4), 4, 4, 2
 TP_MAX_LEN, TP_SCORE_LEN = 64, 2048
 TP_WAVE_LEN = 32                    # the bucket of the tp serves' prompts
+# the dry-run phase: a train mesh process's arguments plus its temp peak on
+# meta (the storages its ops create, live until their last view is
+# dropped) against the process's peak device memory, which the caching
+# allocator also counts (512-byte blocks, cuBLAS's workspace)
+DRYRUN_PEAK_RTOL = 0.10
 TP_HEADS = (32 // TP_SHAPE[1], 32 // TP_SHAPE[1], 128)   # a process's
 # the tp recurrent phase: recurrentgemma-2b at full size on the tp phase's
 # (1, 4) mesh (640 of the 2560 RG-LRU channels a process, its attention
@@ -3885,7 +3907,9 @@ def serve_pipeline_procs(model, kernels, card):
     other kernel's and this process's 0).  Then 32 teacher-forced ticks
     over 4 micro-batches through the contiguous serve's ring and a
     vocab-sharded ring of four processes: ``token_ready`` equal, logits
-    within 0.25.  Returns each layout's summed launches."""
+    within 0.25.  Returns each layout's summed launches, each layout's
+    stage stats (``stats``), the vocab-sharded ring's (``vocab stats``)
+    and the plan (``spec``), which the dry-run phase reads."""
     from repro_torch.serving import SamplingParams
     cfg = model.cfg
     sp = SamplingParams(max_tokens=PIPE_TOKENS)
@@ -3967,8 +3991,10 @@ def serve_pipeline_procs(model, kernels, card):
             print(f"pipeline procs {layout}: spawn and plan {spawn_s:.2f} s "
                   f"(the stages' start {be.ring.spawn_s:.2f} s)")
             out[layout] = launches[kernel]
+            out.setdefault("stats", {})[layout] = stats
             if layout == "contiguous":
-                vocab_ticks(model, be, spec, card)
+                out["vocab stats"] = vocab_ticks(model, be, spec, card)
+                out["spec"] = spec
         finally:
             be.close()
         del llm, be
@@ -3981,7 +4007,8 @@ def serve_pipeline_procs(model, kernels, card):
 def vocab_ticks(model, be, spec, card):
     """``PROCS_VOCAB_TICKS`` teacher-forced ticks with seeded feeds over
     ``be``'s ring (four stage processes, its serve done) and a
-    vocab-sharded ring of four processes on the same weights."""
+    vocab-sharded ring of four processes on the same weights; returns the
+    vocab-sharded ring's stage stats."""
     from repro_torch.core.stage_procs import StageProcs, vocab_bytes
     cfg = model.cfg
     m = be.n_slots
@@ -3997,7 +4024,8 @@ def vocab_ticks(model, be, spec, card):
         t0 = time.perf_counter()
         got, got_ready = teacher_forced_ticks(ring, feeds)
         secs = time.perf_counter() - t0
-        held = [s["vocab_bytes"] for s in ring.stats()]
+        stats = ring.stats()
+        held = [s["vocab_bytes"] for s in stats]
     finally:
         ring.close()
     diff = float(np.abs(got - plain).max())
@@ -4015,6 +4043,7 @@ def vocab_ticks(model, be, spec, card):
         raise AssertionError(f"pipeline procs vocab-sharded: logits "
                              f"{diff:.4g} apart, token_ready {got_ready} "
                              f"against {ready}")
+    return stats
 
 
 def mesh_rows(label, got, want):
@@ -4292,7 +4321,9 @@ def tp_phase(model, kernels, card, label, shape, layouts, after,
     each process's host, device-wait and all-reduce ms and bytes a decode
     step.  Returns the launches summed over the processes: the attention
     kernel by layout, the scan's (``rglru_scan serve``, both layouts),
-    and ``after``'s result (``score``)."""
+    ``after``'s result (``score``) and each layout's teacher-forced decode
+    steps and each process's stats over them (``decode stats``: the
+    dry-run phase reads them)."""
     import torch_mesh_ranks as ranks
     from repro_torch.launch.mesh import Mesh
     from repro_torch.runtime import TensorBackend
@@ -4418,6 +4449,7 @@ def tp_phase(model, kernels, card, label, shape, layouts, after,
                   f"start {be.procs.spawn_s:.2f} s)")
             out[layout] = sum(g[kernel] for g in got)
             out["rglru_scan serve"] += sum(g["rglru_scan"] for g in got)
+            out.setdefault("decode stats", {})[layout] = (n, fstats)
             if layout == layouts[-1]:
                 out["score"] = after(be.procs)
         finally:
@@ -4956,8 +4988,9 @@ def train_mesh(card):
     same processes (28 launches a process) within ``LOSS_ATOL`` of
     ``impl="ref"``'s.  Printed: the spawn, the steps' ms, each process's
     collectives (tensor-parallel and data, count, bytes, seconds) and
-    peak memory.  Returns the flash launches summed over the
-    processes."""
+    peak memory.  Returns the flash launches summed over the processes
+    (``flash``) and each process's stats of the last step (``stats``),
+    which the dry-run phase reads."""
     import dataclasses
 
     from repro_torch.bridge import init_params
@@ -5093,7 +5126,7 @@ def train_mesh(card):
     torch.cuda.empty_cache()
     print(f"{label}: phase wall {time.perf_counter() - t_phase:.2f} s "
           f"[{card}]")
-    return sum(launches["cuda"])
+    return dict(flash=sum(launches["cuda"]), stats=stats)
 
 
 def train_mesh_bound(opt_cfg, steps, lr_schedule):
@@ -5108,6 +5141,142 @@ def train_mesh_bound(opt_cfg, steps, lr_schedule):
                          "b1 = 0.9, b2 = 0.95")
     return 2.002 * sum(lr_schedule(opt_cfg, t)
                        for t in range(1, steps + 1)) + 1e-6
+
+
+def dryrun_phase(card, tp, train_mesh_out, procs_out):
+    """The dry runs against the phases' measurements (phase 7 of the
+    module's docstring).  Returns nothing: a miss raises."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import dryrun_pipeline as DP
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.config import InputShape
+    t_phase = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    label = "dry run"
+
+    def kinds(rec, n=1):
+        return {k: dict(calls=n * rec["collective_calls"][k],
+                        bytes=n * int(rec["collective_bytes"][k]))
+                for k in rec["collective_calls"]}
+
+    def short(x):
+        """``x`` without its zero tallies, for the lines printed."""
+        if isinstance(x, dict):
+            return {k: short(v) for k, v in x.items()
+                    if not (isinstance(v, dict) and not any(v.values()))}
+        if isinstance(x, (tuple, list)):
+            return type(x)(short(v) for v in x)
+        return x
+
+    def held(what, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: {what}: measured {got}, dry run "
+                                 f"{want}")
+        print(f"{label}: {what}: measured {short(got)}, the dry run's "
+              f"exactly [{card}]")
+
+    # the tp phase's decode step, a process's collectives
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    rec = D.analyse(cfg, InputShape("tp decode", TP_MAX_LEN, SLOTS,
+                                    "decode"),
+                    Mesh(("data", "model"), TP_SHAPE))
+    print(f"{label}: {cfg.name} decode step of {SLOTS} slots at max_len "
+          f"{TP_MAX_LEN} on a {TP_SHAPE} mesh, a process: tp {rec['tp']}, "
+          f"by kind {short(kinds(rec))} ({time.perf_counter() - t0:.2f} s "
+          f"on meta)")
+    for layout, (n, stats) in tp["decode stats"].items():
+        for rank, st in enumerate(stats):
+            got = {k: st["tp"][k] for k in ("calls", "bytes")}
+            held(f"tp {layout} process {rank} collectives over {n} decode "
+                 f"step(s)", (got, st["collectives"]),
+                 ({k: n * v for k, v in rec["tp"].items()}, kinds(rec, n)))
+
+    # the train mesh phase's last step, a process's collectives and peak
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    rec = D.analyse(cfg, InputShape("train mesh", TRAIN_LEN, TRAIN_BATCH,
+                                    "train"),
+                    Mesh(("data", "model"), TRAIN_MESH_SHAPE))
+    peak = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+    print(f"{label}: {cfg.name} float32 train step of {TRAIN_BATCH} x "
+          f"{TRAIN_LEN} on a {TRAIN_MESH_SHAPE} mesh, a process: tp "
+          f"{rec['tp']}, dp {rec['dp']}, arguments "
+          f"{rec['argument_size_in_bytes']} + temp peak "
+          f"{rec['temp_size_in_bytes']} = {peak} bytes; flops "
+          f"{rec['cost_analysis']['flops']:.6g}, bytes accessed "
+          f"{rec['cost_analysis']['bytes accessed']:.6g} "
+          f"({time.perf_counter() - t0:.2f} s on meta)")
+    for rank, st in enumerate(train_mesh_out["stats"]):
+        got = ({k: st[t][k] for k in ("calls", "bytes")}
+               for t in ("tp", "dp"))
+        held(f"train mesh process {rank} last step's collectives",
+             (*got, st["collectives"]), (rec["tp"], rec["dp"], kinds(rec)))
+        off = st["peak_bytes"] / peak - 1
+        print(f"{label}: train mesh process {rank}: peak device memory "
+              f"{st['peak_bytes']} bytes against the dry run's {peak} "
+              f"({off:+.4%}; bound {DRYRUN_PEAK_RTOL:.0%}) [{card}]")
+        if abs(off) > DRYRUN_PEAK_RTOL:
+            raise AssertionError(f"{label}: train mesh process {rank} peak "
+                                 f"{st['peak_bytes']} against {peak}")
+
+    # the pipeline procs phase: every stage's tick
+    cfg = get_config(ARCH)
+    spec = procs_out["spec"]
+    mesh = Mesh(("data", "model"), (1, spec.n_stages))
+    shape = InputShape("procs", PIPE_MAX_LEN, SLOTS, "decode")
+    for vocab in (False, True):
+        t0 = time.perf_counter()
+        rec = DP.analyse_pipeline(cfg, shape, mesh, spec, SLOTS,
+                                  vocab_sharded=vocab)
+        print(f"{label}: {cfg.name} {spec.periods_per_stage} tick"
+              f"{' vocab-sharded' if vocab else ''}, each stage's "
+              f"collectives a tick "
+              f"{[short(kinds(st)) for st in rec['stages']]} "
+              f"({time.perf_counter() - t0:.2f} s on meta)")
+        runs = [("vocab-sharded", procs_out["vocab stats"])] if vocab \
+            else list(procs_out["stats"].items())
+        for what, stats in runs:
+            first, last = stats[0]["live"], stats[-1]["live"]
+            for st, dry in zip(stats, rec["stages"]):
+                live = st["live"]
+                calls = dry["collective_calls"]
+                want = {k: dict(calls=n * calls[k],
+                                bytes=n * int(dry["collective_bytes"][k]))
+                        for k, n in (("collective-permute", live),
+                                     ("all-reduce", first),
+                                     ("broadcast", last))}
+                hop = int(dry["collective_bytes"]["collective-permute"])
+                held(f"pipeline procs {what} stage {dry['stage']} over "
+                     f"{live} live ticks: hop bytes and collectives",
+                     (st["hop_bytes"], {k: st["collectives"][k]
+                                        for k in want}),
+                     (live * hop, want))
+
+    # two production records
+    for what, fn in (("run_one(llama2-7b, decode_32k) on 16 x 16",
+                      lambda: D.run_one(ARCH, "decode_32k")),
+                     ("run_pipeline_one(llama2-7b, decode_32k, layout=dp)",
+                      lambda: DP.run_pipeline_one(ARCH, "decode_32k",
+                                                  layout="dp"))):
+        t0 = time.perf_counter()
+        rec = fn()
+        wall = time.perf_counter() - t0
+        print(f"{label}: {what}: {wall:.2f} s wall (run_s {rec['run_s']}); "
+              f"flops {rec['cost_analysis']['flops']:.6g}, bytes accessed "
+              f"{rec['cost_analysis']['bytes accessed']:.6g}, arguments "
+              f"{rec['argument_size_in_bytes']}, outputs "
+              f"{rec['output_size_in_bytes']}, temp peak "
+              f"{rec['temp_size_in_bytes']}, collective bytes "
+              f"{rec['collective_bytes']['total']:.6g} "
+              f"({'the largest stage' if 'stages' in rec else 'a process'})")
+    after = torch.cuda.memory_allocated()
+    held("device memory allocated by the phase", after - allocated, 0)
+    print(f"{label}: phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"[{card}]")
 
 
 def device_share(label, what, run, card):
@@ -5540,8 +5709,10 @@ def main():
     done("the hybrid")
     phase("train", train_phase, fa, card)
     free()
-    train_mesh_flash = phase("train mesh", train_mesh, card)
+    train_mesh_out = phase("train mesh", train_mesh, card)
     done("the train phases")
+    phase("dry run", dryrun_phase, card, tp, train_mesh_out, pipe_procs)
+    done("the dry run")
     print("chip_smoke: phase walls " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
 
@@ -5661,7 +5832,7 @@ def main():
         # and 4 K/V heads a process, float32)
         entry("flash_attention train mesh", "flash_attention@train mesh",
               "flash_attention.cu", "flash_attention.py:86",
-              train_mesh_flash),
+              train_mesh_out["flash"]),
         # the dense configs on both layouts, starcoder2-7b's verify and
         # gemma2-2b's score
         *(entry(f"{kind} {arch}", f"{kind}@{arch}", source,

@@ -221,7 +221,7 @@ def param_axes(cfg: ModelConfig) -> Dict:
     return axes
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device: Device = None,
                 dtype: Optional[torch.dtype] = None) -> Dict:
     """Seeded weights with the shapes and scales of the reference's
@@ -237,8 +237,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     device).  The numbers differ from ``jax.random``'s for the same seed;
     tests that compare the two packages bridge the reference's weights with
     :func:`params_from_numpy` instead.
+
+    ``device="meta"`` gives the tree's shapes and dtypes with nothing drawn
+    and no storage (the reference's ``jax.eval_shape(init_params)``);
+    ``generator`` is then None.
     """
     dev = resolve_device(device)
+    if (generator is None) != (dev.type == "meta"):
+        raise ValueError("init_params draws from a generator on a device, "
+                         "and from none on 'meta'")
     dt = dtype if dtype is not None else torch_dtype(cfg.dtype)
 
     def normal(*shape: int, scale: Optional[float] = None) -> torch.Tensor:

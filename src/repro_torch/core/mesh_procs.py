@@ -54,6 +54,7 @@ tensor-parallel and data-parallel collectives and its peak device memory.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Callable, Dict, List, Sequence
 
@@ -167,7 +168,10 @@ class MeshProcs(ProcGroup):
         record a ``moe_ep`` call: assignments ``rows``, ``dropped``, the
         capacity ``cap``, ``a2a_bytes`` sent, ``keep``) and ``tp`` (the
         tensor-parallel sums and gathers: ``calls``, operand ``bytes``,
-        ``wait_s`` for the device before them, ``s`` in them)."""
+        ``wait_s`` for the device before them, ``s`` in them), ``dp`` (the
+        trainer's data-parallel sums, the same keys) and ``collectives``
+        (every collective and hop by kind, ``calls`` and operand
+        ``bytes``: :class:`~repro_torch.core.stage_procs.Comm`)."""
         return self._call(("stats",))
 
     def zero_stats(self) -> None:
@@ -250,6 +254,7 @@ class _MeshRank:
                 if self.device.type == "cuda" else 0
             return dict(self.totals, moe=list(self.comm.moe_calls),
                         tp=dict(self.comm.tp), dp=dict(self.comm.dp),
+                        collectives=copy.deepcopy(self.comm.collectives),
                         peak_bytes=peak,
                         launches={k: fn.launches
                                   for k, fn in self.kernels.items()})

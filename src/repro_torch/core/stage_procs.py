@@ -52,6 +52,7 @@ for the device, and in the hop.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import shutil
 import tempfile
@@ -321,7 +322,8 @@ class StageProcs(ProcGroup):
         collectives included), ``device_s`` (then waiting for the device),
         ``hop_s`` (the hand-off: copies, send and receive, waiting for the
         neighbour included), ``hop_bytes`` (activations sent),
-        ``vocab_bytes`` (its vocabulary weights)."""
+        ``vocab_bytes`` (its vocabulary weights), ``collectives`` (its
+        hops and vocab-sharded collectives by kind: :class:`Comm`)."""
         return self._call(("stats",))
 
     def zero_stats(self) -> None:
@@ -407,6 +409,14 @@ def kernel_wrappers() -> Dict:
     return {k: getattr(mods[k], k) for k in KERNELS}
 
 
+#: the kinds of collective a :class:`Comm` tallies: the reference's five
+#: (the collectives its dry run reads from the partitioned program; a stage
+#: hop is its ``collective-permute``) and the vocab-sharded tick's
+#: broadcast
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute", "broadcast")
+
+
 class Comm:
     """A process's collectives, through staging buffers on the host: gloo
     moves CPU tensors, so each one copies its operand into a buffer
@@ -416,10 +426,13 @@ class Comm:
     process group for each mesh axis (``axes`` names them in the mesh's
     order); the whole group needs none.  Operations that only move data
     move bytes, so every dtype goes.  ``moe_calls`` collects what each
-    expert-parallel MoE call of :mod:`repro_torch.models.moe` reports,
-    ``tp`` tallies the tensor-parallel sums and gathers of
-    :mod:`repro_torch.sharding.rules` (forward and backward), and ``dp``
-    the trainer's gradient sums over the batch axes."""
+    expert-parallel MoE call of :mod:`repro_torch.models.moe` reports
+    (:meth:`moe_report`), ``tp`` tallies the tensor-parallel sums and
+    gathers of :mod:`repro_torch.sharding.rules` (forward and backward),
+    ``dp`` the trainer's gradient sums over the batch axes, and
+    ``collectives`` every call by kind (:data:`COLLECTIVE_KINDS`: its
+    ``calls`` and operand ``bytes``, an all-gather's operand being this
+    process's block and a send's its activation)."""
 
     def __init__(self, dist, device: torch.device,
                  groups: Optional[Dict] = None, axes: Tuple[str, ...] = ()):
@@ -430,12 +443,29 @@ class Comm:
         self.moe_calls: List[Dict] = []
         self.tp: Dict = {}
         self.dp: Dict = {}
+        self.collectives: Dict[str, Dict[str, int]] = {}
         self.zero_tp()
 
     def zero_tp(self) -> None:
-        """Zero the ``tp`` and ``dp`` tallies."""
+        """Zero the ``tp``, ``dp`` and ``collectives`` tallies."""
         for tally in (self.tp, self.dp):
             tally.update(calls=0, bytes=0, wait_s=0., s=0.)
+        self.collectives.update({k: dict(calls=0, bytes=0)
+                                 for k in COLLECTIVE_KINDS})
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        tally = self.collectives[kind]
+        tally["calls"] += 1
+        tally["bytes"] += nbytes
+
+    def moe_report(self, keep: torch.Tensor, cap: int, a2a_bytes: int,
+                   ) -> None:
+        """One ``moe_ep`` call's record: its assignments ``rows``, how many
+        it ``dropped``, the capacity ``cap``, the ``a2a_bytes`` it sends
+        and ``keep`` on the host (a read that waits for the device)."""
+        self.moe_calls.append(dict(
+            rows=keep.numel(), dropped=int((~keep).sum()), cap=cap,
+            a2a_bytes=a2a_bytes, keep=keep.cpu()))
 
     def _buf(self, role: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
         n = numel * torch.empty((), dtype=dtype).element_size()
@@ -468,6 +498,7 @@ class Comm:
                          f"{self.axes})")
 
     def isend(self, x: torch.Tensor, dst: int, role: str = "send"):
+        self._count("collective-permute", x.numel() * x.element_size())
         buf = self.stage(role, x)
         return self.dist.isend(buf.view(torch.uint8), dst)
 
@@ -480,6 +511,7 @@ class Comm:
     def all_reduce(self, x: torch.Tensor, axes=None) -> torch.Tensor:
         """The sum of every process's ``x`` (over ``axes``; all of them by
         default)."""
+        self._count("all-reduce", x.numel() * x.element_size())
         buf = self.stage("reduce", x)
         self.dist.all_reduce(buf, group=self.group(axes or self.axes))
         return self.back(buf, x.shape)
@@ -488,6 +520,7 @@ class Comm:
                   dtype: torch.dtype) -> torch.Tensor:
         """Process ``src``'s ``x`` (``shape``, ``dtype``) on every process
         of the whole group."""
+        self._count("broadcast", int(np.prod(shape)) * dtype.itemsize)
         buf = self.stage("reduce", x) if x is not None else \
             self._buf("reduce", int(np.prod(shape)), dtype)
         self.dist.broadcast(buf.view(torch.uint8), src)
@@ -498,6 +531,7 @@ class Comm:
         in the order of their coordinates."""
         group = self.group(axes)
         n = self.dist.get_world_size(group)
+        self._count("all-gather", x.numel() * x.element_size())
         x = x.movedim(dim, 0)
         src = self.stage("gather_in", x).view(torch.uint8)
         out = self._buf("gather_out", n * x.numel(), x.dtype)
@@ -510,6 +544,7 @@ class Comm:
         """``x`` [n, ...] over the ``n`` processes of ``axis``: block ``j``
         goes to the process at coordinate ``j``, and block ``i`` of the
         result came from the process at ``i``."""
+        self._count("all-to-all", x.numel() * x.element_size())
         src = self.stage("a2a_in", x).view(torch.uint8)
         out = self._buf("a2a_out", x.numel(), x.dtype)
         self.dist.all_to_all_single(out.view(torch.uint8), src,
@@ -520,7 +555,7 @@ class Comm:
 class _Stage:
     """One stage's state and its part of each tick."""
 
-    def __init__(self, rank: int, job: Dict, dist):
+    def __init__(self, rank: int, job: Dict, dist, comm=None):
         self.kernels = kernel_wrappers()
         self.dist, self.rank = dist, rank
         cfg, spec = job["cfg"], job["spec"]
@@ -538,7 +573,7 @@ class _Stage:
         self.shard = PL.vocab_shard(cfg, self.ns, rank) \
             if job["vocab_sharded"] else None
         self.act_dtype = job["act_dtype"]
-        self.comm = Comm(dist, self.device)
+        self.comm = comm if comm is not None else Comm(dist, self.device)
         self.held: Optional[torch.Tensor] = None
         self._zero()
 
@@ -547,6 +582,7 @@ class _Stage:
             fn.launches = 0
         self.totals = dict(ticks=0, live=0, host_s=0., device_s=0.,
                            hop_s=0., hop_bytes=0)
+        self.comm.zero_tp()
 
     def handle(self, msg):
         kind = msg[0]
@@ -554,6 +590,7 @@ class _Stage:
             return self.tick(*msg[1:])
         if kind == "stats":
             return dict(self.totals, vocab_bytes=vocab_bytes(self.params),
+                        collectives=copy.deepcopy(self.comm.collectives),
                         launches={k: fn.launches
                                   for k, fn in self.kernels.items()})
         if kind == "zero":

@@ -161,7 +161,7 @@ def moe_ep(params: Dict, moe: MoEConfig, x: torch.Tensor,
     over every axis); ``params`` hold every expert, and this process takes
     its ``E / |model|`` by the rules.  Returns (y [t, d], the mean of every
     process's aux loss).  The capacity is ``max(1, ceil(t k cf / E))``;
-    each call adds a record to the process's ``comm.moe_calls``."""
+    each call reports to the process's comm (``comm.moe_report``)."""
     mesh = current_mesh()
     if mesh is None or mesh.comm is None:
         raise ValueError("moe_ep runs in a mesh process, under use_mesh "
@@ -182,10 +182,8 @@ def moe_ep(params: Dict, moe: MoEConfig, x: torch.Tensor,
     y, aux, keep = _moe_ep_local(x, params["router"], *w, moe=moe, ep=ep,
                                  cap=cap, mesh=mesh, ep_axis=ep_axis)
     aux = mean_over_mesh(aux.reshape(1), mesh)[0]
-    mesh.comm.moe_calls.append(dict(
-        rows=keep.numel(), dropped=int((~keep).sum()), cap=cap,
-        a2a_bytes=2 * moe.num_experts * cap * x.shape[1] * x.element_size(),
-        keep=keep.cpu()))
+    mesh.comm.moe_report(keep, cap, 2 * moe.num_experts * cap * x.shape[1]
+                         * x.element_size())
     return y, aux
 
 

@@ -61,10 +61,25 @@ class TrainConfig:
     # reference's)
     impl: str = "ref"
     optimizer: AdamWConfig = field(default_factory=AdamWConfig)
+    # chunked cross entropy over this many positions
+    # (``transformer.chunked_xent``, never the whole [B, S, V] logits):
+    # the reference's dry-run option; None computes the logits whole
+    xent_chunk: Optional[int] = None
 
 
 StepFn = Callable[[Dict, AdamWState, torch.Tensor, torch.Tensor],
                   Tuple[Dict, AdamWState, Dict]]
+
+
+def _grads(total: torch.Tensor, leaves: List[torch.Tensor],
+           ) -> List[torch.Tensor]:
+    """The gradients of ``total`` for ``leaves``; a leaf the loss does not
+    read gets zeros, as the reference's ``value_and_grad`` gives it: the
+    embedding of a model with an untied head fed a frontend's float
+    embeddings."""
+    got = torch.autograd.grad(total, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(got, leaves)]
 
 
 def _micro_rows(b: int, n: int, rows: int = 1) -> int:
@@ -97,8 +112,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
         return MeshTrainStep(cfg, tcfg, mesh, device=device)
 
     def grads_and_loss(leaves, params, tokens, labels):
-        total, _ = T.train_loss(cfg, params, tokens, labels, impl=tcfg.impl)
-        return torch.autograd.grad(total, leaves), total.detach()
+        total, _ = T.train_loss(cfg, params, tokens, labels, impl=tcfg.impl,
+                                xent_chunk=tcfg.xent_chunk)
+        return _grads(total, leaves), total.detach()
 
     def train_step(params: Dict, opt: AdamWState, tokens: torch.Tensor,
                    labels: torch.Tensor):
@@ -304,9 +320,11 @@ def _start_rank(rank, cfg: ModelConfig, tcfg: TrainConfig, params: Dict,
 
 
 def _rows(rank, x: torch.Tensor) -> torch.Tensor:
-    """This process's rows of a batch tensor, on its device."""
+    """This process's rows of a batch tensor, on its device: integer
+    tokens as int64, a frontend's float embeddings as they are."""
     spec = rank.trainer.rules.spec(("batch",))
-    return local_slice(x, spec, rank.mesh).to(rank.device, torch.long)
+    x = local_slice(x, spec, rank.mesh).to(rank.device)
+    return x if x.is_floating_point() else x.long()
 
 
 def _mesh_grads(rank, tokens: torch.Tensor, labels: torch.Tensor,
@@ -332,8 +350,9 @@ def _mesh_grads(rank, tokens: torch.Tensor, labels: torch.Tensor,
         for i in range(n):
             total, _ = T.train_loss(
                 tr.cfg, tr.tree, _rows(rank, tokens[i * mb:(i + 1) * mb]),
-                _rows(rank, labels[i * mb:(i + 1) * mb]), impl=tcfg.impl)
-            g = torch.autograd.grad(total, params)
+                _rows(rank, labels[i * mb:(i + 1) * mb]), impl=tcfg.impl,
+                xent_chunk=tcfg.xent_chunk)
+            g = _grads(total, params)
             if grads:
                 for acc, gi in zip(grads, g):
                     acc += gi
@@ -374,17 +393,30 @@ def _mesh_grads(rank, tokens: torch.Tensor, labels: torch.Tensor,
     return grads, flat[-1], torch.sqrt(squares.sum())
 
 
-def _step_rank(rank, tokens: torch.Tensor, labels: torch.Tensor,
-               step: int) -> Dict:
-    """In a mesh process: one train step of :class:`MeshTrainStep` (after
-    ``step`` updates), its shards written back into the host's trees; the
-    global loss, the whole tree's gradient norm and the learning rate."""
+def _update_rank(rank, tokens: torch.Tensor, labels: torch.Tensor,
+                 step: int) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """In a mesh process: :func:`_mesh_grads`, then AdamW on its private
+    copies (after ``step`` updates), with no read on the host: the global
+    loss and the whole tree's gradient norm as tensors on its device, and
+    ``adamw_update``'s metrics.  The part of :func:`_step_rank` that the
+    dry run (:mod:`repro_torch.launch.dryrun`) runs on ``meta``."""
     tr = rank.trainer
     grads, loss, gnorm = _mesh_grads(rank, tokens, labels)
     params, mu, nu = tr.state
     _, _, metrics = adamw_update(tr.tcfg.optimizer, grads,
                                  AdamWState(step, mu, nu), params, tr.ndim,
                                  grad_norm=gnorm)
+    return loss, gnorm, metrics
+
+
+def _step_rank(rank, tokens: torch.Tensor, labels: torch.Tensor,
+               step: int) -> Dict:
+    """In a mesh process: one train step of :class:`MeshTrainStep` (after
+    ``step`` updates, :func:`_update_rank`), its shards written back into
+    the host's trees; the global loss, the whole tree's gradient norm and
+    the learning rate."""
+    tr = rank.trainer
+    loss, gnorm, metrics = _update_rank(rank, tokens, labels, step)
     with torch.no_grad():
         for views, state in zip(tr.host, tr.state):
             for h, p, w in zip(views, state, tr.writer):
