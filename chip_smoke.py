@@ -259,7 +259,23 @@ exits non-zero and prints no result line; no phase catches its own failure.
    within two AdamW updates, the trained shards' evaluation through the
    flash kernel (28 launches a process, 112 summed) within 2e-3 of
    ``impl="ref"``; each process's collectives (tp and data: count, bytes,
-   seconds) and peak memory printed;
+   seconds) and peak memory printed; then the multi-pod mesh:
+   granite-moe-1b-a400m at full width in float32 weights on a (2, 2, 2)
+   ``(pod, data, model)`` mesh of 8 processes (16 of 32 experts, 8 query
+   and 4 K/V heads and one of the 4 rows a process), capacity factor 8.0,
+   at the depth the port's dry run sizes before spawning (the most
+   layers, up to 12, whose 8 predicted peaks and the host's trees fit in
+   85% of the free card); 3 AdamW steps of 4 x 512 beside the one-process
+   ``moe_ragged`` step (its load-balance term the mesh's mean over the 8
+   token blocks), the processes replaying its expert choices: each
+   step's loss and gradient norm within 2e-4, the parameters within two
+   AdamW updates, the routings the processes' own routers would have
+   chosen otherwise in the first step (the same weights) at most 0.05%,
+   nothing dropped; the trained shards'
+   evaluation through the flash kernel (a launch a layer and process)
+   within 2e-3 of ``impl="ref"``; each process's collectives by kind (the
+   data all-reduce over ``(pod, data)``, two all-to-alls a layer over
+   ``model`` each way, the batch gathers) and peak memory printed;
 7. dry run -- the dry runs (``launch/dryrun.py``,
    ``launch/dryrun_pipeline.py``: one mesh process's step on the ``meta``
    device, counted; no kernel, no device memory, nothing spawned) held
@@ -269,7 +285,9 @@ exits non-zero and prints no result line; no phase catches its own failure.
    layouts); qwen3-0.6b's float32 step on the train mesh phase's (2, 2)
    mesh at 4 x 512 gives each process's last-step tp and data calls and
    bytes exactly, and its arguments plus its temp peak are within
-   ``DRYRUN_PEAK_RTOL`` of each process's peak device memory; the
+   ``DRYRUN_PEAK_RTOL`` of each process's peak device memory; so does
+   granite-moe's step on the multi-pod phase's (2, 2, 2) mesh, by kind
+   too; the
    pipeline dry run of llama2-7b's (8, 8, 8, 8) plan gives each stage's
    hop bytes a live tick in the pipeline procs phase (both layouts) and
    the vocab-sharded ring's all-reduce and broadcast calls and bytes;
@@ -277,7 +295,15 @@ exits non-zero and prints no result line; no phase catches its own failure.
    ``decode_32k`` on 16 x 16 and ``run_pipeline_one`` with the planner's
    layout), printed with their walls; ``torch.cuda.memory_allocated()``
    is the same before and after;
-8. result  -- the walls of every phase, one JSON line of per-kernel
+8. examples -- the port's drivers (``python -m
+   repro_torch.examples.<name>``, the reference's ``examples/``) in this
+   process, each holding its own asserts: ``quickstart`` and
+   ``partition_plan`` (defaults, then ``--objective throughput --cloud-bw
+   10``) on the host; ``serve_pipeline`` on the card (a planned 4-stage
+   pipeline of reduced qwen3-0.6b in float32 with the kernels, the ring
+   kernel on its decode ticks, every token equal to the tensor backend's,
+   then ``stream``); ``train_tiny`` (200 steps, the loss must fall);
+9. result  -- the walls of every phase, one JSON line of per-kernel
    numbers, then the result line.
 
 It imports torch, numpy and the port only, never jax and nothing of
@@ -342,6 +368,20 @@ TRAIN_DATA_VOCAB = 64               # the launcher's synthetic token support
 TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = (2, 2), 3
 TRAIN_MESH_HEADS = (16 // TRAIN_MESH_SHAPE[1], 8 // TRAIN_MESH_SHAPE[1], 128)
 TRAIN_MESH_TOL = dict(rtol=2e-4, atol=2e-4)
+# the multi-pod phase: granite-moe-1b-a400m at full width in float32
+# weights on a (2, 2, 2) (pod, data, model) mesh of 8 processes (16 of the
+# 32 experts, 8 query and 4 K/V heads and one of the 4 rows a process; its
+# 49,155-word vocabulary does not split over 2 and stays whole), capacity
+# factor MULTIPOD_CF so that no token can drop, TRAIN_MESH_STEPS AdamW
+# steps of TRAIN_BATCH x TRAIN_LEN beside one process.  Its depth is the
+# port's dry run's answer, before spawning: the most layers, up to
+# MULTIPOD_MAX_LAYERS (the mixers phase's cut), whose 8 processes'
+# predicted peaks (each DRYRUN_PEAK_RTOL over, and MULTIPOD_PROC_BYTES for
+# a process's CUDA context) and the host's parameters and moments fit in
+# MULTIPOD_MEM_SHARE of the card's free memory
+MULTIPOD_SHAPE, MULTIPOD_CF, MULTIPOD_MAX_LAYERS = (2, 2, 2), 8.0, 12
+MULTIPOD_HEADS = (16 // MULTIPOD_SHAPE[2], 8 // MULTIPOD_SHAPE[2], 64)
+MULTIPOD_MEM_SHARE, MULTIPOD_PROC_BYTES = 0.85, 1 << 30
 # the streamed serve: 8 requests over 4 slots, each a shared 1024-token
 # prefix plus 16-200 tokens of its own, the prefix cache on, 256-token chunks
 STREAM_REQUESTS, STREAM_SHARED, STREAM_TAIL = 8, 1024, (16, 200)
@@ -2745,13 +2785,16 @@ class RouteReplay:
     and the later layers carry it to the logits.  So to hold the kernels'
     numerics to the ref path's, the second run takes the first run's
     choices, weighted by its own router's probabilities over them; the
-    token routings its own choice would have changed are counted."""
+    token routings its own choice would have changed are counted (and,
+    with ``kept`` a list, its own choices kept there, a call each)."""
 
     def __init__(self, active=True):
         from repro_torch.models import moe
         self.moe, self.own = moe, moe.router_topk
         self.active, self.recorded, self.at = active, [], None
         self.tokens = self.changed = 0
+        self.per_call = []
+        self.kept = None
 
     def record(self):
         self.at = None
@@ -2779,8 +2822,12 @@ class RouteReplay:
                                  f"{tuple(ids.shape)}, recorded "
                                  f"{tuple(want.shape)}")
         self.tokens += ids.shape[0]
-        self.changed += int((ids.sort(-1).values != want.sort(-1).values)
-                            .any(-1).sum())
+        changed = int((ids.sort(-1).values != want.sort(-1).values)
+                      .any(-1).sum())
+        self.changed += changed
+        self.per_call.append(changed)
+        if self.kept is not None:
+            self.kept.append(ids)
         full = torch.softmax((x @ router_w).float(), dim=-1)
         top = full.gather(-1, want)
         return (top / top.sum(-1, keepdim=True)).to(x.dtype), want, aux
@@ -4683,6 +4730,28 @@ def collect_routes(rank):
     return [ids.cpu() for ids in rank.route.recorded]
 
 
+def replay_routes(rank, recorded):
+    """In a mesh process: replay the expert ids ``recorded`` by one process
+    over the whole batch (a [T, k] tensor a ``router_topk`` call), this
+    process's block of each (``moe_ep``'s split of the tokens, in rank
+    order), keeping its own router's choices, until :func:`end_replay`."""
+    rank.route = RouteReplay()
+    rank.route.kept = []
+    rank.route.recorded = [ids.chunk(rank.mesh.size)[rank.rank].to(
+        rank.device) for ids in recorded]
+    rank.route.replay()
+    rank.route.__enter__()
+
+
+def end_replay(rank):
+    """In a mesh process: stop replaying; the routings its own router
+    would have changed, a call each, the calls replayed, and its own
+    router's choices, a call each (on the host)."""
+    rank.route.__exit__(None, None, None)
+    return (rank.route.per_call, rank.route.at,
+            [ids.cpu() for ids in rank.route.kept])
+
+
 def replicate_attention(rank):
     """In a mesh process: its view of the model with the attention whole
     (the heads' axes dropped from its rules), the rest placed as
@@ -4971,6 +5040,116 @@ def train_phase(fa, card):
           f"{t_save:.1f} s, restored bit for bit in {t_load:.1f} s")
 
 
+def train_batches():
+    """``TRAIN_MESH_STEPS`` + 1 batches of ``TRAIN_BATCH`` x ``TRAIN_LEN``
+    tokens of the synthetic stream, on the card: the steps' and the
+    evaluation's."""
+    from repro_torch.training import DataConfig, make_dataset
+    data = make_dataset(DataConfig(vocab_size=TRAIN_DATA_VOCAB,
+                                   seq_len=TRAIN_LEN, batch=TRAIN_BATCH,
+                                   seed=SEED))
+    return [tuple(torch.from_numpy(a).to(DEVICE, torch.long)
+                  for a in data.batch_at(i))
+            for i in range(TRAIN_MESH_STEPS + 1)]
+
+
+def one_process_steps(cfg, tcfg, params, batches):
+    """The one-process ``make_train_step`` over ``batches`` from a copy of
+    ``params``: each step's loss and gradient norm, its ms, and the final
+    parameters on the host; the copy freed, so that its memory is the
+    mesh processes' before they spawn."""
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.adamw import tree_leaves, tree_map
+    one_params = tree_map(lambda t: t.clone(), params)
+    one_opt, one = adamw_init(one_params), make_train_step(cfg, tcfg)
+    want, ms = [], []
+    for tokens, labels in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_params, one_opt, m = one(one_params, one_opt, tokens, labels)
+        want.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    final = [t.detach().cpu() for t in tree_leaves(one_params)]
+    del one_params, one_opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, ms, final
+
+
+def mesh_train_steps(label, step, params, opt, batches, want, card,
+                     before=None):
+    """The mesh step ``step`` over ``batches``, each step's loss and
+    gradient norm held within ``TRAIN_MESH_TOL`` of the one process's
+    (``want``); ``before(i, params, tokens)``, where given, runs ahead of
+    step ``i``, untimed, on the weights it starts from.  Returns (the
+    trees, each step's ms, each process's stats of the last step)."""
+    procs, mesh_ms = step.procs, []
+    for i, (tokens, labels) in enumerate(batches):
+        if before is not None:
+            before(i, params, tokens)
+        if i == len(batches) - 1:
+            procs.zero_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, tokens, labels)
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        got = want[i]
+        print(f"{label}: step {i}: loss {m['loss']:.6f} (one process "
+              f"{got['loss']:.6f}), grad norm {m['grad_norm']:.6f} "
+              f"({got['grad_norm']:.6f}), lr {m['lr']:.3e} [{card}]")
+        for k in ("loss", "grad_norm"):
+            if abs(m[k] - got[k]) > TRAIN_MESH_TOL["atol"] \
+                    + TRAIN_MESH_TOL["rtol"] * abs(got[k]):
+                raise AssertionError(f"{label}: step {i} {k} {m[k]} "
+                                     f"against one process's {got[k]} "
+                                     f"({TRAIN_MESH_TOL})")
+    return params, opt, mesh_ms, procs.stats()
+
+
+def leaves_apart(params, final):
+    """Each leaf's max abs difference between the trained ``params`` and
+    the one process's ``final`` leaves (on the host)."""
+    from repro_torch.training.adamw import tree_leaves
+    with torch.no_grad():
+        return [float((a.detach().cpu() - b).abs().max())
+                for a, b in zip(tree_leaves(params), final)]
+
+
+def mesh_evaluate(label, step, layers, card):
+    """The trained shards' evaluation loss of the last batch under
+    ``no_grad`` on the processes, ``impl="cuda"`` (the flash kernel, a
+    launch a layer and process) within ``LOSS_ATOL`` of ``impl="ref"``'s
+    (none).  Returns the flash launches summed over the processes."""
+    procs = step.procs
+    tokens, labels = train_batches()[-1]
+    loss, launches = {}, {}
+    for impl in ("cuda", "ref"):
+        procs.zero_stats()
+        t0 = time.perf_counter()
+        loss[impl] = step.evaluate(tokens, labels, impl)
+        secs = time.perf_counter() - t0
+        launches[impl] = [st["launches"]["flash_attention"]
+                          for st in procs.stats()]
+        print(f"{label}: evaluation loss under no_grad on the processes, "
+              f"impl {impl}: {loss[impl]:.6f} in {secs:.2f} s, "
+              f"flash_attention launches a process {launches[impl]} "
+              f"[{card}]")
+    n = procs.mesh.size
+    if launches["cuda"] != [layers] * n or any(launches["ref"]) \
+            or not np.isfinite(loss["cuda"]) \
+            or abs(loss["cuda"] - loss["ref"]) > LOSS_ATOL:
+        raise AssertionError(f"{label}: evaluation loss cuda "
+                             f"{loss['cuda']} vs ref {loss['ref']} (atol "
+                             f"{LOSS_ATOL}), launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label}: evaluation loss cuda against ref: diff "
+          f"{abs(loss['cuda'] - loss['ref']):.3g} (atol {LOSS_ATOL}); "
+          f"flash_attention launches {sum(launches['cuda'])} = {layers} "
+          f"layers x {n} processes, none in this process; peak device "
+          f"memory of this process {peak:.2f} GB [{card}]")
+    return sum(launches["cuda"])
+
+
 def train_mesh(card):
     """qwen3-0.6b at full width and depth in float32 weights, trained on a
     ``TRAIN_MESH_SHAPE`` (data, model) mesh of processes on the one card
@@ -4997,10 +5176,8 @@ def train_mesh(card):
     from repro_torch.configs import get_config
     from repro_torch.core.mesh_procs import MeshProcs
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
-                                      adamw_init, make_dataset,
-                                      make_train_step)
-    from repro_torch.training.adamw import lr_schedule, tree_leaves, tree_map
+    from repro_torch.training import AdamWConfig, TrainConfig, adamw_init
+    from repro_torch.training.adamw import lr_schedule, tree_leaves
     from repro_torch.training.train_loop import MeshTrainStep
     t_phase = time.perf_counter()
     label = f"train mesh {TRAIN_ARCH}"
@@ -5009,60 +5186,21 @@ def train_mesh(card):
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1,
                           total_steps=TRAIN_MESH_STEPS)
     tcfg = TrainConfig(impl="ref", optimizer=opt_cfg)
-    data = make_dataset(DataConfig(vocab_size=TRAIN_DATA_VOCAB,
-                                   seq_len=TRAIN_LEN, batch=TRAIN_BATCH,
-                                   seed=SEED))
     gen = torch.Generator(device=DEVICE)
     params = init_params(cfg, gen.manual_seed(SEED), DEVICE)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    batches = [tuple(torch.from_numpy(a).to(DEVICE, torch.long)
-                     for a in data.batch_at(i))
-               for i in range(TRAIN_MESH_STEPS + 1)]
-    # one process first, so that its activations are freed before the
-    # mesh processes take their share of the card
-    one_params = tree_map(lambda t: t.clone(), params)
-    one_opt, one, want, one_ms = adamw_init(one_params), \
-        make_train_step(cfg, tcfg), [], []
-    for tokens, labels in batches[:-1]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one_params, one_opt, m1 = one(one_params, one_opt, tokens, labels)
-        want.append({k: float(m1[k]) for k in ("loss", "grad_norm")})
-        one_ms.append((time.perf_counter() - t0) * 1e3)
-    del one_opt, m1
-    for t in tree_leaves(one_params):
-        t.requires_grad_(False)
-    gc.collect()
-    torch.cuda.empty_cache()
+    batches = train_batches()[:-1]
+    want, one_ms, one_final = one_process_steps(cfg, tcfg, params, batches)
     opt = adamw_init(params)
     t0 = time.perf_counter()
     procs = MeshProcs(cfg, params, mesh, impl="cuda", device=DEVICE)
     spawn_s = time.perf_counter() - t0
     try:
         step = MeshTrainStep(cfg, tcfg, procs=procs)
-        mesh_ms = []
-        for i, (tokens, labels) in enumerate(batches[:-1]):
-            if i == TRAIN_MESH_STEPS - 1:
-                procs.zero_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt, m = step(params, opt, tokens, labels)
-            mesh_ms.append((time.perf_counter() - t0) * 1e3)
-            got = want[i]
-            print(f"{label}: step {i}: loss {m['loss']:.6f} (one process "
-                  f"{got['loss']:.6f}), grad norm {m['grad_norm']:.6f} "
-                  f"({got['grad_norm']:.6f}), lr {m['lr']:.3e} [{card}]")
-            for k in ("loss", "grad_norm"):
-                if abs(m[k] - got[k]) > TRAIN_MESH_TOL["atol"] \
-                        + TRAIN_MESH_TOL["rtol"] * abs(got[k]):
-                    raise AssertionError(f"{label}: step {i} {k} "
-                                         f"{m[k]} against one process's "
-                                         f"{got[k]} ({TRAIN_MESH_TOL})")
-        stats = procs.stats()
+        params, opt, mesh_ms, stats = mesh_train_steps(
+            label, step, params, opt, batches, want, card)
         bound = train_mesh_bound(opt_cfg, TRAIN_MESH_STEPS, lr_schedule)
-        with torch.no_grad():
-            diffs = [float((a - b).abs().max()) for a, b in
-                     zip(tree_leaves(params), tree_leaves(one_params))]
+        diffs = leaves_apart(params, one_final)
         diff = max(diffs)
         print(f"{label}: {cfg.n_layers} layers, {n_params / 1e6:.1f} M "
               f"parameters in float32 on a {mesh.shape} mesh of "
@@ -5091,34 +5229,8 @@ def train_mesh(card):
             raise AssertionError(f"{label}: parameters {diff:.4g} apart "
                                  f"after {TRAIN_MESH_STEPS} steps (bound "
                                  f"{bound:.4g})")
-        del one_params
-        gc.collect()
-        tokens, labels = batches[-1]
-        loss, launches = {}, {}
-        for impl in ("cuda", "ref"):
-            procs.zero_stats()
-            t0 = time.perf_counter()
-            loss[impl] = step.evaluate(tokens, labels, impl)
-            secs = time.perf_counter() - t0
-            launches[impl] = [st["launches"]["flash_attention"]
-                              for st in procs.stats()]
-            print(f"{label}: evaluation loss under no_grad on the "
-                  f"processes, impl {impl}: {loss[impl]:.6f} in "
-                  f"{secs:.2f} s, flash_attention launches a process "
-                  f"{launches[impl]} [{card}]")
-        if launches["cuda"] != [cfg.n_layers] * mesh.size \
-                or any(launches["ref"]) \
-                or not np.isfinite(loss["cuda"]) \
-                or abs(loss["cuda"] - loss["ref"]) > LOSS_ATOL:
-            raise AssertionError(f"{label}: evaluation loss cuda "
-                                 f"{loss['cuda']} vs ref {loss['ref']} "
-                                 f"(atol {LOSS_ATOL}), launches {launches}")
-        print(f"{label}: evaluation loss cuda against ref: diff "
-              f"{abs(loss['cuda'] - loss['ref']):.3g} (atol {LOSS_ATOL}); "
-              f"flash_attention launches {sum(launches['cuda'])} = "
-              f"{cfg.n_layers} layers x {mesh.size} processes, none in "
-              f"this process; peak device memory of this process "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+        del one_final
+        flash = mesh_evaluate(label, step, cfg.n_layers, card)
     finally:
         procs.close()
     del params, opt
@@ -5126,7 +5238,314 @@ def train_mesh(card):
     torch.cuda.empty_cache()
     print(f"{label}: phase wall {time.perf_counter() - t_phase:.2f} s "
           f"[{card}]")
-    return dict(flash=sum(launches["cuda"]), stats=stats)
+    return dict(flash=flash, stats=stats)
+
+
+class BlockAux:
+    """``router_topk`` with its expert choices recorded, and its
+    load-balance term the mean of ``n`` equal token blocks' Switch terms:
+    the reference's ``moe_ep`` takes ``jnp.mean`` of its devices' terms,
+    each over its block of the tokens (``src/repro/models/moe.py:149-167``),
+    so a mesh step's loss is that mean.  With it the one-process
+    ``moe_ragged`` step computes the mesh step's function: at a capacity
+    that drops nothing the two differ in the order of their sums only."""
+
+    def __init__(self, n):
+        from repro_torch.models import moe
+        self.moe, self.own, self.n = moe, moe.router_topk, n
+        self.recorded = []
+
+    def __enter__(self):
+        self.moe.router_topk = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.own
+
+    def _route(self, router_w, x, moe):
+        probs, ids, _ = self.own(router_w, x, moe)
+        self.recorded.append(ids.detach().cpu())
+        aux = torch.stack([self.own(router_w, xb, moe)[2]
+                           for xb in x.chunk(self.n)]).mean()
+        return probs, ids, aux
+
+
+def multipod_depth(label, base, mesh, card):
+    """The multi-pod phase's depth from the port's dry run
+    (``launch/dryrun.py``, a process's train step on ``meta``): the most
+    layers up to ``MULTIPOD_MAX_LAYERS`` whose plan fits (the constants'
+    comment); a process's predicted peak is its arguments as it holds them
+    plus its temp peak.  Returns (the layers, the record at that depth)."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import InputShape
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    budget = MULTIPOD_MEM_SHARE * free
+    shape = InputShape("multi-pod", TRAIN_LEN, TRAIN_BATCH, "train")
+    plans = {}
+
+    def need(layers):
+        if layers not in plans:
+            cfg = dataclasses.replace(base, n_layers=layers)
+            t0 = time.perf_counter()
+            rec = D.analyse(cfg, shape, mesh)
+            peak = rec["process_argument_bytes"] + rec["temp_size_in_bytes"]
+            host = 3 * 4 * cfg.param_count()
+            total = mesh.size * (peak * (1 + DRYRUN_PEAK_RTOL)
+                                 + MULTIPOD_PROC_BYTES) + host
+            plans[layers] = (total, rec)
+            print(f"{label}: dry run at {layers} layers: a process's peak "
+                  f"{peak / 1e9:.3f} GB predicted, the plan {total / 1e9:.2f}"
+                  f" GB of the budget {budget / 1e9:.2f} GB "
+                  f"({MULTIPOD_MEM_SHARE:.0%} of {free / 1e9:.2f} GB free) "
+                  f"({time.perf_counter() - t0:.2f} s on meta) [{card}]")
+        return plans[layers][0]
+
+    top = MULTIPOD_MAX_LAYERS
+    layers = top
+    if need(top) > budget:
+        per_layer = (need(top) - need(1)) / (top - 1)
+        layers = max(1, min(top, int(1 + (budget - need(1)) // per_layer)))
+        while layers > 1 and need(layers) > budget:
+            layers -= 1
+    if need(layers) > budget:
+        raise AssertionError(f"{label}: not one layer fits the card")
+    return layers, plans[layers][1]
+
+
+def multipod_phase(card):
+    """granite-moe-1b-a400m at full width in float32 weights trained on a
+    ``MULTIPOD_SHAPE`` (pod, data, model) mesh of 8 processes on the one
+    card (:class:`~repro_torch.training.train_loop.MeshTrainStep`: a
+    process's row of the batch over ``(pod, data)``, its heads over
+    ``model``, every MoE layer on ``moe_ep`` with the batch gathered over
+    ``(pod, data)``, its tokens split over all three axes and 16 experts
+    a process; the gradients averaged over ``(pod, data)`` in one flat
+    buffer, the whole leaves' shares summed over ``model``), at the depth
+    the dry run sizes (:func:`multipod_depth`).  First the one-process
+    ``make_train_step`` on ``impl="ref"`` (``moe_ragged``, its
+    load-balance term the mesh's, :class:`BlockAux`) takes
+    ``TRAIN_MESH_STEPS`` AdamW steps of ``TRAIN_BATCH`` x ``TRAIN_LEN``
+    tokens; its losses, gradient norms and final parameters are kept on
+    the host and it is freed; then the mesh takes the same steps, its
+    processes replaying the one process's expert choices
+    (:class:`RouteReplay`, each its block of the tokens): a top-k choice
+    is discontinuous, and from the second step the two sides' weights
+    differ within the AdamW bound, so a near-tie can trade.  Held: each
+    step's loss and gradient norm within ``TRAIN_MESH_TOL`` of one
+    process's, the parameters within ``train_mesh_bound``, in every step
+    the routings where the processes' own routers chose otherwise than
+    the one process's router on the same weights and the same replayed
+    choices (its forward on the weights the mesh starts the step from,
+    ahead of the step: so the two sides differ only in the mesh's partial
+    sums, as the mesh phase counts them), at most ``MESH_ROUTE_FLIPS`` of
+    them, every ``moe_ep`` call dropping nothing,
+    then the trained shards' evaluation under ``no_grad`` through the
+    flash kernel on the same processes (a launch a layer and process)
+    within ``LOSS_ATOL`` of ``impl="ref"``'s.  Printed: the depth's plan,
+    the spawn, the steps' ms, each process's collectives (tensor-parallel
+    and data tallies, and by kind) and peak memory.  Returns the flash
+    launches summed over the processes (``flash``), each process's stats
+    of the last step (``stats``) and the config trained (``cfg``)."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh_procs import MeshProcs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training import AdamWConfig, TrainConfig, adamw_init
+    from repro_torch.training.adamw import lr_schedule, tree_leaves
+    from repro_torch.training.train_loop import MeshTrainStep
+    t_phase = time.perf_counter()
+    label = f"multi-pod {MOE_ARCH}"
+    mesh = Mesh(("pod", "data", "model"), MULTIPOD_SHAPE)
+    own = get_config(MOE_ARCH)
+    base = dataclasses.replace(own, dtype="float32", pattern=tuple(
+        dataclasses.replace(s, moe=dataclasses.replace(
+            s.moe, capacity_factor=MULTIPOD_CF)) if s.moe else s
+        for s in own.pattern))
+    layers, _ = multipod_depth(label, base, mesh, card)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1,
+                          total_steps=TRAIN_MESH_STEPS)
+    tcfg = TrainConfig(impl="ref", optimizer=opt_cfg)
+    gen = torch.Generator(device=DEVICE)
+    params = init_params(cfg, gen.manual_seed(SEED), DEVICE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batches = train_batches()[:-1]
+    with BlockAux(mesh.size) as one_routes:
+        want, one_ms, one_final = one_process_steps(cfg, tcfg, params,
+                                                    batches)
+    opt = adamw_init(params)
+    same = []
+
+    def one_router(i, params, tokens):
+        """Ahead of mesh step ``i``: the one process's forward on the
+        weights the mesh starts the step from, replaying the choices the
+        mesh processes replay in it, its own router's choices kept."""
+        route = RouteReplay()
+        route.recorded = [ids.to(DEVICE) for ids in
+                          one_routes.recorded[i * layers:(i + 1) * layers]]
+        route.kept = []
+        route.replay()
+        with route, torch.no_grad():
+            T.forward(cfg, params, tokens, mode="train", impl="ref")
+        same.extend(ids.cpu() for ids in route.kept)
+        del route
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    procs = MeshProcs(cfg, params, mesh, impl="cuda", device=DEVICE)
+    spawn_s = time.perf_counter() - t0
+    try:
+        step = MeshTrainStep(cfg, tcfg, procs=procs)
+        procs.run(replay_routes, one_routes.recorded)
+        params, opt, mesh_ms, stats = mesh_train_steps(
+            label, step, params, opt, batches, want, card, before=one_router)
+        replayed = procs.run(end_replay)
+        n_calls = len(one_routes.recorded)
+        if any(at != n_calls for _, at, _ in replayed) \
+                or len(same) != n_calls:
+            raise AssertionError(f"{label}: router calls replayed "
+                                 f"{[at for _, at, _ in replayed]}, "
+                                 f"recorded {n_calls}, on the mesh's "
+                                 f"weights {len(same)}")
+        # the processes' own choices, their token blocks in rank order
+        # (moe_ep's split of the batch), against the one process's router
+        # on the same weights
+        mesh_own = [torch.cat([kept[c] for _, _, kept in replayed])
+                    for c in range(n_calls)]
+        flipped = [int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                       .sum()) for a, b in zip(mesh_own, same)]
+        same_steps = [sum(flipped[i * layers:(i + 1) * layers])
+                      for i in range(TRAIN_MESH_STEPS)]
+        changed_steps = [sum(sum(c[i * layers:(i + 1) * layers])
+                             for c, _, _ in replayed)
+                         for i in range(TRAIN_MESH_STEPS)]
+        n_routes = sum(ids.shape[0] for ids in one_routes.recorded)
+        per_step = int(MESH_ROUTE_FLIPS * n_routes / TRAIN_MESH_STEPS)
+        dropped = sum(c["dropped"] for st in stats for c in st["moe"])
+        bound = train_mesh_bound(opt_cfg, TRAIN_MESH_STEPS, lr_schedule)
+        diffs = leaves_apart(params, one_final)
+        diff = max(diffs)
+        experts, m = cfg.pattern[0].moe.num_experts, mesh.shape["model"]
+        rows = mesh.size // m
+        print(f"{label}: {layers} of {own.n_layers} layers (the dry run's "
+              f"depth), {n_params / 1e6:.1f} M parameters in float32 on a "
+              f"{mesh.shape} mesh of {mesh.size} processes ({experts // m} "
+              f"of {experts} experts, {cfg.n_heads // m} query and "
+              f"{cfg.n_kv_heads // m} K/V heads and {TRAIN_BATCH // rows} of "
+              f"{TRAIN_BATCH} rows a process, the vocabulary whole), "
+              f"capacity {MULTIPOD_CF:g}: "
+              f"{TRAIN_MESH_STEPS} AdamW steps of {TRAIN_BATCH} x "
+              f"{TRAIN_LEN} tokens, impl ref; spawn {spawn_s:.2f} s; step "
+              f"ms {[round(t, 1) for t in mesh_ms]} (one process "
+              f"{[round(t, 1) for t in one_ms]}; host clock, the metrics "
+              f"read back); parameters after step {TRAIN_MESH_STEPS} max "
+              f"abs diff {diff:.4g} (bound {bound:.4g}), "
+              f"{sum(d > 0 for d in diffs)} of {len(diffs)} leaves differ; "
+              f"routings where the processes' own routers chose otherwise "
+              f"than the one process's router on the same weights, by "
+              f"step, {same_steps} of {n_routes // TRAIN_MESH_STEPS} a "
+              f"step (at most {per_step} a step); than the one process's "
+              f"own trajectory's choices, replayed, {changed_steps} "
+              f"(its weights differ within the bound from step 1: "
+              f"measured, not held); assignments dropped {dropped} "
+              f"[{card}]")
+        for rank, st in enumerate(stats):
+            tp, dp, kinds = st["tp"], st["dp"], st["collectives"]
+            print(f"{label}: process {rank} {mesh.coords(rank)}, the last "
+                  f"step: tp {tp['calls']} collectives, {tp['bytes']} bytes, "
+                  f"{tp['s']:.3f} s (the shares' sum over model among them; "
+                  f"device wait before them {tp['wait_s']:.3f} s); data "
+                  f"over (pod, data) {dp['calls']} all-reduce, {dp['bytes']}"
+                  f" bytes, {dp['s']:.3f} s; by kind: all-to-all over model "
+                  f"{kinds['all-to-all']} (2 a layer forward and backward), "
+                  f"all-gather {kinds['all-gather']} (the batch over (pod, "
+                  f"data) and moe_ep's blocks over the mesh, a layer), "
+                  f"all-reduce {kinds['all-reduce']}; peak device memory "
+                  f"{st['peak_bytes'] / 1e9:.2f} GB [{card}]")
+        if diff > bound or dropped or max(same_steps) > per_step:
+            raise AssertionError(f"{label}: parameters {diff:.4g} apart "
+                                 f"(bound {bound:.4g}), routings changed "
+                                 f"on the same weights by step "
+                                 f"{same_steps} (at most {per_step} a "
+                                 f"step), {dropped} assignments dropped")
+        del one_final, mesh_own
+        flash = mesh_evaluate(label, step, layers, card)
+    finally:
+        procs.close()
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"[{card}]")
+    return dict(flash=flash, stats=stats, cfg=cfg)
+
+
+def examples_phase(kernels, card):
+    """The port's drivers as a user runs them (``repro_torch.examples``,
+    the reference's ``examples/``), in this process: ``quickstart`` and
+    ``partition_plan`` (its defaults and ``--objective throughput
+    --cloud-bw 10``) on the host; ``serve_pipeline`` on the card (a
+    planned 4-stage pipeline with the kernels, every token checked against
+    the tensor backend's, then ``stream``); ``train_tiny`` on the card.
+    Each holds its own asserts; the kernel launches of each are printed.
+    Each ``LLM.generate`` call's launches are counted around it alone:
+    ``serve_pipeline``'s pipeline must have run the ring kernel, and its
+    tensor backend, the check on ``impl="ref"``, no kernel."""
+    from repro_torch.examples import (partition_plan, quickstart,
+                                      serve_pipeline, train_tiny)
+    from repro_torch.serving import LLM
+    t_phase = time.perf_counter()
+    generate, served = LLM.generate, []
+
+    def counted(llm, *args, **kwargs):
+        before = {n: k.launches for n, k in kernels.items()}
+        out = generate(llm, *args, **kwargs)
+        served.append((type(llm.backend).__name__,
+                       {n: k.launches - before[n] for n, k in kernels.items()
+                        if k.launches != before[n]}))
+        return out
+
+    runs = (("quickstart", quickstart.main, ()),
+            ("partition_plan", partition_plan.main, ([],)),
+            ("partition_plan --objective throughput --cloud-bw 10",
+             partition_plan.main,
+             (["--objective", "throughput", "--cloud-bw", "10"],)),
+            ("serve_pipeline", serve_pipeline.main, ([],)),
+            ("train_tiny", train_tiny.main, ([],)))
+    launches = {}
+    for name, fn, args in runs:
+        for k in kernels.values():
+            k.launches = 0
+        print(f"examples: python -m repro_torch.examples.{name}", flush=True)
+        served.clear()
+        LLM.generate = counted
+        t0 = time.perf_counter()
+        try:
+            fn(*args)
+        finally:
+            LLM.generate = generate
+        launches[name] = {n: k.launches for n, k in kernels.items()
+                          if k.launches}
+        print(f"examples: {name}: its own checks held in "
+              f"{time.perf_counter() - t0:.2f} s; kernel launches "
+              f"{launches[name]}; LLM.generate calls (backend, launches) "
+              f"{served} [{card}]", flush=True)
+        if name == "serve_pipeline":
+            pipe = [got for kind, got in served if kind == "PipelineBackend"]
+            check = [got for kind, got in served if kind == "TensorBackend"]
+            if len(pipe) != 1 or not pipe[0].get("decode_attention") \
+                    or len(check) != 1 or check[0]:
+                raise AssertionError(f"examples: serve_pipeline's pipeline "
+                                     f"generate must launch decode_attention"
+                                     f" and its ref check none: {served}")
+    print(f"examples: phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"[{card}]")
 
 
 def train_mesh_bound(opt_cfg, steps, lr_schedule):
@@ -5143,7 +5562,7 @@ def train_mesh_bound(opt_cfg, steps, lr_schedule):
                        for t in range(1, steps + 1)) + 1e-6
 
 
-def dryrun_phase(card, tp, train_mesh_out, procs_out):
+def dryrun_phase(card, tp, train_mesh_out, procs_out, multipod_out):
     """The dry runs against the phases' measurements (phase 7 of the
     module's docstring).  Returns nothing: a miss raises."""
     import dataclasses
@@ -5195,33 +5614,41 @@ def dryrun_phase(card, tp, train_mesh_out, procs_out):
                  f"step(s)", (got, st["collectives"]),
                  ({k: n * v for k, v in rec["tp"].items()}, kinds(rec, n)))
 
-    # the train mesh phase's last step, a process's collectives and peak
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
-    t0 = time.perf_counter()
-    rec = D.analyse(cfg, InputShape("train mesh", TRAIN_LEN, TRAIN_BATCH,
-                                    "train"),
-                    Mesh(("data", "model"), TRAIN_MESH_SHAPE))
-    peak = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
-    print(f"{label}: {cfg.name} float32 train step of {TRAIN_BATCH} x "
-          f"{TRAIN_LEN} on a {TRAIN_MESH_SHAPE} mesh, a process: tp "
-          f"{rec['tp']}, dp {rec['dp']}, arguments "
-          f"{rec['argument_size_in_bytes']} + temp peak "
-          f"{rec['temp_size_in_bytes']} = {peak} bytes; flops "
-          f"{rec['cost_analysis']['flops']:.6g}, bytes accessed "
-          f"{rec['cost_analysis']['bytes accessed']:.6g} "
-          f"({time.perf_counter() - t0:.2f} s on meta)")
-    for rank, st in enumerate(train_mesh_out["stats"]):
-        got = ({k: st[t][k] for k in ("calls", "bytes")}
-               for t in ("tp", "dp"))
-        held(f"train mesh process {rank} last step's collectives",
-             (*got, st["collectives"]), (rec["tp"], rec["dp"], kinds(rec)))
-        off = st["peak_bytes"] / peak - 1
-        print(f"{label}: train mesh process {rank}: peak device memory "
-              f"{st['peak_bytes']} bytes against the dry run's {peak} "
-              f"({off:+.4%}; bound {DRYRUN_PEAK_RTOL:.0%}) [{card}]")
-        if abs(off) > DRYRUN_PEAK_RTOL:
-            raise AssertionError(f"{label}: train mesh process {rank} peak "
-                                 f"{st['peak_bytes']} against {peak}")
+    # the train mesh and multi-pod phases' last steps, a process's
+    # collectives and peak (its arguments as it holds them: a trainer's
+    # private copies hold every expert)
+    for what, cfg, mesh, out in (
+            ("train mesh", dataclasses.replace(get_config(TRAIN_ARCH),
+                                               dtype="float32"),
+             Mesh(("data", "model"), TRAIN_MESH_SHAPE), train_mesh_out),
+            ("multi-pod", multipod_out["cfg"],
+             Mesh(("pod", "data", "model"), MULTIPOD_SHAPE), multipod_out)):
+        t0 = time.perf_counter()
+        rec = D.analyse(cfg, InputShape(what, TRAIN_LEN, TRAIN_BATCH,
+                                        "train"), mesh)
+        peak = rec["process_argument_bytes"] + rec["temp_size_in_bytes"]
+        print(f"{label}: {cfg.name} ({cfg.n_layers} layers) float32 train "
+              f"step of {TRAIN_BATCH} x {TRAIN_LEN} on a {mesh.shape} mesh, "
+              f"a process: tp {rec['tp']}, dp {rec['dp']}, by kind "
+              f"{short(kinds(rec))}, arguments "
+              f"{rec['process_argument_bytes']} + temp peak "
+              f"{rec['temp_size_in_bytes']} = {peak} bytes; flops "
+              f"{rec['cost_analysis']['flops']:.6g}, bytes accessed "
+              f"{rec['cost_analysis']['bytes accessed']:.6g} "
+              f"({time.perf_counter() - t0:.2f} s on meta)")
+        for rank, st in enumerate(out["stats"]):
+            got = ({k: st[t][k] for k in ("calls", "bytes")}
+                   for t in ("tp", "dp"))
+            held(f"{what} process {rank} last step's collectives",
+                 (*got, st["collectives"]),
+                 (rec["tp"], rec["dp"], kinds(rec)))
+            off = st["peak_bytes"] / peak - 1
+            print(f"{label}: {what} process {rank}: peak device memory "
+                  f"{st['peak_bytes']} bytes against the dry run's {peak} "
+                  f"({off:+.4%}; bound {DRYRUN_PEAK_RTOL:.0%}) [{card}]")
+            if abs(off) > DRYRUN_PEAK_RTOL:
+                raise AssertionError(f"{label}: {what} process {rank} peak "
+                                     f"{st['peak_bytes']} against {peak}")
 
     # the pipeline procs phase: every stage's tick
     cfg = get_config(ARCH)
@@ -5507,6 +5934,16 @@ def main():
             fa, card, heads=TRAIN_MESH_HEADS, s=TRAIN_LEN,
             b=TRAIN_BATCH // TRAIN_MESH_SHAPE[0], n_sets=4,
             dtype=torch.float32),
+        # the multi-pod phase's evaluation: a process's one of the 4 rows x
+        # 512 tokens at 8 of granite-moe's 16 query and 4 of its 8 K/V
+        # heads of 64, float32 (3 MB a set)
+        "flash_attention multi-pod": time_flash(
+            fa, card, heads=MULTIPOD_HEADS, s=TRAIN_LEN,
+            b=TRAIN_BATCH // (MULTIPOD_SHAPE[0] * MULTIPOD_SHAPE[1]),
+            n_sets=sets_past_l2((2 * MULTIPOD_HEADS[0]
+                                 + 2 * MULTIPOD_HEADS[1]) * TRAIN_LEN
+                                * MULTIPOD_HEADS[2] * 4),
+            dtype=torch.float32),
     }
     shapes = {
         "paged_attention": f"llama2-7b x {SLOTS} slots x {MAX_LEN} keys bf16",
@@ -5623,6 +6060,10 @@ def main():
                                       f"KH={TRAIN_MESH_HEADS[1]}, D=128) "
                                       f"{TRAIN_BATCH // TRAIN_MESH_SHAPE[0]}"
                                       f" x {TRAIN_LEN}, causal, float32",
+        "flash_attention multi-pod": f"{MOE_ARCH} a multi-pod process "
+                                     f"(H={MULTIPOD_HEADS[0]}, "
+                                     f"KH={MULTIPOD_HEADS[1]}, D=64) 1 x "
+                                     f"{TRAIN_LEN}, causal, float32",
     }
     for m in INT8_M:
         for k, n in INT8_PROJ:
@@ -5710,9 +6151,14 @@ def main():
     phase("train", train_phase, fa, card)
     free()
     train_mesh_out = phase("train mesh", train_mesh, card)
+    free()
+    multipod_out = phase("multi-pod", multipod_phase, card)
     done("the train phases")
-    phase("dry run", dryrun_phase, card, tp, train_mesh_out, pipe_procs)
+    phase("dry run", dryrun_phase, card, tp, train_mesh_out, pipe_procs,
+          multipod_out)
     done("the dry run")
+    phase("examples", examples_phase, wrappers, card)
+    done("the examples")
     print("chip_smoke: phase walls " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
 
@@ -5833,6 +6279,12 @@ def main():
         entry("flash_attention train mesh", "flash_attention@train mesh",
               "flash_attention.cu", "flash_attention.py:86",
               train_mesh_out["flash"]),
+        # training over the (2, 2, 2) multi-pod mesh: the trained shards'
+        # evaluation, launches summed over the 8 processes (1 x 512 tokens,
+        # 8 query and 4 K/V heads of 64 a process, float32)
+        entry("flash_attention multi-pod", "flash_attention@multi-pod",
+              "flash_attention.cu", "flash_attention.py:86",
+              multipod_out["flash"]),
         # the dense configs on both layouts, starcoder2-7b's verify and
         # gemma2-2b's score
         *(entry(f"{kind} {arch}", f"{kind}@{arch}", source,

@@ -1,4 +1,5 @@
-"""The ``(data, model)`` mesh as a grid of processes: one process a point.
+"""A mesh of processes: one process a point of any mesh the rules name,
+``(data, model)`` or the multi-pod ``(pod, data, model)``.
 
 The counterpart of the reference's programs under ``shard_map`` on its
 mesh: the GPipe forward (``src/repro/core/pipeline.py:203-277``, stages
@@ -10,9 +11,12 @@ point of a :class:`~repro_torch.launch.mesh.Mesh` on the machinery of
 :mod:`repro_torch.core.stage_procs` (:class:`ProcGroup`: spawn, a file
 rendezvous, one command at a time from the host, named failures,
 shutdown); each process builds a ``torch.distributed`` ``DeviceMesh`` over
-the gloo world, so each axis has its own process group, and runs its
-collectives through :class:`~repro_torch.core.stage_procs.Comm`'s staging
-buffers.  Each process runs one CPU thread.
+the gloo world, so each axis has its own process group, then one gloo
+group for each tuple of two or more axes short of all of them (on
+``(pod, data, model)``: ``(pod, data)``, the batch axes, ``(pod, model)``
+and ``(data, model)``), its ranks in the order of their coordinates; it
+runs its collectives through :class:`~repro_torch.core.stage_procs.Comm`'s
+staging buffers.  Each process runs one CPU thread.
 
 - **weights**: every process gets the model's own tensors (CUDA IPC on the
   card, shared memory on the CPU), so they are held once however many
@@ -32,7 +36,8 @@ buffers.  Each process runs one CPU thread.
   row; the last stage runs the final norm and the LM head;
 - :meth:`MeshProcs.forward`: ``forward(mode="train")`` on every process
   under :func:`~repro_torch.sharding.rules.use_mesh`, batch rows over
-  ``data``, tensor-parallel over ``model``
+  the batch axes (``data``, or ``(pod, data)``), tensor-parallel over
+  ``model``
   (:func:`~repro_torch.sharding.rules.tensor_parallel`, the reference's
   ``param_sharding_tree`` placement, the mLSTM's in Megatron's form):
   each process holds its query and K/V heads, its ``ff`` columns, its
@@ -143,7 +148,7 @@ class MeshProcs(ProcGroup):
                 cfg: ModelConfig = None) -> torch.Tensor:
         """``forward(mode="train")`` on every process under ``use_mesh``,
         tensor-parallel over ``model``: tokens [B, S] -> logits [B, S, V],
-        each data row's rows from its processes.  ``cfg`` (the weights'
+        each batch block's rows from its processes.  ``cfg`` (the weights'
         config by default) may differ from it in what the weights do not
         fix, e.g. the MoE capacity factor."""
         cfg = cfg or self.cfg
@@ -207,9 +212,15 @@ class _MeshRank:
             raise RuntimeError(f"rank {rank}: DeviceMesh coordinates "
                                f"{grid.get_coordinate()}, mesh "
                                f"{mesh.coords(rank)}")
-        self.comm = Comm(dist, self.device,
-                         {a: grid.get_group(a) for a in mesh.axis_names},
-                         mesh.axis_names)
+        groups = {a: grid.get_group(a) for a in mesh.axis_names}
+        # a group over each tuple of two or more axes short of all: every
+        # process creates every group, in one fixed order
+        for axes in mesh.axis_tuples(2):
+            for ranks in mesh.blocks(axes):
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axes] = group
+        self.comm = Comm(dist, self.device, groups, mesh.axis_names)
         self.mesh = mesh.at(rank, self.comm)
         self.tp_cfg, self.tp_params, self.rules = tensor_parallel(
             self.cfg, self.params, self.mesh)
@@ -320,7 +331,7 @@ def _pipeline_rank(rank: _MeshRank, tokens: torch.Tensor,
 
 def _forward_rank(rank: _MeshRank, cfg: ModelConfig, tokens: torch.Tensor,
                   out: torch.Tensor) -> None:
-    """This process's part of :meth:`MeshProcs.forward`: its data row's
+    """This process's part of :meth:`MeshProcs.forward`: its batch block's
     rows through its shard of the model under ``use_mesh``; the process at
     coordinate 0 of every other axis writes them."""
     mesh = rank.mesh

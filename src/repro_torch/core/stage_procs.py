@@ -423,8 +423,10 @@ class Comm:
     (pinned when the process runs on the card; the copy waits for the
     device), runs over gloo, and copies the result back to the device.
     Buffers are kept by role and grown as needed.  ``groups`` holds a
-    process group for each mesh axis (``axes`` names them in the mesh's
-    order); the whole group needs none.  Operations that only move data
+    process group for each tuple of mesh axes short of all of them (keyed
+    by the tuple in the mesh's order, or by an axis's name for its own),
+    ready-made (``axes`` names the mesh's axes in its order); the whole
+    group needs none.  Operations that only move data
     move bytes, so every dtype goes.  ``moe_calls`` collects what each
     expert-parallel MoE call of :mod:`repro_torch.models.moe` reports
     (:meth:`moe_report`), ``tp`` tallies the tensor-parallel sums and
@@ -438,7 +440,9 @@ class Comm:
                  groups: Optional[Dict] = None, axes: Tuple[str, ...] = ()):
         self.dist, self.device = dist, device
         self.pinned = device.type == "cuda"
-        self.groups, self.axes = groups or {}, tuple(axes)
+        self.axes = tuple(axes)
+        self.groups = {(k,) if isinstance(k, str) else tuple(k): g
+                       for k, g in (groups or {}).items()}
         self._bufs: Dict[str, torch.Tensor] = {}
         self.moe_calls: List[Dict] = []
         self.tp: Dict = {}
@@ -487,15 +491,21 @@ class Comm:
 
     def group(self, axes):
         """The process group over mesh ``axes`` (an axis, or a tuple of
-        them): an axis's own, or None for every axis in the mesh's
-        order (the whole group)."""
+        them in any order): the tuple's own, its ranks in the order of
+        their coordinates over the axes in the mesh's order, or None for
+        every axis (the whole group).  An axis the mesh lacks raises."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if axes == self.axes:
+        if len(set(axes)) != len(axes) \
+                or any(a not in self.axes for a in axes):
+            raise ValueError(f"axes {axes} are no distinct axes of the mesh "
+                             f"{self.axes}")
+        key = tuple(a for a in self.axes if a in axes)
+        if key == self.axes:
             return None
-        if len(axes) == 1 and axes[0] in self.groups:
-            return self.groups[axes[0]]
-        raise ValueError(f"no process group over {axes} (mesh axes "
-                         f"{self.axes})")
+        if key not in self.groups:
+            raise ValueError(f"no process group over {key} (mesh axes "
+                             f"{self.axes})")
+        return self.groups[key]
 
     def isend(self, x: torch.Tensor, dst: int, role: str = "send"):
         self._count("collective-permute", x.numel() * x.element_size())

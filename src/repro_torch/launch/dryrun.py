@@ -20,8 +20,10 @@ process of the port's mesh runs, not a copy of it:
 - ``decode``: ``decode_step`` under ``use_mesh`` over full caches, as a
   :class:`~repro_torch.runtime.tensor.MeshTensorBackend` process runs it.
 
-The process is rank 0 of ``make_production_mesh`` (:func:`analyse`'s
-``rank`` picks another), holding its tensor-parallel view of the weights
+The process is rank 0 of ``make_production_mesh`` ((16, 16) over
+``(data, model)``, or with ``--multi-pod`` (2, 16, 16) over
+``(pod, data, model)``, whose batch axes are ``(pod, data)``;
+:func:`analyse`'s ``rank`` picks another), holding its tensor-parallel view of the weights
 (:func:`~repro_torch.sharding.rules.tensor_parallel` under ``tp_rules``),
 its rows of the batch and its caches.  Under ``tp_rules`` every process of
 the mesh has the same shapes -- each split dimension is cut into equal
@@ -46,7 +48,10 @@ process's, the counterpart of the reference's figures a device
   reference's ``experts`` -> ``model`` placement does, while a port process
   views every expert and ``moe_ep`` takes its own at call time), its rows
   of the inputs and its caches.  The reference's AdamW step counter is an
-  int32 argument; the port's is a host int;
+  int32 argument; the port's is a host int.  ``process_argument_bytes``
+  counts the same arguments as a port process has them, every expert of
+  an MoE layer whole (a mesh trainer's private copies hold them all): with
+  ``temp_size_in_bytes``, a process's peak device memory;
 - ``output_size_in_bytes``: the step's outputs: to train, the updated
   parameters and moments, the loss and the gradient norm; to prefill, the
   last position's logits and the caches; to decode, the logits and the
@@ -124,8 +129,9 @@ from repro_torch.models import xlstm
 from repro_torch.models.attention import _check_decode_impl
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.models.frontends import input_spec_for
-from repro_torch.sharding.rules import (default_rules, local_slice,
-                                        tensor_parallel, use_mesh)
+from repro_torch.sharding.rules import (axis_size, default_rules,
+                                        local_slice, tensor_parallel,
+                                        use_mesh)
 from repro_torch.training.adamw import AdamWConfig, tree_leaves, tree_map
 from repro_torch.training.train_loop import (TrainConfig, _RankTrainer,
                                              _update_rank)
@@ -156,8 +162,8 @@ def resolve_impl(impl: str) -> str:
     if impl not in DRYRUN_IMPLS:
         raise ValueError(f"the dry run runs impl {DRYRUN_IMPLS} (or 'xla', "
                          f"which is 'ref'), not {impl!r}: no kernel runs on "
-                         f"meta (ROADMAP.md Queue 1, 'impl=\"cuda\" in the "
-                         f"dry run')")
+                         f"meta (ROADMAP.md, 'Waiting for a tracing issue': "
+                         f"'impl=\"cuda\" in the dry run')")
     return impl
 
 
@@ -201,14 +207,15 @@ class MetaComm(Comm):
     each collective returns a meta tensor of its result's shape and dtype
     and moves nothing; the tallies are the real comm's (``tp``, ``dp``,
     ``collectives`` by kind, ``zero_tp``), from the group sizes of the
-    described ``mesh``.  The staging buffers are host memory in a real
+    described ``mesh``: a group of its size for every tuple of its axes.  The staging buffers are host memory in a real
     process, so they are made outside the counters and do not count as the
     step's memory; the copy back to the device does.  ``moe_report``
     records the capacity and the row count only: the drops are data."""
 
     def __init__(self, mesh: Mesh):
         super().__init__(_MetaDist(mesh.size), META,
-                         {a: _MetaGroup(n) for a, n in mesh.shape.items()},
+                         {axes: _MetaGroup(axis_size(mesh, axes))
+                          for axes in mesh.axis_tuples()},
                          mesh.axis_names)
 
     def _buf(self, role: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
@@ -544,6 +551,8 @@ def analyse(cfg: ModelConfig, shape: InputShape, mesh: Mesh, rules=None,
                           "bytes accessed": got["bytes_accessed"]},
         "ops": got["ops"],
         "argument_size_in_bytes": int(arg_bytes),
+        "process_argument_bytes": int(sum(tree_bytes(a)
+                                          for a in args.values())),
         "output_size_in_bytes": int(tree_bytes(got["out"])),
         "temp_size_in_bytes": int(got["temp"]),
         "collective_bytes": collective_bytes(comm),

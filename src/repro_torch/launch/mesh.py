@@ -1,5 +1,5 @@
-"""Mesh descriptions: the reference's ``(data, model)`` meshes as grids of
-processes.
+"""Mesh descriptions: the reference's ``(data, model)`` and multi-pod
+``(pod, data, model)`` meshes as grids of processes.
 
 Port of ``repro.launch.mesh``.  The reference's mesh is a grid of devices
 that one SPMD program spans; the port's is a grid of processes
@@ -16,9 +16,10 @@ target's (its ``PEAK_FLOPS_BF16``, ``HBM_BW``, ``ICI_BW``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 #: NVIDIA H100 SXM (datasheet, dense): bf16 tensor-core peak, FLOP/s
 H100_SXM_PEAK_FLOPS_BF16 = 989e12
@@ -85,6 +86,29 @@ class Mesh:
     def at(self, rank: int, comm: Any = None) -> "Mesh":
         """This mesh as seen by the process of ``rank``."""
         return dataclasses.replace(self, rank=rank, comm=comm)
+
+    def axis_tuples(self, least: int = 1) -> List[Tuple[str, ...]]:
+        """Every tuple of ``least`` or more of the mesh's axes short of all
+        of them, each in the mesh's order, the shorter tuples first: the
+        axes a process group can span besides the whole group."""
+        n = len(self.axis_names)
+        return [axes for k in range(least, n)
+                for axes in itertools.combinations(self.axis_names, k)]
+
+    def blocks(self, axes: Tuple[str, ...]) -> List[List[int]]:
+        """The ranks of each process group over ``axes`` (in the mesh's
+        order): one list a point of the other axes, row-major, each list
+        in the order of its coordinates over ``axes``, the first axis
+        major -- which is ascending rank, since ranks run row-major."""
+        rest = [a for a in self.axis_names if a not in axes]
+        out = []
+        for fixed in itertools.product(*(range(self.shape[a])
+                                         for a in rest)):
+            at = dict(zip(rest, fixed))
+            out.append([self.rank_of(dict(at, **dict(zip(axes, c))))
+                        for c in itertools.product(*(range(self.shape[a])
+                                                     for a in axes))])
+        return out
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

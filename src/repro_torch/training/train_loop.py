@@ -1,14 +1,16 @@
 """Training loop: the train step (loss, gradients, AdamW) with gradient
-accumulation, and training end to end, on one device or over a
-``(data, model)`` mesh of processes.  Port of ``repro.training.train_loop``;
-the parameters are the port's own seeded weights.
+accumulation, and training end to end, on one device or over a mesh of
+processes (``(data, model)`` or ``(pod, data, model)``).  Port of
+``repro.training.train_loop``; the parameters are the port's own seeded
+weights.
 
 Over a mesh (:class:`MeshTrainStep`, the reference's ``train(...,
 mesh=)``), each process of a :class:`~repro_torch.core.mesh_procs.MeshProcs`
 trains a private copy of its tensor-parallel view
 (:func:`~repro_torch.sharding.rules.tensor_parallel`, the reference's
 ``param_sharding_tree`` placement) with float32 moments of the same shapes:
-its data row's rows of the batch, its heads (attention's and an mLSTM's),
+its block of the batch's rows (over the batch axes, ``data`` or
+``(pod, data)``), its heads (attention's and an mLSTM's),
 ``ff`` columns, RG-LRU channels and vocabulary rows, and ``moe_ep`` where
 ``model`` divides the experts.  Autograd runs
 through the collectives (:mod:`repro_torch.sharding.rules`).  A step reads
@@ -196,7 +198,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
 # --------------------------------------------------------------------------- #
 
 class MeshTrainStep:
-    """The train step over a ``(data, model)`` mesh of processes, with the
+    """The train step over a mesh of processes (``(data, model)`` or
+    ``(pod, data, model)``), with the
     one-device step's signature: ``step(params, opt, tokens, labels) ->
     (params, opt, metrics)``, where ``params`` and ``opt``'s moments are
     the host's whole trees, updated in place, and ``tokens``/``labels``
@@ -269,7 +272,7 @@ class MeshTrainStep:
                  impl: str = "ref") -> float:
         """``train_loss`` of the processes' trained shards on the global
         batch under ``torch.no_grad``, with ``impl`` (``"cuda"`` runs the
-        flash kernel in every process): its data rows' means averaged over
+        flash kernel in every process): its batch blocks' means averaged over
         the batch axes."""
         return self.procs.run(_eval_rank, tokens.cpu(), labels.cpu(),
                               impl)[0]
